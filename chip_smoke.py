@@ -1,0 +1,433 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py [--seed N]
+
+Builds the port's CUDA kernels from ``lsqrrecipes_tpu_torch/csrc/`` (into
+``build/kernels/``), holds each kernel against its plain PyTorch version on
+the card, then drives the main path — 3D sphere RANSAC — through the entry
+points a user calls, at full size, on the bench's data model (80% inliers on
+a radius-25 sphere at (5, -2, 11) with sigma 0.3, 20% uniform outliers in
+[-40, 40]^3, made by ``numpy.random.default_rng(seed)``):
+
+  1. device: card name and power limit;
+  2. build: both kernels, in parallel;
+  3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024)
+     and vs an f64 literal ``agree`` oracle;
+  4. kernel ``fused_sweep_sphere3d`` vs its plain version (n = 1,024 and
+     1,000; 64 groups; groups_per_step 1 and 4; a vote_subsample run);
+  5. ``ransac_fused_sweep`` at n = 1,024 with 2^22 hypotheses (one launch),
+     then ``fused_sweep_sphere3d`` vs its plain version at that shape;
+  6. ``ransac`` at n = 1,024 with 65,536 gathered hypotheses;
+  7. ``ransac_fused_sweep`` at n = 8,192 with 2^20 hypotheses, which falls
+     back to the structured sweep and the vote kernel.
+
+Each main-path phase sets the launch counts to 0 just before it and fails if
+a kernel of that path did not launch.  Any failed check raises, so the exit
+code is nonzero.  The line before the last is the kernels' JSON record
+(times in ms from CUDA events, bounds from this run's shapes); the last line
+is ``{"ok": true, "device": {...}}``.  Without CUDA, or without the package
+beside it, the script exits nonzero and prints no result.
+"""
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+TRUE_CENTER = np.array([5.0, -2.0, 11.0])
+TRUE_RADIUS = 25.0
+DELTA = 1.0
+
+# Peak rates of the H100 SXM (NVIDIA data sheet, dense, without sparsity):
+# f32 FLOP/s at the non-tensor-core rate (both kernels run on the FP32
+# pipes) and memory bytes/s.  Any other card has no row and stops the run.
+H100_SXM = "NVIDIA H100 80GB HBM3"
+PEAKS = (67e12, 3.35e12)
+
+# f32 operations per cell of each kernel's inner loop (an FMA counts 2):
+# sweep: 4 FMA + 1 multiply + compare + add; vote: 3 multiplies + 2 adds for
+# -2 c.p, 2 adds for d2, two compares, add.
+SWEEP_OPS_PER_CELL = 11
+SWEEP_OPS_PER_HYP = 115      # Cramer fit and band rows, once per hypothesis
+VOTE_OPS_PER_CELL = 10
+
+DEVICE = "cuda"
+# Shapes of the phases (the full-size run; see the module docstring).
+N_VOTE, B_VOTE = 1024, 65536
+SWEEP_CASES = (  # (n, total_groups, groups_per_step, vote_subsample)
+    (1024, 64, 1, 0), (1024, 64, 4, 0), (1024, 63, 4, 0),
+    (1000, 64, 1, 0), (1000, 64, 4, 0), (1024, 64, 1, 512),
+)
+N_MAIN, H_FUSED, H_GATHER = 1024, 1 << 22, 65536
+N_LARGE, H_LARGE = 8192, 1 << 20
+WALL_REPS = 10  # host-clock repeats per main-path driver (the host is shared)
+
+
+def bench_cloud(rng, n):
+    """The bench's data model, float32 ``[n, 3]``."""
+    n_in = n * 4 // 5
+    d = rng.normal(size=(n_in, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inliers = TRUE_CENTER + TRUE_RADIUS * d + 0.3 * rng.normal(size=(n_in, 3))
+    outliers = rng.uniform(-40.0, 40.0, size=(n - n_in, 3))
+    return np.concatenate([inliers, outliers]).astype(np.float32)
+
+
+def check(cond, msg):
+    if not cond:
+        raise AssertionError(msg)
+
+
+def nvidia_smi_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def peaks(name):
+    if name != H100_SXM:
+        raise AssertionError(f"no peak rates known for {name!r}")
+    return PEAKS
+
+
+def bound(ops, nbytes, rates):
+    """Least time (ms) for ``ops`` f32 operations and ``nbytes`` of memory
+    traffic at ``rates``, and which of the two sets it."""
+    t_ops, t_bytes = ops / rates[0], nbytes / rates[1]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def compare_sweep(fs, est, coords, p, n_fit, num_groups, vote_cols, voters, label):
+    """One launch of the sweep kernel against its plain version on the same
+    inputs: best count within 1, the kernel's winner re-achieving its count
+    under ``agree`` within 1, and, where the winner indices match, the
+    parameters equal bit for bit.  Returns the largest absolute error."""
+    kc, kp, ki = fs.sphere3d_sweep_cuda(coords, p, n_fit, num_groups, vote_cols, DELTA)
+    pc, pp_, pi = fs.sphere3d_sweep_plain(coords, p, n_fit, num_groups, vote_cols, DELTA)
+    kc, pc, ki, pi = int(kc), int(pc), int(ki), int(pi)
+    regain = int(est.agree(kp, voters).sum())
+    d_count = abs(kc - pc)
+    params_err = float((kp - pp_).abs().max()) if ki == pi else None
+    print(f"{label}: count kernel={kc} plain={pc} agree={regain}; "
+          f"index kernel={ki} plain={pi}"
+          + (f"; params max|d|={params_err:.3g}" if params_err is not None else ""))
+    check(d_count <= 1, f"{label}: fused sweep count disagrees with its plain version")
+    check(abs(regain - kc) <= 1, f"{label}: fused sweep winner does not re-achieve its count")
+    check(ki < num_groups * n_fit, f"{label}: fused sweep winner index out of range")
+    check(params_err in (None, 0.0), f"{label}: same winner, different params")
+    return max(d_count, params_err or 0.0)
+
+
+class Timer:
+    """CUDA-event timing of a callable: mean ms over ``reps`` after warm-up."""
+
+    def __init__(self, torch):
+        self.torch = torch
+
+    def ms(self, fn, reps=10, warmup=2):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def wall_ms(self, fn, reps):
+        """Median host-clock ms of ``fn`` ending in a synchronize."""
+        torch = self.torch
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+
+def breakdown(torch, fn, label, top=6):
+    """One profiled call of ``fn``: wall ms, summed device time of its
+    kernels, the device's idle share of the wall, and the top kernels.
+    Only device-side events count: an operator's own row repeats the time
+    of the kernels it launched."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = evt.self_device_time_total
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, evt.count, evt.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    idle = 1.0 - busy / wall if wall > 0 else float("nan")
+    print(f"    profile {label}: wall {wall:.3f} ms, device busy {busy:.3f} ms, "
+          f"idle share {idle:.3f}")
+    for ms, count, key in rows[:top]:
+        print(f"      {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+
+
+def library_vote(torch, params, pts, delta, chunk=8192):
+    """One-library-call yardstick for the vote: ``addmm`` distance matrix +
+    band test, chunked over hypotheses.  Not used by the port."""
+    pp = (pts * pts).sum(1)
+    out = []
+    for b0 in range(0, params.shape[0], chunk):
+        prm = params[b0 : b0 + chunk]
+        c, r = prm[:, :3], prm[:, 3]
+        cc = (c * c).sum(1, keepdim=True)
+        d2 = torch.addmm(cc, c, pts.T, alpha=-2.0) + pp
+        lo = torch.where(r >= delta, (r - delta) ** 2, -torch.inf)[:, None]
+        out.append(((d2 < ((r + delta) ** 2)[:, None]) & (d2 > lo)).sum(1))
+    return torch.cat(out)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+
+    from lsqrrecipes_tpu_torch import kernels
+    from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+    from lsqrrecipes_tpu_torch.ops import vote
+    from lsqrrecipes_tpu_torch.ransac import ransac, ransac_fused_sweep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    rng = np.random.default_rng(args.seed)
+    timer = Timer(torch)
+    est = SphereEstimator(DELTA, 3, ALGEBRAIC)
+
+    # 1. device -------------------------------------------------------------
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    print(f"[1] device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    rates = peaks(name)
+
+    # 2. build --------------------------------------------------------------
+    t0 = time.perf_counter()
+    kernels.build_all()
+    print(f"[2] build: {time.perf_counter() - t0:.1f} s (both kernels, parallel nvcc)")
+    for k in kernels.ALL:
+        for line in k.build_log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"    {k.name}: {line.strip()}")
+
+    # 3. sphere_vote vs plain -----------------------------------------------
+    n, b = N_VOTE, B_VOTE
+    pts_np = bench_cloud(rng, n)
+    pts = torch.as_tensor(pts_np, device=dev)
+    near = np.concatenate([TRUE_CENTER + rng.normal(0, 2.0, (b // 2, 3)),
+                           TRUE_RADIUS + rng.normal(0, 2.0, (b // 2, 1))], 1)
+    wide = np.concatenate([rng.uniform(-20, 30, (b - b // 2, 3)),
+                           rng.uniform(5, 45, (b - b // 2, 1))], 1)
+    params = torch.as_tensor(np.concatenate([near, wide]).astype(np.float32), device=dev)
+    points_t, valid, _ = vote.pack_points(pts)
+    got = vote.sphere_vote_counts_cuda(params, points_t, valid, DELTA)
+    plain = vote.sphere_vote_counts_plain(params, points_t, valid, DELTA)
+    torch.cuda.synchronize()
+    vote_err = int((got.long() - plain.long()).abs().max())
+    sub = torch.arange(0, b, b // 4096, device=dev)
+    p64, c64 = pts.double(), params[sub].double()
+    dist = torch.cdist(c64[:, :3], p64, compute_mode="donot_use_mm_for_euclid_dist")
+    oracle = ((dist - c64[:, 3:4]).abs() < DELTA).sum(1)
+    flips = (got[sub].long() - oracle).abs()
+    print(f"[3] sphere_vote B={b} n={n}: max|kernel-plain|={vote_err} (<=1); "
+          f"vs f64 agree on {len(sub)}: max|d|={int(flips.max())} (<=5), "
+          f"total flips={int(flips.sum())}; mean count={float(got.float().mean()):.1f}")
+    check(vote_err <= 1, "sphere_vote disagrees with its plain version")
+    check(int(flips.max()) <= 5, "sphere_vote disagrees with the f64 oracle")
+    vote_ms = timer.ms(lambda: vote.sphere_vote_counts_cuda(params, points_t, valid, DELTA), reps=20)
+    vote_plain_ms = timer.ms(lambda: vote.sphere_vote_counts_plain(params, points_t, valid, DELTA), reps=5)
+    vote_lib_ms = timer.ms(lambda: library_vote(torch, params, pts, DELTA), reps=5)
+    lib = library_vote(torch, params, pts, DELTA)
+    print(f"    library yardstick max|d| vs kernel = {int((lib - got.long()).abs().max())}")
+    vote_ops = b * n * VOTE_OPS_PER_CELL
+    vote_bytes = b * 16 + 4 * points_t.shape[1] * 4 + b * 4
+    vote_bound, vote_by = bound(vote_ops, vote_bytes, rates)
+    print(f"    ms: kernel {vote_ms:.4f}, plain {vote_plain_ms:.4f}, library {vote_lib_ms:.4f}, "
+          f"bound {vote_bound:.4f} ({vote_by}) [{smi}]")
+
+    # 4. fused_sweep_sphere3d vs plain --------------------------------------
+    sweep_err = 0
+    for n_case, total_groups, gps, subsample in SWEEP_CASES:
+        cloud = torch.as_tensor(bench_cloud(rng, n_case), device=dev)
+        g4 = torch.Generator(device=dev).manual_seed(args.seed + n_case + gps)
+        vote_perm = torch.randperm(n_case, generator=g4, device=dev)
+        coords, p, n_fit, vote_cols = fs.sweep_inputs(
+            "sphere3d", cloud, g4, subsample, vote_perm=vote_perm
+        )
+        num_groups = -(-total_groups // gps) * gps
+        voters = cloud[vote_perm][:vote_cols] if subsample else cloud
+        sweep_err = max(sweep_err, compare_sweep(
+            fs, est, coords, p, n_fit, num_groups, vote_cols, voters,
+            f"[4] fused_sweep n={n_case} groups={total_groups} gps={gps} "
+            f"subsample={subsample}"))
+
+    # 5. main path: ransac_fused_sweep, one launch ---------------------------
+    seeds = iter(range(args.seed + 100, args.seed + 10_000))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(next(seeds))
+
+    def check_result(result, label, n):
+        params = result.params.double().cpu().numpy()
+        c_err = float(np.abs(params[:3] - TRUE_CENTER).max())
+        r_err = abs(float(params[3]) - TRUE_RADIUS)
+        print(f"    {label}: valid={bool(result.valid)} center={params[:3].round(4).tolist()} "
+              f"r={params[3]:.4f} inliers={int(result.best_count)} "
+              f"fraction={float(result.inlier_fraction):.4f}")
+        check(bool(result.valid), f"{label}: result not valid")
+        check(c_err < 0.1 and r_err < 0.1, f"{label}: center {c_err} / radius {r_err} off")
+        check(tuple(result.consensus.shape) == (n,), f"{label}: consensus shape")
+        check(bool(np.isfinite(params).all()), f"{label}: non-finite params")
+
+    launches = {}
+    n5, h5 = N_MAIN, H_FUSED
+    cloud5 = bench_cloud(rng, n5)
+    kernels.reset_launch_counts()
+    res5 = ransac_fused_sweep(est, cloud5, gen(), num_hypotheses=h5, device=DEVICE)
+    torch.cuda.synchronize()
+    counts5 = kernels.launch_counts()
+    print(f"[5] ransac_fused_sweep n={n5} hypotheses={h5}: launches {counts5}")
+    check_result(res5, "fused", n5)
+    check(counts5["fused_sweep_sphere3d"] > 0, "main path did not launch fused_sweep_sphere3d")
+    for k, v in counts5.items():
+        launches[k] = launches.get(k, 0) + v
+    wall5 = timer.wall_ms(lambda: ransac_fused_sweep(est, cloud5, gen(), num_hypotheses=h5, device=DEVICE),
+                          reps=WALL_REPS)
+    print(f"    wall {wall5:.3f} ms median of {WALL_REPS}, {h5 / wall5 * 1e3:.4g} hypotheses/s [{smi}]")
+    breakdown(torch, lambda: ransac_fused_sweep(est, cloud5, gen(), num_hypotheses=h5, device=DEVICE),
+              "fused")
+
+    pts5 = torch.as_tensor(cloud5, device=dev)
+    coords5, p5, nfit5, cols5 = fs.sweep_inputs("sphere3d", pts5, gen())
+    groups5 = h5 // n5
+    sweep_ms = timer.ms(lambda: fs.sphere3d_sweep_cuda(coords5, p5, nfit5, groups5, cols5, DELTA), reps=20)
+    sweep_plain_ms = timer.ms(lambda: fs.sphere3d_sweep_plain(coords5, p5, nfit5, groups5, cols5, DELTA),
+                              reps=2, warmup=1)
+    hyp5 = groups5 * nfit5
+    sweep_ops = hyp5 * (cols5 * SWEEP_OPS_PER_CELL + SWEEP_OPS_PER_HYP)
+    sweep_bytes = (coords5.numel() + p5.numel() + 5) * 4
+    sweep_bound, sweep_by = bound(sweep_ops, sweep_bytes, rates)
+    print(f"    kernel ms: sweep {sweep_ms:.4f}, plain {sweep_plain_ms:.4f}, "
+          f"bound {sweep_bound:.4f} ({sweep_by}) [{smi}]")
+    sweep_err = max(sweep_err, compare_sweep(
+        fs, est, coords5, p5, nfit5, groups5, cols5, pts5,
+        f"    fused_sweep at this shape ({groups5} groups)"))
+
+    # 6. main path: ransac, gathered hypotheses -----------------------------
+    h6 = H_GATHER
+    kernels.reset_launch_counts()
+    res6 = ransac(est, cloud5, gen(), num_hypotheses=h6, device=DEVICE)
+    torch.cuda.synchronize()
+    counts6 = kernels.launch_counts()
+    print(f"[6] ransac n={n5} hypotheses={h6}: launches {counts6}")
+    check_result(res6, "gather", n5)
+    check(counts6["sphere_vote"] > 0, "main path did not launch sphere_vote")
+    for k, v in counts6.items():
+        launches[k] = launches.get(k, 0) + v
+    wall6 = timer.wall_ms(lambda: ransac(est, cloud5, gen(), num_hypotheses=h6, device=DEVICE),
+                          reps=WALL_REPS)
+    print(f"    wall {wall6:.3f} ms median of {WALL_REPS}, {h6 / wall6 * 1e3:.4g} hypotheses/s [{smi}]")
+    breakdown(torch, lambda: ransac(est, cloud5, gen(), num_hypotheses=h6, device=DEVICE), "gather")
+
+    # 7. main path: large cloud, structured fallback -------------------------
+    n7, h7 = N_LARGE, H_LARGE
+    cloud7 = bench_cloud(rng, n7)
+    kernels.reset_launch_counts()
+    res7 = ransac_fused_sweep(est, cloud7, gen(), num_hypotheses=h7, device=DEVICE)
+    torch.cuda.synchronize()
+    counts7 = kernels.launch_counts()
+    print(f"[7] ransac_fused_sweep n={n7} hypotheses={h7} (structured fallback): "
+          f"launches {counts7}")
+    check_result(res7, "large", n7)
+    check(counts7["sphere_vote"] > 0, "large-cloud path did not launch sphere_vote")
+    for k, v in counts7.items():
+        launches[k] = launches.get(k, 0) + v
+    wall7 = timer.wall_ms(lambda: ransac_fused_sweep(est, cloud7, gen(), num_hypotheses=h7, device=DEVICE),
+                          reps=WALL_REPS)
+    print(f"    wall {wall7:.3f} ms median of {WALL_REPS}, {h7 / wall7 * 1e3:.4g} hypotheses/s [{smi}]")
+    breakdown(torch, lambda: ransac_fused_sweep(est, cloud7, gen(), num_hypotheses=h7, device=DEVICE),
+              "large")
+
+    pts7 = torch.as_tensor(cloud7, device=dev)
+    params7 = torch.as_tensor(
+        np.concatenate([TRUE_CENTER + rng.normal(0, 2.0, (h7, 3)),
+                        TRUE_RADIUS + rng.normal(0, 2.0, (h7, 1))], 1).astype(np.float32),
+        device=dev,
+    )
+    pt7, valid7, _ = vote.pack_points(pts7)
+    got7 = vote.sphere_vote_counts_cuda(params7, pt7, valid7, DELTA)
+    plain7 = vote.sphere_vote_counts_plain(params7, pt7, valid7, DELTA)
+    err7 = int((got7.long() - plain7.long()).abs().max())
+    frac7 = float((got7 != plain7).float().mean())
+    print(f"    sphere_vote B={h7} n={n7}: max|kernel-plain|={err7} (<=1), "
+          f"hypotheses differing {frac7:.2e}")
+    check(err7 <= 1, "sphere_vote disagrees with its plain version at the large shape")
+    ms7 = timer.ms(lambda: vote.sphere_vote_counts_cuda(params7, pt7, valid7, DELTA), reps=10)
+    plain_ms7 = timer.ms(lambda: vote.sphere_vote_counts_plain(params7, pt7, valid7, DELTA),
+                         reps=2, warmup=1)
+    lib_ms7 = timer.ms(lambda: library_vote(torch, params7, pts7, DELTA), reps=2, warmup=1)
+    ops7 = h7 * n7 * VOTE_OPS_PER_CELL
+    bytes7 = h7 * 16 + 4 * pt7.shape[1] * 4 + h7 * 4
+    bound7, by7 = bound(ops7, bytes7, rates)
+    print(f"    ms kernel {ms7:.4f}, "
+          f"plain {plain_ms7:.4f}, library {lib_ms7:.4f}, bound {bound7:.4f} ({by7}) [{smi}]")
+
+    # 8. kernels line, card line, result line ---------------------------------
+    record = {"kernels": [
+        {"name": "fused_sweep_sphere3d", "route": "cuda",
+         "source": "lsqrrecipes_tpu_torch/csrc/fused_sweep_sphere3d.cu",
+         "replaces": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
+         "launches": launches["fused_sweep_sphere3d"], "max_abs_err": sweep_err,
+         "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
+         "bound_by": sweep_by, "library_ms": None},
+        {"name": "sphere_vote", "route": "cuda",
+         "source": "lsqrrecipes_tpu_torch/csrc/sphere_vote.cu",
+         "replaces": "lsqrrecipes_tpu/ops/vote.py:76",
+         "launches": launches["sphere_vote"], "max_abs_err": max(vote_err, err7),
+         "ms": vote_ms, "plain_ms": vote_plain_ms, "bound_ms": vote_bound,
+         "bound_by": vote_by, "library_ms": vote_lib_ms},
+    ]}
+    for k in record["kernels"]:
+        check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")), "bad timing")
+    print(json.dumps(record))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

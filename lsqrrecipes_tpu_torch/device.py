@@ -1,0 +1,48 @@
+"""Device resolution for the port's entry points.
+
+Rule: numpy (or other non-tensor) input goes to ``"cuda"`` unless the caller
+passes ``device="cpu"``; a tensor stays on its own device.  When CUDA is
+asked for and is not available this raises — it never falls back to the CPU
+silently.
+"""
+
+import numpy as np
+import torch
+
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=None, like=None) -> torch.device:
+    """The device an entry point runs on.
+
+    ``like``: the caller's data; a tensor fixes the device unless ``device``
+    is given explicitly.  Raises ``RuntimeError`` for a CUDA device when
+    CUDA is unavailable.
+    """
+    if device is None:
+        device = like.device if isinstance(like, torch.Tensor) else DEFAULT_DEVICE
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' (or CPU tensors) to run "
+            "the plain PyTorch versions on the host"
+        )
+    return dev
+
+
+def as_tensor(data, device=None, dtype=None) -> torch.Tensor:
+    """``data`` as a tensor on the resolved device (numpy dtype kept unless
+    ``dtype`` is given)."""
+    dev = resolve_device(device, data)
+    if isinstance(data, torch.Tensor):
+        return data.to(device=dev, dtype=dtype or data.dtype)
+    arr = np.asarray(data)
+    if not arr.flags.writeable:      # e.g. a view of a JAX array
+        arr = arr.copy()
+    return torch.as_tensor(arr, device=dev, dtype=dtype)
+
+
+def generator_device(generator, device) -> torch.device:
+    """Where random draws are made: on the generator's own device when one
+    is given (a CPU generator may drive CUDA work), else on ``device``."""
+    return generator.device if generator is not None else torch.device(device)

@@ -1,0 +1,162 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
+``nvcc`` for ``sm_90a`` into its own shared library and called through
+``ctypes`` (no PyTorch headers, so a build takes seconds).  Builds happen at
+first use, from the sources in this package only, into ``build/kernels/``
+beside the package; a library's file name carries a hash of its source and
+flags, so a stale build is never loaded.  Nothing here runs at import time.
+
+Every :class:`Kernel` keeps ``launches``, a plain count that its wrapper
+raises by one per launch, so a run can show that it went through the kernel.
+"""
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+
+# No --use_fast_math: it changes sqrtf/division rounding and flushes
+# denormals, and both kernels are held against f32 plain versions.
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, ``nvcc`` on PATH, or
+    ``/usr/local/cuda/bin/nvcc``.  Raises ``FileNotFoundError`` if none."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(str(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc"))
+    on_path = shutil.which("nvcc")
+    if on_path:
+        candidates.append(on_path)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for path in candidates:
+        if os.access(path, os.X_OK):
+            return path
+    raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+class Kernel:
+    """One ``.cu`` source, its built library and its launch count.
+
+    ``symbol`` is the C launch function: it returns ``cudaGetLastError()``
+    (0 on success) after enqueueing on the stream it is given.
+    """
+
+    def __init__(self, name: str, source: str, symbol: str, argtypes):
+        self.name = name
+        self.source = CSRC_DIR / source
+        self.symbol = symbol
+        self.argtypes = list(argtypes)
+        self.launches = 0
+        self.build_log = ""
+        self._fn = None
+        self._lib = None
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(
+            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
+        return BUILD_DIR / f"{self.name}-{digest}.so"
+
+    def start_build(self):
+        """Start ``nvcc`` unless the library exists; returns
+        ``(process, temporary output)`` or None.  Finish with
+        :meth:`finish_build`."""
+        out = self.library_path()
+        if out.exists():
+            return None
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        return proc, tmp
+
+    def finish_build(self, started) -> None:
+        """Wait for a build from :meth:`start_build`; raise if it failed."""
+        if started is None:
+            return
+        proc, tmp = started
+        self.build_log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {self.source}:\n{self.build_log}")
+        os.replace(tmp, self.library_path())
+
+    def load(self):
+        """The C launch function, building the library first if needed."""
+        if self._fn is None:
+            self.finish_build(self.start_build())
+            self._lib = ctypes.CDLL(str(self.library_path()))
+            fn = getattr(self._lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            err = self._lib.lsq_cuda_error_string
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            self._fn = fn
+        return self._fn
+
+    def launch(self, *args) -> None:
+        """Call the C launch function; raise on a nonzero CUDA error, else
+        count the launch."""
+        code = self.load()(*args)
+        if code != 0:
+            msg = self._lib.lsq_cuda_error_string(code).decode()
+            raise RuntimeError(f"{self.name} launch failed: CUDA error {code} ({msg})")
+        self.launches += 1
+
+
+SPHERE_VOTE = Kernel(
+    "sphere_vote", "sphere_vote.cu", "sphere_vote_launch",
+    # params, points_t, valid, n_pad, num_hyp, delta, counts, stream
+    [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P],
+)
+
+FUSED_SWEEP_SPHERE3D = Kernel(
+    "fused_sweep_sphere3d", "fused_sweep_sphere3d.cu", "fused_sweep_sphere3d_launch",
+    # coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups,
+    # b, m, mask, delta, best_key, best_out, best_index, stream
+    [_P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+     ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+     ctypes.c_float, _P, _P, _P, _P],
+)
+
+ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE)
+
+
+def build_all(kernels=ALL) -> None:
+    """Build every kernel's library, one ``nvcc`` per source, all started
+    together, then load them."""
+    started = [(k, k.start_build()) for k in kernels]
+    errors = []
+    for k, build in started:      # wait for every build before raising
+        try:
+            k.finish_build(build)
+        except RuntimeError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    for k in kernels:
+        k.load()
+
+
+def reset_launch_counts(kernels=ALL) -> None:
+    for k in kernels:
+        k.launches = 0
+
+
+def launch_counts(kernels=ALL) -> dict:
+    return {k.name: k.launches for k in kernels}

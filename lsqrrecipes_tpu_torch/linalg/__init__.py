@@ -1,0 +1,18 @@
+"""Linear algebra (see :mod:`lsqrrecipes_tpu_torch.linalg.lstsq`)."""
+
+from lsqrrecipes_tpu_torch.linalg.lstsq import (
+    masked_pinv_solve,
+    pinv_solve,
+    svd_f64,
+    svd_rank,
+)
+from lsqrrecipes_tpu_torch.linalg.small import solve2, solve3
+
+__all__ = [
+    "masked_pinv_solve",
+    "pinv_solve",
+    "svd_f64",
+    "svd_rank",
+    "solve2",
+    "solve3",
+]

@@ -1,0 +1,137 @@
+"""Fused RANSAC vote for sphere hypotheses (counterpart of
+``lsqrrecipes_tpu/ops/vote.py``: ``pack_points`` and ``sphere_vote_counts``).
+
+:func:`sphere_vote_counts` counts inliers for a batch of hypotheses without
+materialising the ``[B, n]`` distance matrix: on a CUDA tensor it launches
+the hand-written kernel ``csrc/sphere_vote.cu``; on a CPU tensor it runs
+:func:`sphere_vote_counts_plain`, the same predicate in plain PyTorch.
+"""
+
+import ctypes
+
+import torch
+
+from lsqrrecipes_tpu_torch import kernels
+from lsqrrecipes_tpu_torch.device import as_tensor
+
+# Rows of one plain-version chunk: bounds its [chunk, n_pad] temporaries.
+_PLAIN_CELLS = 1 << 24
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _sum_sq_rows(rows):
+    """``sum_k rows[k]^2`` added in row order (the TPU kernel's order)."""
+    total = rows[0] * rows[0]
+    for k in range(1, rows.shape[0]):
+        total = total + rows[k] * rows[k]
+    return total
+
+
+def pack_points(points):
+    """``[n, d] -> (points_t[d, n_pad] f32, valid[1, n_pad] f32, n)`` with
+    ``n_pad`` the next multiple of 128; padding columns are 0 and invalid."""
+    n, d = points.shape
+    n_pad = _round_up(n, 128)
+    points_t = torch.zeros((d, n_pad), dtype=torch.float32, device=points.device)
+    points_t[:, :n] = points.to(torch.float32).T
+    valid = torch.zeros((1, n_pad), dtype=torch.float32, device=points.device)
+    valid[0, :n] = 1.0
+    return points_t, valid, n
+
+
+def _check_vote_args(params, points_t, valid):
+    if params.ndim != 2 or params.shape[1] != 4:
+        raise ValueError(f"params must be [B, 4], got {tuple(params.shape)}")
+    if points_t.ndim != 2 or points_t.shape[0] != 3:
+        raise ValueError(f"points_t must be [3, n_pad], got {tuple(points_t.shape)}")
+    if valid.shape != (1, points_t.shape[1]):
+        raise ValueError(f"valid must be [1, {points_t.shape[1]}], got {tuple(valid.shape)}")
+    devices = {params.device, points_t.device, valid.device}
+    if len(devices) != 1:
+        raise ValueError(f"params, points_t and valid lie on different devices: {devices}")
+
+
+def sphere_vote_counts_plain(params, points_t, valid, delta):
+    """Plain PyTorch version of the kernel: ``int32[B]`` counts of valid
+    columns with ``lo2 < |p|^2 - 2 c.p + |c|^2 < (r + delta)^2``.
+
+    It repeats the kernel's f32 arithmetic operation by operation (``c.p``
+    summed elementwise in coordinate order, no matrix product), so the two
+    give equal counts.
+    """
+    _check_vote_args(params, points_t, valid)
+    params = params.to(torch.float32)
+    pts = points_t.to(torch.float32)
+    pp = _sum_sq_rows(pts)[None, :]
+    live = valid.to(torch.float32) != 0
+    delta = torch.tensor(delta, dtype=torch.float32, device=params.device)
+    chunk = max(1, _PLAIN_CELLS // max(1, pts.shape[1]))
+    out = []
+    for b0 in range(0, params.shape[0], chunk):
+        prm = params[b0 : b0 + chunk]
+        c = prm[:, 0:3]
+        r = prm[:, 3]
+        cp = c[:, 0:1] * pts[0] + c[:, 1:2] * pts[1] + c[:, 2:3] * pts[2]
+        cc = _sum_sq_rows(c.T)[:, None]
+        d2 = pp - 2.0 * cp + cc
+        rp = r + delta
+        rm = r - delta
+        hi2 = (rp * rp)[:, None]
+        lo2 = torch.where(rm >= 0.0, rm * rm, -torch.inf)[:, None]
+        agree = (d2 < hi2) & (d2 > lo2) & live
+        out.append(agree.sum(dim=1, dtype=torch.int32))
+    if not out:
+        return torch.zeros((0,), dtype=torch.int32, device=params.device)
+    return torch.cat(out)
+
+
+def sphere_vote_counts_cuda(params, points_t, valid, delta):
+    """Launch ``csrc/sphere_vote.cu`` on the current stream -> ``int32[B]``.
+
+    Raises on a non-CUDA, non-f32, non-contiguous or misshapen input, and
+    when the build or the launch fails.
+    """
+    _check_vote_args(params, points_t, valid)
+    for name, t in (("params", params), ("points_t", points_t), ("valid", valid)):
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    b, n_pad = params.shape[0], points_t.shape[1]
+    if b >= 2**31 or n_pad >= 2**31:
+        raise ValueError("sphere_vote_counts supports fewer than 2^31 hypotheses and points")
+    counts = torch.empty((b,), dtype=torch.int32, device=params.device)
+    if b == 0:
+        return counts
+    with torch.cuda.device(params.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.SPHERE_VOTE.launch(
+            params.data_ptr(), points_t.data_ptr(), valid.data_ptr(),
+            n_pad, b, ctypes.c_float(float(delta)), counts.data_ptr(), stream,
+        )
+    return counts
+
+
+def sphere_vote_counts(params, points_t, valid, delta, *, device=None):
+    """Inlier counts for sphere hypotheses -> ``int32[B]``.
+
+    params: ``[B, 4]`` (center, radius) float32; ``points_t``/``valid`` from
+    :func:`pack_points`.  Numpy params go to ``device`` (default CUDA), a
+    tensor stays on its device, and the points follow the params.  On CUDA
+    this launches the kernel (any B; the TPU kernel's 512-row blocks do not
+    apply); on the CPU it runs :func:`sphere_vote_counts_plain`.
+    """
+    params = as_tensor(params, device)
+    points_t = as_tensor(points_t, params.device)
+    valid = as_tensor(valid, params.device)
+    if params.is_cuda:
+        return sphere_vote_counts_cuda(
+            params.to(torch.float32).contiguous(), points_t.contiguous(),
+            valid.contiguous(), delta,
+        )
+    return sphere_vote_counts_plain(params, points_t, valid, delta)

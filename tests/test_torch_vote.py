@@ -1,0 +1,131 @@
+"""Port parity: ``lsqrrecipes_tpu_torch.ops.vote`` vs ``lsqrrecipes_tpu.ops.vote``.
+
+The JAX Pallas kernel runs in interpret mode on the CPU (as the JAX
+package's own tests run it); the port's CPU path is the plain version of the
+CUDA kernel.  f32 counts may differ by one at a band edge, because the two
+sum ``c.p`` in different orders: |delta| <= 1 per hypothesis and >= 99.9%
+exactly equal.  float64 votes (the estimator's plain path) are exact.
+"""
+
+import functools
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from lsqrrecipes_tpu.estimators import ALGEBRAIC as J_ALGEBRAIC
+from lsqrrecipes_tpu.estimators import SphereEstimator as JSphere
+from lsqrrecipes_tpu.ops import vote as jvote
+from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+from lsqrrecipes_tpu_torch.ops import vote
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(
+        pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True)
+    )
+
+
+def _points(seed, n):
+    rng = np.random.default_rng(seed)
+    n_in = n * 4 // 5
+    d = rng.normal(size=(n_in, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inl = np.array([5.0, -2.0, 11.0]) + 25.0 * d + 0.3 * rng.normal(size=(n_in, 3))
+    out = rng.uniform(-40.0, 40.0, size=(n - n_in, 3))
+    return np.concatenate([inl, out]).astype(np.float32)
+
+
+def _params(seed, b):
+    rng = np.random.default_rng(seed)
+    near = np.concatenate([np.array([5.0, -2.0, 11.0]) + rng.normal(0, 2, (b // 2, 3)),
+                           25.0 + rng.normal(0, 2, (b // 2, 1))], 1)
+    wide = np.concatenate([rng.uniform(-20, 30, (b - b // 2, 3)),
+                           rng.uniform(0.2, 45, (b - b // 2, 1))], 1)
+    return np.concatenate([near, wide]).astype(np.float32)
+
+
+@pytest.mark.parametrize("n", [200, 256])
+def test_pack_points_matches_jax(n):
+    pts = _points(n, n)
+    tj, vj, nj = jvote.pack_points(jnp.asarray(pts))
+    tt, vt, nt = vote.pack_points(torch.as_tensor(pts))
+    assert nt == nj == n
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(tj))
+    np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+
+
+@pytest.mark.parametrize("n,delta", [(200, 2.0), (256, 1.0)])
+def test_plain_vote_f32_vs_pallas_interpret(interpret_pallas, n, delta):
+    pts = _points(1, n)
+    params = _params(2, 2048)
+    tj, vj, _ = jvote.pack_points(jnp.asarray(pts))
+    cj = np.asarray(jvote.sphere_vote_counts(jnp.asarray(params), tj, vj, delta, block_b=256))
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    ct = vote.sphere_vote_counts(torch.as_tensor(params), tt, vt, delta).numpy()
+    assert ct.dtype == np.int32
+    diff = np.abs(ct.astype(np.int64) - cj)
+    assert diff.max() <= 1
+    assert (diff == 0).mean() >= 0.999
+    assert cj.max() > n // 2               # the near half finds the sphere
+
+
+def test_estimator_vote_counts_f64_exact():
+    pts = _points(3, 256).astype(np.float64)
+    params = _params(4, 512).astype(np.float64)
+    cj = JSphere(1.0, 3, J_ALGEBRAIC).vote_counts(jnp.asarray(params), jnp.asarray(pts))
+    ct = SphereEstimator(1.0, 3, ALGEBRAIC).vote_counts(torch.as_tensor(params), torch.as_tensor(pts))
+    np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
+
+
+@pytest.mark.parametrize("b", [512, 500])
+def test_estimator_vote_counts_f32_dispatch(b):
+    # b % 512 == 0 takes the kernel wrapper (plain version on the CPU),
+    # otherwise the estimator's own formula: both within one of JAX's.
+    pts = _points(5, 256)
+    params = _params(6, b)
+    cj = np.asarray(JSphere(1.0, 3, J_ALGEBRAIC).vote_counts(jnp.asarray(params), jnp.asarray(pts)))
+    ct = SphereEstimator(1.0, 3, ALGEBRAIC).vote_counts(torch.as_tensor(params), torch.as_tensor(pts))
+    assert np.abs(ct.numpy().astype(np.int64) - cj).max() <= 1
+
+
+def test_plain_vote_equals_literal_agree_away_from_edges():
+    pts = _points(7, 256)
+    params = _params(8, 1024)
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    counts = vote.sphere_vote_counts_plain(torch.as_tensor(params), tt, vt, 1.0).numpy()
+    p64, c64 = pts.astype(np.float64), params.astype(np.float64)
+    dist = np.linalg.norm(p64[None] - c64[:, None, :3], axis=-1)
+    oracle = (np.abs(dist - c64[:, 3:4]) < 1.0).sum(1)
+    assert np.abs(counts - oracle).max() <= 1
+
+
+def test_wrapper_on_cpu_runs_plain_and_cuda_path_rejects_cpu():
+    pts = _points(9, 128)
+    params = torch.as_tensor(_params(10, 64))
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    np.testing.assert_array_equal(
+        vote.sphere_vote_counts(params, tt, vt, 1.0).numpy(),
+        vote.sphere_vote_counts_plain(params, tt, vt, 1.0).numpy(),
+    )
+    with pytest.raises(ValueError, match="CUDA"):
+        vote.sphere_vote_counts_cuda(params, tt, vt, 1.0)
+    with pytest.raises(ValueError):
+        vote.sphere_vote_counts_plain(params[:, :3], tt, vt, 1.0)
+
+
+def test_numpy_input_needs_cuda_unless_cpu_is_asked():
+    if torch.cuda.is_available():
+        pytest.skip("CUDA present: numpy input legitimately goes to the card")
+    pts = _points(11, 128)
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    params = _params(12, 64)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        vote.sphere_vote_counts(params, tt, vt, 1.0)
+    counts = vote.sphere_vote_counts(params, tt, vt, 1.0, device="cpu")
+    assert counts.device.type == "cpu" and counts.shape == (64,)
