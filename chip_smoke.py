@@ -5,13 +5,18 @@
 
 Builds the port's CUDA kernels from ``lsqrrecipes_tpu_torch/csrc/`` (into
 ``build/kernels/``), holds each kernel against its plain PyTorch version on
-the card, then drives the main path — 3D sphere RANSAC — through the entry
-points a user calls, at full size, on the bench's data model (80% inliers on
-a radius-25 sphere at (5, -2, 11) with sigma 0.3, 20% uniform outliers in
-[-40, 40]^3, made by ``numpy.random.default_rng(seed)``):
+the card, then drives the ported paths through the entry points a user
+calls, at full size.  The sphere runs on the bench's data model (80%
+inliers on a radius-25 sphere at (5, -2, 11) with sigma 0.3, 20% uniform
+outliers in [-40, 40]^3); planes and lines on the chip gate's
+(``scripts/chip_check.py``: 80% inliers with N(0, 0.2) noise on the plane
+through (2, -1, 4) spanned by (1, 0, 0.5) and (0, 1, -0.2), the 3D line
+through (1, 2, -3) along (0.6, -0.64, 0.48), the 2D line through (-2, 5)
+along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
+``numpy.random.default_rng(seed)``, delta 1.0:
 
   1. device: card name and power limit;
-  2. build: both kernels, in parallel;
+  2. build: every kernel, one ``nvcc`` per source, all in parallel;
   3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024)
      and vs an f64 literal ``agree`` oracle;
   4. kernel ``fused_sweep_sphere3d`` vs its plain version (n = 1,024 and
@@ -20,7 +25,18 @@ a radius-25 sphere at (5, -2, 11) with sigma 0.3, 20% uniform outliers in
      then ``fused_sweep_sphere3d`` vs its plain version at that shape;
   6. ``ransac`` at n = 1,024 with 65,536 gathered hypotheses;
   7. ``ransac_fused_sweep`` at n = 8,192 with 2^20 hypotheses, which falls
-     back to the structured sweep and the vote kernel.
+     back to the structured sweep and the vote kernel;
+  8. kernels ``fused_sweep_plane3d``, ``fused_sweep_line3d`` and
+     ``fused_sweep_line2d`` vs their plain versions on phase 4's cases;
+  9. per family, ``ransac_fused_sweep`` at n = 1,024 with 2^22 hypotheses
+     (one launch), the ground truth recovered, then the kernel vs its plain
+     version at that shape;
+ 10. ``ransac`` with a plane at 65,536 gathered hypotheses (the engine's
+     ``agree`` vote, no kernel) and ``ransac_adaptive`` with a 2D line (fused
+     line2d rounds);
+ 11. kernel ``plane_vote`` through ``plane_vote_counts`` (B = 65,536 x
+     n = 1,024 for d = 3 and 2, B = 2^20 x n = 8,192 for d = 3) vs its plain
+     version and an f64 literal ``agree`` oracle.
 
 Each main-path phase sets the launch counts to 0 just before it and fails if
 a kernel of that path did not launch.  Any failed check raises, so the exit
@@ -55,6 +71,13 @@ PEAKS = (67e12, 3.35e12)
 SWEEP_OPS_PER_CELL = 11
 SWEEP_OPS_PER_HYP = 115      # Cramer fit and band rows, once per hypothesis
 VOTE_OPS_PER_CELL = 10
+# The point sweeps (csrc/fused_sweep_points.cu), (per cell, per hypothesis):
+# plane3d 1 multiply + 4 FMA + compare + add, line2d 1 multiply + 3 FMA +
+# compare + add, line3d 3 subtracts + 7 multiplies + 5 adds/subtracts +
+# compare + add; the fits and band rows once per hypothesis.
+POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (17, 13), "line2d": (9, 15)}
+# plane_vote: d multiplies + d - 1 adds, subtract, multiply, compare, add.
+PLANE_VOTE_OPS_PER_CELL = {2: 7, 3: 9}
 
 DEVICE = "cuda"
 # Shapes of the phases (the full-size run; see the module docstring).
@@ -65,7 +88,32 @@ SWEEP_CASES = (  # (n, total_groups, groups_per_step, vote_subsample)
 )
 N_MAIN, H_FUSED, H_GATHER = 1024, 1 << 22, 65536
 N_LARGE, H_LARGE = 8192, 1 << 20
+PLANE_VOTE_SHAPES = ((65536, 1024, 3), (65536, 1024, 2), (1 << 20, 8192, 3))  # (B, n, d)
 WALL_REPS = 10  # host-clock repeats per main-path driver (the host is shared)
+
+# The point families: ground truth of the chip gate's data model and the
+# recovery limits held on the main path (angle of the normal / direction up
+# to sign, distance of the true anchor from the fitted plane or line).
+E1 = np.array([1.0, 0.0, 0.5]) / np.sqrt(1.25)
+E2 = np.array([0.0, 1.0, -0.2]) / np.linalg.norm([0.0, 1.0, -0.2])
+LINE3D_U = np.array([0.6, -0.64, 0.48]) / np.linalg.norm([0.6, -0.64, 0.48])
+PLANE_N = np.cross(E1, E2) / np.linalg.norm(np.cross(E1, E2))
+FAMILIES = {
+    # family: (estimator name, true anchor, true unit normal (plane, 2D line)
+    # or direction (3D line))
+    "plane3d": ("plane", np.array([2.0, -1.0, 4.0]), PLANE_N),
+    "line3d": ("line", np.array([1.0, 2.0, -3.0]), LINE3D_U),
+    "line2d": ("line2d", np.array([-2.0, 5.0]), np.array([-0.6, 0.8])),
+}
+MAX_ANGLE, MAX_ANCHOR = 0.01, 0.1   # radians; data units
+REPLACES = {
+    "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
+    "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
+    "fused_sweep_plane3d": "lsqrrecipes_tpu/ops/fused_sweep.py:239",
+    "fused_sweep_line3d": "lsqrrecipes_tpu/ops/fused_sweep.py:294",
+    "fused_sweep_line2d": "lsqrrecipes_tpu/ops/fused_sweep.py:267",
+    "plane_vote": "lsqrrecipes_tpu/ops/vote.py:127",
+}
 
 
 def bench_cloud(rng, n):
@@ -76,6 +124,37 @@ def bench_cloud(rng, n):
     inliers = TRUE_CENTER + TRUE_RADIUS * d + 0.3 * rng.normal(size=(n_in, 3))
     outliers = rng.uniform(-40.0, 40.0, size=(n - n_in, 3))
     return np.concatenate([inliers, outliers]).astype(np.float32)
+
+
+def family_cloud(rng, family, n):
+    """The chip gate's data model for a point family, float32 ``[n, d]``."""
+    _, anchor, axis = FAMILIES[family]
+    n_in = n - n // 5
+    if family == "plane3d":
+        uv = rng.uniform(-30.0, 30.0, size=(n_in, 2))
+        inl = anchor + uv[:, :1] * E1 + uv[:, 1:] * E2
+    elif family == "line3d":
+        inl = anchor + rng.uniform(-40.0, 40.0, size=(n_in, 1)) * axis
+    else:
+        inl = anchor + rng.uniform(-40.0, 40.0, size=(n_in, 1)) * np.array([0.8, 0.6])
+    inl = inl + 0.2 * rng.normal(size=inl.shape)
+    out = rng.uniform(-40.0, 40.0, size=(n - n_in, inl.shape[1]))
+    return np.concatenate([inl, out]).astype(np.float32)
+
+
+def recovery_errors(family, params):
+    """(angle of the fitted normal/direction to the truth up to sign,
+    distance of the true anchor from the fitted plane or line)."""
+    _, anchor, axis = FAMILIES[family]
+    d = len(anchor)
+    n, a = params[:d], params[d:]
+    angle = float(np.arccos(min(1.0, abs(np.dot(n, axis)) / np.linalg.norm(n))))
+    v = anchor - a
+    if family == "line3d":
+        dist = float(np.linalg.norm(v - np.dot(v, n) * n))
+    else:
+        dist = float(abs(np.dot(v, n)))
+    return angle, dist
 
 
 def check(cond, msg):
@@ -104,13 +183,13 @@ def bound(ops, nbytes, rates):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare_sweep(fs, est, coords, p, n_fit, num_groups, vote_cols, voters, label):
-    """One launch of the sweep kernel against its plain version on the same
-    inputs: best count within 1, the kernel's winner re-achieving its count
-    under ``agree`` within 1, and, where the winner indices match, the
-    parameters equal bit for bit.  Returns the largest absolute error."""
-    kc, kp, ki = fs.sphere3d_sweep_cuda(coords, p, n_fit, num_groups, vote_cols, DELTA)
-    pc, pp_, pi = fs.sphere3d_sweep_plain(coords, p, n_fit, num_groups, vote_cols, DELTA)
+def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, voters, label):
+    """One launch of the family's sweep kernel against its plain version on
+    the same inputs: best count within 1, the kernel's winner re-achieving
+    its count under ``agree`` within 1, and, where the winner indices match,
+    the parameters equal bit for bit.  Returns the largest absolute error."""
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, DELTA)
+    pc, pp_, pi = fs.sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, DELTA)
     kc, pc, ki, pi = int(kc), int(pc), int(ki), int(pi)
     regain = int(est.agree(kp, voters).sum())
     d_count = abs(kc - pc)
@@ -189,6 +268,20 @@ def breakdown(torch, fn, label, top=6):
         print(f"      {ms:9.4f} ms  x{count:<4d} {key[:90]}")
 
 
+def library_plane_vote(torch, params, points_t, valid, delta_sq, chunk=8192):
+    """One-library-call yardstick for the plane vote: ``addmm`` with the
+    offset as bias, then square, compare and sum, chunked over hypotheses.
+    Not used by the port."""
+    d = points_t.shape[0]
+    live = valid[0] != 0
+    out = []
+    for b0 in range(0, params.shape[0], chunk):
+        prm = params[b0 : b0 + chunk]
+        s = torch.addmm(-prm[:, d:], prm[:, :d], points_t)
+        out.append(((s * s < delta_sq) & live).sum(1))
+    return torch.cat(out)
+
+
 def library_vote(torch, params, pts, delta, chunk=8192):
     """One-library-call yardstick for the vote: ``addmm`` distance matrix +
     band test, chunked over hypotheses.  Not used by the port."""
@@ -216,10 +309,10 @@ def main(argv=None):
         return 1
 
     from lsqrrecipes_tpu_torch import kernels
-    from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+    from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator, get
     from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
     from lsqrrecipes_tpu_torch.ops import vote
-    from lsqrrecipes_tpu_torch.ransac import ransac, ransac_fused_sweep
+    from lsqrrecipes_tpu_torch.ransac import ransac, ransac_adaptive, ransac_fused_sweep
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -237,7 +330,8 @@ def main(argv=None):
     # 2. build --------------------------------------------------------------
     t0 = time.perf_counter()
     kernels.build_all()
-    print(f"[2] build: {time.perf_counter() - t0:.1f} s (both kernels, parallel nvcc)")
+    print(f"[2] build: {time.perf_counter() - t0:.1f} s ({len(kernels.ALL)} kernels from "
+          f"{len({k.source for k in kernels.ALL})} sources, parallel nvcc)")
     for k in kernels.ALL:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
@@ -290,7 +384,7 @@ def main(argv=None):
         num_groups = -(-total_groups // gps) * gps
         voters = cloud[vote_perm][:vote_cols] if subsample else cloud
         sweep_err = max(sweep_err, compare_sweep(
-            fs, est, coords, p, n_fit, num_groups, vote_cols, voters,
+            fs, "sphere3d", est, coords, p, n_fit, num_groups, vote_cols, voters,
             f"[4] fused_sweep n={n_case} groups={total_groups} gps={gps} "
             f"subsample={subsample}"))
 
@@ -343,7 +437,7 @@ def main(argv=None):
     print(f"    kernel ms: sweep {sweep_ms:.4f}, plain {sweep_plain_ms:.4f}, "
           f"bound {sweep_bound:.4f} ({sweep_by}) [{smi}]")
     sweep_err = max(sweep_err, compare_sweep(
-        fs, est, coords5, p5, nfit5, groups5, cols5, pts5,
+        fs, "sphere3d", est, coords5, p5, nfit5, groups5, cols5, pts5,
         f"    fused_sweep at this shape ({groups5} groups)"))
 
     # 6. main path: ransac, gathered hypotheses -----------------------------
@@ -405,23 +499,195 @@ def main(argv=None):
     print(f"    ms kernel {ms7:.4f}, "
           f"plain {plain_ms7:.4f}, library {lib_ms7:.4f}, bound {bound7:.4f} ({by7}) [{smi}]")
 
-    # 8. kernels line, card line, result line ---------------------------------
+    def add_launches(counts):
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def make_est(family):
+        return get(FAMILIES[family][0])(DELTA) if family == "line2d" else \
+            get(FAMILIES[family][0])(DELTA, 3)
+
+    def check_family(result, family, label, n):
+        params = result.params.double().cpu().numpy()
+        angle, dist = recovery_errors(family, params)
+        print(f"    {label}: valid={bool(result.valid)} params={params.round(4).tolist()} "
+              f"inliers={int(result.best_count)} fraction={float(result.inlier_fraction):.4f} "
+              f"angle={angle:.2e} rad anchor distance={dist:.2e}")
+        check(bool(result.valid), f"{label}: result not valid")
+        check(bool(np.isfinite(params).all()), f"{label}: non-finite params")
+        check(tuple(result.consensus.shape) == (n,), f"{label}: consensus shape")
+        check(angle < MAX_ANGLE, f"{label}: axis {angle} rad off (limit {MAX_ANGLE})")
+        check(dist < MAX_ANCHOR, f"{label}: anchor {dist} off (limit {MAX_ANCHOR})")
+
+    # 8. the point sweeps vs their plain versions ---------------------------
+    family_err, family_times = {}, {}
+    for family in FAMILIES:
+        est_f = make_est(family)
+        family_err[family] = 0
+        for n_case, total_groups, gps, subsample in SWEEP_CASES:
+            cloud = torch.as_tensor(family_cloud(rng, family, n_case), device=dev)
+            g8 = torch.Generator(device=dev).manual_seed(args.seed + n_case + gps)
+            vote_perm = torch.randperm(n_case, generator=g8, device=dev)
+            coords, p, n_fit, vote_cols = fs.sweep_inputs(
+                family, cloud, g8, subsample, vote_perm=vote_perm
+            )
+            num_groups = -(-total_groups // gps) * gps
+            voters = cloud[vote_perm][:vote_cols] if subsample else cloud
+            family_err[family] = max(family_err[family], compare_sweep(
+                fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
+                f"[8] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
+                f"subsample={subsample}"))
+
+    # 9. main path per family: ransac_fused_sweep, one launch ---------------
+    clouds9 = {}
+    for family in FAMILIES:
+        est_f = make_est(family)
+        name_f = f"fused_sweep_{family}"
+        cloud9 = clouds9[family] = family_cloud(rng, family, N_MAIN)
+        kernels.reset_launch_counts()
+        res9 = ransac_fused_sweep(est_f, cloud9, gen(), num_hypotheses=H_FUSED, device=DEVICE)
+        torch.cuda.synchronize()
+        counts9 = kernels.launch_counts()
+        print(f"[9] ransac_fused_sweep {family} n={N_MAIN} hypotheses={H_FUSED}: launches {counts9}")
+        check_family(res9, family, family, N_MAIN)
+        check(counts9[name_f] > 0, f"main path did not launch {name_f}")
+        add_launches(counts9)
+
+        def run9(est_f=est_f, cloud9=cloud9):
+            return ransac_fused_sweep(est_f, cloud9, gen(), num_hypotheses=H_FUSED, device=DEVICE)
+
+        wall9 = timer.wall_ms(run9, reps=WALL_REPS)
+        print(f"    wall {wall9:.3f} ms median of {WALL_REPS}, {H_FUSED / wall9 * 1e3:.4g} "
+              f"hypotheses/s [{smi}]")
+        breakdown(torch, run9, family)
+
+        pts9 = torch.as_tensor(cloud9, device=dev)
+        coords9, p9, nfit9, cols9 = fs.sweep_inputs(family, pts9, gen())
+        groups9 = H_FUSED // N_MAIN
+        ms9 = timer.ms(lambda: fs.sweep_cuda(family, coords9, p9, nfit9, groups9, cols9, DELTA),
+                       reps=20)
+        plain_ms9 = timer.ms(lambda: fs.sweep_plain(family, coords9, p9, nfit9, groups9, cols9,
+                                                    DELTA), reps=2, warmup=1)
+        per_cell, per_hyp = POINT_SWEEP_OPS[family]
+        hyp9 = groups9 * nfit9
+        bound9, by9 = bound(hyp9 * (cols9 * per_cell + per_hyp),
+                            (coords9.numel() + p9.numel() + fs._FAMILIES[family][2] + 1) * 4,
+                            rates)
+        family_times[family] = (ms9, plain_ms9, bound9, by9)
+        print(f"    kernel ms: {name_f} {ms9:.4f}, plain {plain_ms9:.4f}, "
+              f"bound {bound9:.4f} ({by9}) [{smi}]")
+        family_err[family] = max(family_err[family], compare_sweep(
+            fs, family, est_f, coords9, p9, nfit9, groups9, cols9, pts9,
+            f"    fused_sweep_{family} at this shape ({groups9} groups)"))
+
+    # 10. gathered planes (agree vote, no kernel) and adaptive 2D lines ------
+    plane_est = make_est("plane3d")
+    cloud10 = clouds9["plane3d"]
+    kernels.reset_launch_counts()
+    res10 = ransac(plane_est, cloud10, gen(), num_hypotheses=H_GATHER, device=DEVICE)
+    torch.cuda.synchronize()
+    counts10 = kernels.launch_counts()
+    print(f"[10] ransac plane3d n={N_MAIN} hypotheses={H_GATHER}: launches {counts10}")
+    check_family(res10, "plane3d", "gather plane", N_MAIN)
+    check(sum(counts10.values()) == 0, "the plane gather path launched a kernel")
+
+    def run10():
+        return ransac(plane_est, cloud10, gen(), num_hypotheses=H_GATHER, device=DEVICE)
+
+    wall10 = timer.wall_ms(run10, reps=WALL_REPS)
+    print(f"    wall {wall10:.3f} ms median of {WALL_REPS}, {H_GATHER / wall10 * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    breakdown(torch, run10, "gather plane")
+
+    line2d_est = make_est("line2d")
+    cloud10b = clouds9["line2d"]
+    kernels.reset_launch_counts()
+    res10b = ransac_adaptive(line2d_est, cloud10b, gen(), device=DEVICE)
+    torch.cuda.synchronize()
+    counts10b = kernels.launch_counts()
+    print(f"    ransac_adaptive line2d n={N_MAIN}: launches {counts10b}")
+    check_family(res10b, "line2d", "adaptive line2d", N_MAIN)
+    check(counts10b["fused_sweep_line2d"] > 0, "ransac_adaptive did not launch fused_sweep_line2d")
+    add_launches(counts10b)
+    wall10b = timer.wall_ms(lambda: ransac_adaptive(line2d_est, cloud10b, gen(), device=DEVICE),
+                            reps=WALL_REPS)
+    print(f"    wall {wall10b:.3f} ms median of {WALL_REPS} [{smi}]")
+
+    # 11. plane_vote through its entry point --------------------------------
+    plane_vote_err, plane_vote_times = 0, {}
+    for b11, n11, d11 in PLANE_VOTE_SHAPES:
+        family = "plane3d" if d11 == 3 else "line2d"
+        pts11 = torch.as_tensor(family_cloud(rng, family, n11), device=dev)
+        axis = FAMILIES[family][2]
+        offset = float(np.dot(axis, FAMILIES[family][1]))
+        near_n = axis + rng.normal(0, 0.02, (b11 // 2, d11))
+        near_n /= np.linalg.norm(near_n, axis=1, keepdims=True)
+        wide_n = rng.normal(size=(b11 - b11 // 2, d11))
+        wide_n /= np.linalg.norm(wide_n, axis=1, keepdims=True)
+        params11 = torch.as_tensor(np.concatenate([
+            np.concatenate([near_n, offset + rng.normal(0, 1.0, (b11 // 2, 1))], 1),
+            np.concatenate([wide_n, rng.uniform(-20, 20, (b11 - b11 // 2, 1))], 1),
+        ]).astype(np.float32), device=dev)
+        pt11, valid11, _ = vote.pack_points(pts11)
+        dsq = DELTA * DELTA
+        kernels.reset_launch_counts()
+        got11 = vote.plane_vote_counts(params11, pt11, valid11, dsq)
+        torch.cuda.synchronize()
+        counts11 = kernels.launch_counts()
+        check(counts11["plane_vote"] > 0, "plane_vote_counts did not launch plane_vote")
+        add_launches(counts11)
+        plain11 = vote.plane_vote_counts_plain(params11, pt11, valid11, dsq)
+        err11 = int((got11.long() - plain11.long()).abs().max())
+        sub = torch.arange(0, b11, b11 // 4096, device=dev)
+        h64 = params11[sub].double()
+        s64 = h64[:, :d11] @ pts11.double().T - h64[:, d11:]
+        flips = (got11[sub].long() - (s64 * s64 < dsq).sum(1)).abs()
+        print(f"[11] plane_vote B={b11} n={n11} d={d11}: launches {counts11['plane_vote']}; "
+              f"max|kernel-plain|={err11} (<=1); vs f64 agree on {len(sub)}: "
+              f"max|d|={int(flips.max())} (<=5), total flips={int(flips.sum())}; "
+              f"mean count={float(got11.float().mean()):.1f}")
+        check(err11 <= 1, "plane_vote disagrees with its plain version")
+        check(int(flips.max()) <= 5, "plane_vote disagrees with the f64 oracle")
+        plane_vote_err = max(plane_vote_err, err11)
+        big = b11 * n11 > 1 << 30
+        ms11 = timer.ms(lambda: vote.plane_vote_counts_cuda(params11, pt11, valid11, dsq),
+                        reps=10 if big else 20)
+        plain_ms11 = timer.ms(lambda: vote.plane_vote_counts_plain(params11, pt11, valid11, dsq),
+                              reps=2 if big else 5, warmup=1)
+        lib_ms11 = timer.ms(lambda: library_plane_vote(torch, params11, pt11, valid11, dsq),
+                            reps=2 if big else 5, warmup=1)
+        lib11 = library_plane_vote(torch, params11, pt11, valid11, dsq)
+        bound11, by11 = bound(b11 * n11 * PLANE_VOTE_OPS_PER_CELL[d11],
+                              (params11.numel() + (d11 + 1) * pt11.shape[1] + b11) * 4, rates)
+        plane_vote_times[(b11, n11, d11)] = (ms11, plain_ms11, lib_ms11, bound11, by11)
+        print(f"    library yardstick max|d| vs kernel = {int((lib11 - got11.long()).abs().max())}")
+        print(f"    ms: kernel {ms11:.4f}, plain {plain_ms11:.4f}, library {lib_ms11:.4f}, "
+              f"bound {bound11:.4f} ({by11}) [{smi}]")
+
+    # 12. kernels line, card line, result line --------------------------------
+    def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
+        source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
+        return {"name": name, "route": "cuda",
+                "source": str(source.relative_to(source.parents[2])),
+                "replaces": REPLACES[name], "launches": launches.get(name, 0),
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": library_ms}
+
+    pv = plane_vote_times[PLANE_VOTE_SHAPES[0]]
     record = {"kernels": [
-        {"name": "fused_sweep_sphere3d", "route": "cuda",
-         "source": "lsqrrecipes_tpu_torch/csrc/fused_sweep_sphere3d.cu",
-         "replaces": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
-         "launches": launches["fused_sweep_sphere3d"], "max_abs_err": sweep_err,
-         "ms": sweep_ms, "plain_ms": sweep_plain_ms, "bound_ms": sweep_bound,
-         "bound_by": sweep_by, "library_ms": None},
-        {"name": "sphere_vote", "route": "cuda",
-         "source": "lsqrrecipes_tpu_torch/csrc/sphere_vote.cu",
-         "replaces": "lsqrrecipes_tpu/ops/vote.py:76",
-         "launches": launches["sphere_vote"], "max_abs_err": max(vote_err, err7),
-         "ms": vote_ms, "plain_ms": vote_plain_ms, "bound_ms": vote_bound,
-         "bound_by": vote_by, "library_ms": vote_lib_ms},
+        entry("fused_sweep_sphere3d", sweep_err, sweep_ms, sweep_plain_ms, sweep_bound,
+              sweep_by, None),
+        entry("sphere_vote", max(vote_err, err7), vote_ms, vote_plain_ms, vote_bound, vote_by,
+              vote_lib_ms),
+    ] + [
+        entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in FAMILIES
+    ] + [
+        entry("plane_vote", plane_vote_err, pv[0], pv[1], pv[3], pv[4], pv[2]),
     ]}
+    check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:
         check(all(math.isfinite(k[f]) for f in ("ms", "plain_ms", "bound_ms")), "bad timing")
+        check(k["launches"] > 0, f"{k['name']} was not launched on the main path")
     print(json.dumps(record))
     print(smi)
     print(json.dumps({"ok": True, "device": {

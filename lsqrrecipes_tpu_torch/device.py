@@ -6,6 +6,8 @@ asked for and is not available this raises — it never falls back to the CPU
 silently.
 """
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -40,6 +42,19 @@ def as_tensor(data, device=None, dtype=None) -> torch.Tensor:
     if not arr.flags.writeable:      # e.g. a view of a JAX array
         arr = arr.copy()
     return torch.as_tensor(arr, device=dev, dtype=dtype)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Float32 matrix products inside the block run in full float32 on
+    CUDA, whatever the caller set: TF32 keeps about three decimal digits,
+    which would move inlier-band edges."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def generator_device(generator, device) -> torch.device:

@@ -1,6 +1,9 @@
-"""Estimator suite (ported so far: the sphere)."""
+"""Estimator suite (ported so far: sphere, plane, kD line, 2D line)."""
 
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, get, names, register
+from lsqrrecipes_tpu_torch.estimators.line2d import Line2DEstimator
+from lsqrrecipes_tpu_torch.estimators.line import LineEstimator
+from lsqrrecipes_tpu_torch.estimators.plane import PlaneEstimator
 from lsqrrecipes_tpu_torch.estimators.sphere import (
     ALGEBRAIC,
     GEOMETRIC,
@@ -12,6 +15,9 @@ __all__ = [
     "register",
     "get",
     "names",
+    "Line2DEstimator",
+    "LineEstimator",
+    "PlaneEstimator",
     "SphereEstimator",
     "ALGEBRAIC",
     "GEOMETRIC",

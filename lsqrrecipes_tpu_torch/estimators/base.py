@@ -8,9 +8,13 @@
     all data or the masked consensus;
   * ``agree(params, data) -> bool[..., n]`` — the inlier predicate;
   * ``k`` / ``nparams`` — static problem sizes.
+
+Optionally an estimator exposes sufficient statistics:
+``lsq_stats(data, mask) -> stats`` and ``lsq_solve_stats(stats) -> (params,
+valid)``, whose composition is its ``lsq_fit``.
 """
 
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 
@@ -29,6 +33,26 @@ class Estimator:
 
     def agree(self, params, data) -> torch.Tensor:
         raise NotImplementedError
+
+    def lsq_stats(self, data, mask: Optional[torch.Tensor] = None) -> Any:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not provide sufficient statistics"
+        )
+
+    def lsq_solve_stats(self, stats) -> Tuple[torch.Tensor, torch.Tensor]:
+        raise NotImplementedError(
+            f"{type(self).__name__} does not provide sufficient statistics"
+        )
+
+    @property
+    def has_stats(self) -> bool:
+        return type(self).lsq_stats is not Estimator.lsq_stats
+
+    @staticmethod
+    def _mask_or_ones(mask, n, dtype, device=None):
+        if mask is None:
+            return torch.ones((n,), dtype=dtype, device=device)
+        return mask.to(dtype)
 
 
 _REGISTRY = {}

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each kernel is one ``csrc/*.cu`` file with a plain C interface, compiled by
-``nvcc`` for ``sm_90a`` into its own shared library and called through
-``ctypes`` (no PyTorch headers, so a build takes seconds).  Builds happen at
-first use, from the sources in this package only, into ``build/kernels/``
-beside the package; a library's file name carries a hash of its source and
-flags, so a stale build is never loaded.  Nothing here runs at import time.
+Each ``csrc/*.cu`` file has a plain C interface (one launch symbol per
+kernel; several kernels may share a source) and is compiled by ``nvcc`` for
+``sm_90a`` into one shared library, called through ``ctypes`` (no PyTorch
+headers, so a build takes seconds).  Builds happen at first use, from the
+sources in this package only, into ``build/kernels/`` beside the package; a
+library's file name carries a hash of its source, of every ``csrc/*.cuh``
+header and of the flags, so a stale build is never loaded.  Nothing here
+runs at import time.
 
 Every :class:`Kernel` keeps ``launches``, a plain count that its wrapper
 raises by one per launch, so a run can show that it went through the kernel.
@@ -17,6 +19,8 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -47,6 +51,18 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
+def check_inputs(**tensors) -> None:
+    """Raise ``ValueError`` unless every tensor is a contiguous float32
+    CUDA tensor (what every kernel here takes)."""
+    for name, t in tensors.items():
+        if not t.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
 class Kernel:
     """One ``.cu`` source, its built library and its launch count.
 
@@ -65,10 +81,13 @@ class Kernel:
         self._lib = None
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-        return BUILD_DIR / f"{self.name}-{digest}.so"
+        """``build/kernels/<source stem>-<hash>.so``; the hash covers the
+        source, the headers beside it and the flags."""
+        h = hashlib.sha256(self.source.read_bytes())
+        for header in sorted(self.source.parent.glob("*.cuh")):
+            h.update(header.name.encode() + header.read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def start_build(self):
         """Start ``nvcc`` unless the library exists; returns
@@ -134,13 +153,56 @@ FUSED_SWEEP_SPHERE3D = Kernel(
      ctypes.c_float, _P, _P, _P, _P],
 )
 
-ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE)
+# The three point families of csrc/fused_sweep_points.cu share one library.
+_POINT_SWEEP_ARGS = [
+    # coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups,
+    # b, m, mask, inv_delta, delta_sq, best_key, best_out, best_index, stream
+    _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+    ctypes.c_float, ctypes.c_float, _P, _P, _P, _P,
+]
+
+FUSED_SWEEP_PLANE3D = Kernel(
+    "fused_sweep_plane3d", "fused_sweep_points.cu", "fused_sweep_plane3d_launch",
+    _POINT_SWEEP_ARGS,
+)
+
+FUSED_SWEEP_LINE3D = Kernel(
+    "fused_sweep_line3d", "fused_sweep_points.cu", "fused_sweep_line3d_launch",
+    _POINT_SWEEP_ARGS,
+)
+
+FUSED_SWEEP_LINE2D = Kernel(
+    "fused_sweep_line2d", "fused_sweep_points.cu", "fused_sweep_line2d_launch",
+    _POINT_SWEEP_ARGS,
+)
+
+PLANE_VOTE = Kernel(
+    "plane_vote", "plane_vote.cu", "plane_vote_launch",
+    # params, points_t, valid, dim, n_pad, num_hyp, delta_sq, counts, stream
+    [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P],
+)
+
+FUSED_SWEEPS = {
+    "sphere3d": FUSED_SWEEP_SPHERE3D,
+    "plane3d": FUSED_SWEEP_PLANE3D,
+    "line3d": FUSED_SWEEP_LINE3D,
+    "line2d": FUSED_SWEEP_LINE2D,
+}
+
+ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
+       FUSED_SWEEP_LINE2D, PLANE_VOTE)
 
 
 def build_all(kernels=ALL) -> None:
     """Build every kernel's library, one ``nvcc`` per source, all started
     together, then load them."""
-    started = [(k, k.start_build()) for k in kernels]
+    started, seen = [], set()
+    for k in kernels:
+        path = k.library_path()
+        if path not in seen:          # kernels that share a source share a build
+            seen.add(path)
+            started.append((k, k.start_build()))
     errors = []
     for k, build in started:      # wait for every build before raising
         try:

@@ -45,3 +45,12 @@ def masked_pinv_solve(a, b, row_mask, eps=EPS):
     ``A^T A``, ``A^T b`` and the rank decision of the subset unchanged."""
     m = row_mask[..., None].to(a.dtype)
     return pinv_solve(a * m, b * m.squeeze(-1), eps)
+
+
+def nullvector(a, eps=EPS):
+    """Unit null vector of ``a[..., m, n]`` (the last right-singular vector
+    of the full float64 SVD) -> ``(x[..., n], rank[...])`` with ``x`` in
+    ``a``'s dtype; callers needing a one-dimensional null space check the
+    rank (``vnl_svd::nullvector``, ``PlaneParametersEstimator.hxx:81-91``)."""
+    _, s, vt = svd_f64(a, full_matrices=True)
+    return vt[..., -1, :].to(a.dtype), svd_rank(s, eps)

@@ -1,10 +1,11 @@
-"""Fused RANSAC vote for sphere hypotheses (counterpart of
-``lsqrrecipes_tpu/ops/vote.py``: ``pack_points`` and ``sphere_vote_counts``).
+"""Fused RANSAC votes (counterpart of ``lsqrrecipes_tpu/ops/vote.py``:
+``pack_points``, ``sphere_vote_counts`` and ``plane_vote_counts``).
 
-:func:`sphere_vote_counts` counts inliers for a batch of hypotheses without
-materialising the ``[B, n]`` distance matrix: on a CUDA tensor it launches
-the hand-written kernel ``csrc/sphere_vote.cu``; on a CPU tensor it runs
-:func:`sphere_vote_counts_plain`, the same predicate in plain PyTorch.
+Each vote counts inliers for a batch of hypotheses without materialising
+the ``[B, n]`` distance matrix: on a CUDA tensor it launches its
+hand-written kernel (``csrc/sphere_vote.cu``, ``csrc/plane_vote.cu``); on a
+CPU tensor it runs its plain version, the same predicate and arithmetic in
+plain PyTorch.
 """
 
 import ctypes
@@ -95,13 +96,7 @@ def sphere_vote_counts_cuda(params, points_t, valid, delta):
     when the build or the launch fails.
     """
     _check_vote_args(params, points_t, valid)
-    for name, t in (("params", params), ("points_t", points_t), ("valid", valid)):
-        if not t.is_cuda:
-            raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    kernels.check_inputs(params=params, points_t=points_t, valid=valid)
     b, n_pad = params.shape[0], points_t.shape[1]
     if b >= 2**31 or n_pad >= 2**31:
         raise ValueError("sphere_vote_counts supports fewer than 2^31 hypotheses and points")
@@ -135,3 +130,88 @@ def sphere_vote_counts(params, points_t, valid, delta, *, device=None):
             valid.contiguous(), delta,
         )
     return sphere_vote_counts_plain(params, points_t, valid, delta)
+
+
+def _check_plane_args(params, points_t, valid):
+    if points_t.ndim != 2 or points_t.shape[0] not in (2, 3):
+        raise ValueError(f"points_t must be [2 or 3, n_pad], got {tuple(points_t.shape)}")
+    d = points_t.shape[0]
+    if params.ndim != 2 or params.shape[1] != d + 1:
+        raise ValueError(f"params must be [B, {d + 1}], got {tuple(params.shape)}")
+    if valid.shape != (1, points_t.shape[1]):
+        raise ValueError(f"valid must be [1, {points_t.shape[1]}], got {tuple(valid.shape)}")
+    devices = {params.device, points_t.device, valid.device}
+    if len(devices) != 1:
+        raise ValueError(f"params, points_t and valid lie on different devices: {devices}")
+    return d
+
+
+def plane_vote_counts_plain(params, points_t, valid, delta_sq):
+    """Plain PyTorch version of the kernel: ``int32[B]`` counts of valid
+    columns with ``(n.p - offset)^2 < delta_sq`` for rows ``[n (d), offset]``.
+
+    It repeats the kernel's f32 arithmetic operation by operation (``n.p``
+    summed elementwise in coordinate order, no matrix product), so the two
+    give equal counts.
+    """
+    d = _check_plane_args(params, points_t, valid)
+    params = params.to(torch.float32)
+    pts = points_t.to(torch.float32)
+    live = valid.to(torch.float32) != 0
+    delta_sq = torch.tensor(delta_sq, dtype=torch.float32, device=params.device)
+    chunk = max(1, _PLAIN_CELLS // max(1, pts.shape[1]))
+    out = [torch.zeros((0,), dtype=torch.int32, device=params.device)]
+    for b0 in range(0, params.shape[0], chunk):
+        prm = params[b0 : b0 + chunk]
+        s = prm[:, 0:1] * pts[0]
+        for c in range(1, d):
+            s = s + prm[:, c : c + 1] * pts[c]
+        s = s - prm[:, d : d + 1]
+        agree = (s * s < delta_sq) & live
+        out.append(agree.sum(dim=1, dtype=torch.int32))
+    return torch.cat(out)
+
+
+def plane_vote_counts_cuda(params, points_t, valid, delta_sq):
+    """Launch ``csrc/plane_vote.cu`` on the current stream -> ``int32[B]``.
+
+    Raises on a non-CUDA, non-f32, non-contiguous or misshapen input, and
+    when the build or the launch fails.
+    """
+    d = _check_plane_args(params, points_t, valid)
+    kernels.check_inputs(params=params, points_t=points_t, valid=valid)
+    b, n_pad = params.shape[0], points_t.shape[1]
+    if b >= 2**31 or n_pad >= 2**31:
+        raise ValueError("plane_vote_counts supports fewer than 2^31 hypotheses and points")
+    counts = torch.empty((b,), dtype=torch.int32, device=params.device)
+    if b == 0:
+        return counts
+    with torch.cuda.device(params.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        kernels.PLANE_VOTE.launch(
+            params.data_ptr(), points_t.data_ptr(), valid.data_ptr(), d, n_pad, b,
+            ctypes.c_float(float(delta_sq)), counts.data_ptr(), stream,
+        )
+    return counts
+
+
+def plane_vote_counts(params, points_t, valid, delta_sq, *, device=None):
+    """Inlier counts for plane / 2D-line signed-distance hypotheses ->
+    ``int32[B]``.
+
+    params: ``[B, d+1]`` rows ``[normal (d), offset]`` with offset = n.a, d
+    2 or 3; agree iff ``(n.p - offset)^2 < delta_sq``.  ``points_t``/``valid``
+    from :func:`pack_points`.  Numpy params go to ``device`` (default CUDA),
+    a tensor stays on its device, and the points follow the params.  On CUDA
+    this launches the kernel (any B); on the CPU it runs
+    :func:`plane_vote_counts_plain`.
+    """
+    params = as_tensor(params, device)
+    points_t = as_tensor(points_t, params.device)
+    valid = as_tensor(valid, params.device)
+    if params.is_cuda:
+        return plane_vote_counts_cuda(
+            params.to(torch.float32).contiguous(), points_t.contiguous(),
+            valid.contiguous(), delta_sq,
+        )
+    return plane_vote_counts_plain(params, points_t, valid, delta_sq)

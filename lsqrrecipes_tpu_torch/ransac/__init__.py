@@ -6,6 +6,8 @@ from lsqrrecipes_tpu_torch.ransac.engine import (
     hypothesize_and_vote,
     hypothesize_and_vote_structured,
     ransac,
+    ransac_adaptive,
+    ransac_exhaustive,
     ransac_fused_sweep,
     ransac_structured,
 )
@@ -21,6 +23,8 @@ from lsqrrecipes_tpu_torch.ransac.sampling import (
 __all__ = [
     "RansacResult",
     "ransac",
+    "ransac_adaptive",
+    "ransac_exhaustive",
     "ransac_fused_sweep",
     "ransac_structured",
     "hypothesize_and_vote",

@@ -5,21 +5,29 @@ degenerate samples get count -1 so they never win; the best hypothesis is an
 argmax whose ties go to the lowest index; the consensus refit is the
 estimator's masked least squares (``RANSAC.hxx:128-139``).
 
-Drivers ported so far (the main path): :func:`ransac` (fixed budget,
-gathered samples), :func:`ransac_structured` (permutation + shifts) and
-:func:`ransac_fused_sweep` (the whole sweep as one kernel, falling back to
-``ransac_structured`` where the fused sweep does not apply).  Each takes a
-``torch.Generator`` where the JAX package takes a ``key``, runs on the
-data's device (numpy data goes to ``device``, default CUDA) and raises when
-CUDA is asked for and missing.
+Drivers: :func:`ransac` (fixed budget, gathered samples),
+:func:`ransac_structured` (permutation + shifts), :func:`ransac_fused_sweep`
+(the whole sweep as one kernel, falling back to ``ransac_structured`` where
+the fused sweep does not apply), :func:`ransac_adaptive` (rounds with the
+reference's adaptive budget) and :func:`ransac_exhaustive` (every C(n, k)
+subset).  Each takes a ``torch.Generator`` where the JAX package takes a
+``key``, runs on the data's device (numpy data goes to ``device``, default
+CUDA) and raises when CUDA is asked for and missing.
+
+Estimators may provide ``vote_counts(params[B, P], data) -> counts[B]``;
+without it, counts are sums of ``agree`` rows, chunked over hypotheses.
 """
 
+import itertools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from lsqrrecipes_tpu_torch.device import as_tensor
 from lsqrrecipes_tpu_torch.ransac.sampling import (
+    choose,
+    num_tries,
     sample_k_subsets,
     sample_k_with_replacement,
     structured_samples,
@@ -29,6 +37,9 @@ from lsqrrecipes_tpu_torch.ransac.sampling import (
 # a [B, n] uniform matrix) is replaced by with-replacement sampling whose
 # rare duplicate rows self-mask as degenerate hypotheses.
 _EXACT_SAMPLING_CELLS = 1 << 24
+
+# Elements of one [chunk, n, d] agree temporary in the vote fallback.
+_AGREE_CELLS = 1 << 24
 
 
 def _sample(generator, n, k, num_hypotheses, sampler="auto", device="cpu"):
@@ -57,17 +68,34 @@ def _select(est, data, counts, params):
     return counts[best], est.agree(best_params, data), best_params
 
 
+def _agree_counts(est, params, data):
+    """``sum(est.agree(p, data))`` for every row of ``params``, in chunks
+    that keep the ``[chunk, n, d]`` temporaries bounded."""
+    chunk = max(1, _AGREE_CELLS // max(1, data.numel()))
+    out = [torch.zeros((0,), dtype=torch.int64, device=data.device)]
+    for b0 in range(0, params.shape[0], chunk):
+        out.append(torch.sum(est.agree(params[b0 : b0 + chunk], data), dim=-1))
+    return torch.cat(out)
+
+
+def _vote(est, params, valid, data):
+    """Counts of a hypothesis batch, -1 where the minimal fit is degenerate:
+    the estimator's ``vote_counts`` if it has one, else ``agree`` sums."""
+    if hasattr(est, "vote_counts"):
+        counts = est.vote_counts(params, data)
+    else:
+        counts = _agree_counts(est, params, data)
+    return torch.where(valid, counts, torch.full_like(counts, -1))
+
+
 def hypothesize_and_vote(est, data, idx):
     """Evaluate one batch of minimal-sample hypotheses.
 
     idx: ``[B, k]`` indices -> ``(best_count, best_mask[n], best_params)``.
-    Votes through the estimator's ``vote_counts``, so the ``[B, n]`` agree
-    matrix is never built.
+    Only the winner's ``[n]`` agree mask is kept, never a ``[B, n]`` one.
     """
     params, valid = est.minimal_fit(data[as_tensor(idx, data.device, torch.int64)])
-    counts = est.vote_counts(params, data)
-    counts = torch.where(valid, counts, torch.full_like(counts, -1))
-    return _select(est, data, counts, params)
+    return _select(est, data, _vote(est, params, valid, data), params)
 
 
 def consensus_refit(est, data, mask):
@@ -78,9 +106,15 @@ def hypothesize_and_vote_structured(est, data, generator, groups, perm=None):
     """Variant of :func:`hypothesize_and_vote` on ``groups * n`` structured
     samples (:func:`~lsqrrecipes_tpu_torch.ransac.sampling.structured_samples`),
     fitted and voted by the estimator's ``fit_and_vote(samples, data) ->
-    (counts, params)`` hook.  ``perm`` fixes the sampling permutation."""
+    (counts, params)`` hook where it has one, else by ``minimal_fit`` and
+    :func:`hypothesize_and_vote`'s vote.  ``perm`` fixes the sampling
+    permutation."""
     samples = structured_samples(generator, data, est.k, groups, perm)
-    counts, params = est.fit_and_vote(samples, data)
+    if hasattr(est, "fit_and_vote"):
+        counts, params = est.fit_and_vote(samples, data)
+    else:
+        params, valid = est.minimal_fit(samples)
+        counts = _vote(est, params, valid, data)
     return _select(est, data, counts, params)
 
 
@@ -123,7 +157,7 @@ def ransac_fused_sweep(
         return ransac_structured(est, data, generator, num_hypotheses)
     total_groups = max(1, -(-num_hypotheses // n))
     _count, params = fs.fused_sweep(
-        family, data, generator, total_groups, est.delta,
+        family, data, generator, total_groups, _fused_delta(est),
         groups_per_step=groups_per_step, vote_subsample=vote_subsample,
     )
     best_params = params.to(data.dtype)
@@ -135,13 +169,21 @@ def ransac_fused_sweep(
     return _finalize(est, data, count, best_mask, best_params, n)
 
 
+def _fused_delta(est):
+    return getattr(est, "fused_delta", None) or est.delta
+
+
+def _nparams_lsq(est):
+    return getattr(est, "nparams_lsq", est.nparams)
+
+
 def _finalize(est, data, best_count, best_mask, best_params, n):
     count = int(best_count)
     ok = count > 0
     if ok:
         params, valid = consensus_refit(est, data, best_mask)
     else:
-        params = torch.zeros((est.nparams,), dtype=data.dtype, device=data.device)
+        params = torch.zeros((_nparams_lsq(est),), dtype=data.dtype, device=data.device)
         valid = torch.tensor(False, device=data.device)
     return RansacResult(
         params=params,
@@ -166,9 +208,100 @@ def ransac(est, data, generator=None, num_hypotheses: int = 4096,
     return _finalize(est, data, best_count, best_mask, best_params, n)
 
 
+def _round_fast(est, data, generator, groups):
+    """One adaptive round through the fast paths: the fused sweep where the
+    estimator declares a supported ``fused_family``, otherwise the
+    structured hypothesize + vote.  Same ``(count, mask[n], params)``
+    contract as :func:`hypothesize_and_vote`; the fused count is recounted
+    from the winner's ``agree`` mask."""
+    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+
+    family = getattr(est, "fused_family", None)
+    if family and fs.supports_data(family, data):
+        _, params = fs.fused_sweep(family, data, generator, groups, _fused_delta(est))
+        params = params.to(data.dtype)
+        mask = est.agree(params, data)
+        return torch.sum(mask), mask, params
+    return hypothesize_and_vote_structured(est, data, generator, groups)
+
+
+def ransac_adaptive(
+    est,
+    data,
+    generator=None,
+    desired_probability: float = 0.999,
+    batch_size: int = 1024,
+    max_hypotheses: int = 1 << 20,
+    path: str = "auto",
+    *,
+    device=None,
+) -> RansacResult:
+    """Adaptive-budget RANSAC: device-sized rounds, the budget
+    ``log(1-p) / log(1-w^k)`` recomputed on the host after each round from
+    the best inlier fraction so far (``RANSAC.hxx:100-111``); rounds stop
+    once the evaluated hypotheses cover it or all C(n, k) subsets.
+
+    ``path="auto"`` runs each round through the fast paths (the fused sweep
+    where the estimator has one, else the structured sweep), whose
+    hypotheses share one permutation per round; ``"gather"`` forces
+    independently drawn ``[B, k]`` samples, the reference's semantics.
+    """
+    data = as_tensor(data, device)
+    n = data.shape[0]
+    if n < est.k or not 0.0 < desired_probability < 1.0:
+        return _invalid_result(est, n, data.device)
+
+    use_fast = path != "gather" and (
+        hasattr(est, "fit_and_vote") or getattr(est, "fused_family", None)
+    )
+    all_tries = min(choose(n, est.k), max_hypotheses)
+    budget = all_tries
+    evaluated = 0
+    best_count, best_mask, best_params = -1, None, None
+    while evaluated < budget:
+        if use_fast:
+            groups = max(1, min(-(-batch_size // n), -(-(budget - evaluated) // n)))
+            count, mask, params = _round_fast(est, data, generator, groups)
+            evaluated += groups * n
+        else:
+            b = min(batch_size, budget - evaluated)
+            idx = _sample(generator, n, est.k, b, "auto", data.device)
+            count, mask, params = hypothesize_and_vote(est, data, idx)
+            evaluated += b
+        if int(count) > best_count:
+            best_count, best_mask, best_params = int(count), mask, params
+            if best_count == n:
+                break
+            budget = min(num_tries(desired_probability, best_count / n, est.k, all_tries),
+                         all_tries)
+    if best_params is None:
+        return _invalid_result(est, n, data.device)
+    return _finalize(est, data, best_count, best_mask, best_params, n)
+
+
+def ransac_exhaustive(est, data, batch_size: int = 8192, *, device=None) -> RansacResult:
+    """Evaluate every C(n, k) subset, enumerated on the host in
+    lexicographic order (the reference's recursion, ``RANSAC.hxx:149-248``)
+    and voted in batches of ``batch_size``.  For small n."""
+    data = as_tensor(data, device)
+    n = data.shape[0]
+    if n < est.k:
+        return _invalid_result(est, n, data.device)
+    best_count, best_mask, best_params = -1, None, None
+    combos = itertools.combinations(range(n), est.k)
+    while chunk := list(itertools.islice(combos, batch_size)):
+        idx = torch.as_tensor(np.array(chunk, dtype=np.int64), device=data.device)
+        count, mask, params = hypothesize_and_vote(est, data, idx)
+        if int(count) > best_count:
+            best_count, best_mask, best_params = int(count), mask, params
+    if best_params is None:
+        return _invalid_result(est, n, data.device)
+    return _finalize(est, data, best_count, best_mask, best_params, n)
+
+
 def _invalid_result(est, n, device):
     return RansacResult(
-        params=torch.zeros((est.nparams,), device=device),
+        params=torch.zeros((_nparams_lsq(est),), device=device),
         valid=torch.tensor(False, device=device),
         inlier_fraction=torch.tensor(0.0, dtype=torch.float64),
         consensus=torch.zeros((max(n, 1),), dtype=torch.bool, device=device),

@@ -18,11 +18,21 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu.estimators import ALGEBRAIC as J_ALGEBRAIC
+from lsqrrecipes_tpu.estimators import Line2DEstimator as JLine2D
+from lsqrrecipes_tpu.estimators import LineEstimator as JLine
+from lsqrrecipes_tpu.estimators import PlaneEstimator as JPlane
 from lsqrrecipes_tpu.estimators import SphereEstimator as JSphere
 from lsqrrecipes_tpu.ransac import engine as jengine
 from lsqrrecipes_tpu.ransac import sampling as jsampling
 from lsqrrecipes_tpu_torch import interop
-from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+from lsqrrecipes_tpu_torch.estimators import (
+    ALGEBRAIC,
+    Line2DEstimator,
+    LineEstimator,
+    PlaneEstimator,
+    SphereEstimator,
+)
+from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ransac import engine, sampling
 
 torch.set_num_threads(2)
@@ -176,9 +186,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
         pytest.skip("CUDA present: numpy input legitimately goes to the card")
     est = SphereEstimator(1.0, 3, ALGEBRAIC)
     pts = _cloud(14, 128)
-    for fn in (engine.ransac, engine.ransac_fused_sweep, engine.ransac_structured):
+    for fn in (engine.ransac, engine.ransac_fused_sweep, engine.ransac_structured,
+               engine.ransac_adaptive):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(est, pts, None, 256)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.ransac_exhaustive(Line2DEstimator(1.0), pts[:10, :2])
 
 
 def test_interop_round_trip():
@@ -191,6 +204,288 @@ def test_interop_round_trip():
     out = interop.result_to_numpy(result)
     assert isinstance(out.params, np.ndarray) and out.consensus.shape == (128,)
     assert out.consensus.dtype == np.bool_
+
+
+# ------------------------------------- plane, line and 2D line end to end
+
+
+def _structure(kind, seed, n):
+    """The chip gate's data model at a small size: 80% inliers with
+    N(0, 0.2) noise on the plane / 3D line / 2D line of
+    ``scripts/chip_check.py``, 20% uniform outliers in [-40, 40]^d."""
+    rng = np.random.default_rng(seed)
+    n_in = n - n // 5
+    if kind == "plane":
+        e1 = np.array([1.0, 0.0, 0.5]) / np.sqrt(1.25)
+        e2 = np.array([0.0, 1.0, -0.2]) / np.linalg.norm([0.0, 1.0, -0.2])
+        uv = rng.uniform(-30, 30, (n_in, 2))
+        inl = np.array([2.0, -1.0, 4.0]) + uv[:, :1] * e1 + uv[:, 1:] * e2
+    elif kind == "line":
+        u = np.array([0.6, -0.64, 0.48]) / np.linalg.norm([0.6, -0.64, 0.48])
+        inl = np.array([1.0, 2.0, -3.0]) + rng.uniform(-40, 40, (n_in, 1)) * u
+    else:
+        inl = np.array([-2.0, 5.0]) + rng.uniform(-40, 40, (n_in, 1)) * np.array([0.8, 0.6])
+    inl = inl + 0.2 * rng.normal(size=inl.shape)
+    return np.concatenate([inl, rng.uniform(-40, 40, (n - n_in, inl.shape[1]))])
+
+
+LINEAR = {  # kind: (JAX estimator, port estimator, sign-free leading params of the refit)
+    "plane": (lambda: JPlane(1.0, 3), lambda: PlaneEstimator(1.0, 3), 3),
+    "line": (lambda: JLine(1.0, 3), lambda: LineEstimator(1.0, 3), 3),
+    "line2d": (lambda: JLine2D(1.0), lambda: Line2DEstimator(1.0), 0),
+}
+
+
+def _same_refit(got, want, n_signed):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if n_signed and np.dot(got[:n_signed], want[:n_signed]) < 0:
+        got = np.concatenate([-got[:n_signed], got[n_signed:]])
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-9)
+
+
+def _same_result(rt, rj, n_signed):
+    """Same best count, winning hypothesis and consensus; refit to 1e-9."""
+    assert int(rt.best_count) == int(rj.best_count)
+    assert bool(rt.valid) == bool(rj.valid)
+    np.testing.assert_allclose(rt.minimal_params.numpy(), np.asarray(rj.minimal_params),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    _same_refit(rt.params.numpy(), rj.params, n_signed)
+    assert float(rt.inlier_fraction) == pytest.approx(float(rj.inlier_fraction))
+
+
+@pytest.mark.parametrize("kind", sorted(LINEAR))
+def test_hypothesize_and_vote_new_estimators_match_jax(kind):
+    jmake, tmake, n_signed = LINEAR[kind]
+    jest, test = jmake(), tmake()
+    pts = _structure(kind, 40, 200)
+    idx = np.array(jsampling.sample_k_subsets(jax.random.PRNGKey(41), 200, test.k, 700))
+    cj, mj, pj = jengine.hypothesize_and_vote(jest, jnp.asarray(pts), jnp.asarray(idx))
+    ct, mt, pt = engine.hypothesize_and_vote(test, torch.as_tensor(pts), torch.as_tensor(idx))
+    assert int(ct) == int(cj) and int(ct) > 120
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+    rj, vj = jengine.consensus_refit(jest, jnp.asarray(pts), mj)
+    rt, vt = engine.consensus_refit(test, torch.as_tensor(pts), mt)
+    assert bool(vt) == bool(vj)
+    _same_refit(rt.numpy(), rj, n_signed)
+
+
+def test_agree_fallback_chunks_without_changing_counts(monkeypatch):
+    test = PlaneEstimator(1.0, 3)
+    pts = torch.as_tensor(_structure("plane", 42, 150))
+    idx = torch.as_tensor(np.array(jsampling.sample_k_subsets(jax.random.PRNGKey(43), 150, 3, 300)))
+    params, valid = test.minimal_fit(pts[idx])
+    whole = engine._vote(test, params, valid, pts)
+    monkeypatch.setattr(engine, "_AGREE_CELLS", 11 * 150 * 3)       # 28 chunks
+    chunked = engine._vote(test, params, valid, pts)
+    assert torch.equal(chunked, whole)
+    want = torch.where(valid, test.agree(params, pts).sum(-1), -1)
+    assert torch.equal(whole, want)
+
+
+@pytest.mark.parametrize("kind", sorted(LINEAR))
+def test_structured_vote_new_estimators_match_jax(kind):
+    jmake, tmake, _ = LINEAR[kind]
+    jest, test = jmake(), tmake()
+    pts = _structure(kind, 44, 128)
+    key = jax.random.PRNGKey(45)
+    cj, mj, pj = jengine.hypothesize_and_vote_structured(jest, jnp.asarray(pts), key, 2)
+    perm = np.asarray(jax.random.permutation(key, 128))
+    ct, mt, pt = engine.hypothesize_and_vote_structured(test, torch.as_tensor(pts), None, 2, perm=perm)
+    assert int(ct) == int(cj)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-12, atol=1e-12)
+    np.testing.assert_array_equal(mt.numpy(), np.asarray(mj))
+
+
+def _jax_sample_feed(monkeypatch, key, sampler="auto"):
+    """Make the port's ``_sample`` return, call by call, the indices the
+    JAX engine draws from ``key`` (the adaptive driver splits it per round)."""
+    state = {"key": key}
+
+    def sample(generator, n, k, b, sampler_=sampler, device="cpu"):
+        state["key"], sub = jax.random.split(state["key"])
+        return torch.as_tensor(np.array(jengine._sample(sub, n, k, b, sampler_)), dtype=torch.int64)
+
+    monkeypatch.setattr(engine, "_sample", sample)
+
+
+def _jax_perm_feed(monkeypatch, key, per_round):
+    """Make the port's slot-plane permutations those that JAX's fused sweep
+    draws from ``key`` (split first when ``per_round``, as the adaptive
+    driver does)."""
+    state = {"key": key}
+
+    def draw(n, k_slots, generator=None, device="cpu"):
+        if per_round:
+            state["key"], sub = jax.random.split(state["key"])
+        else:
+            sub = state["key"]
+        keys = jax.random.split(sub, 4 * k_slots)
+        return torch.as_tensor(np.stack([np.array(jax.random.permutation(keys[i], n))
+                                         for i in range(4 * k_slots)]))
+
+    monkeypatch.setattr(fs, "draw_slot_perms", draw)
+
+
+def test_ransac_plane_matches_jax_on_jax_indices(monkeypatch):
+    jmake, tmake, n_signed = LINEAR["plane"]
+    pts = _structure("plane", 46, 200)
+    key = jax.random.PRNGKey(47)
+    rj = jengine.ransac(jmake(), jnp.asarray(pts), key, num_hypotheses=1024)
+    state = {"done": False}
+
+    def sample(generator, n, k, b, sampler="auto", device="cpu"):
+        assert not state["done"]
+        state["done"] = True
+        return torch.as_tensor(np.array(jengine._sample(key, n, k, b, sampler)), dtype=torch.int64)
+
+    monkeypatch.setattr(engine, "_sample", sample)
+    rt = engine.ransac(tmake(), pts, None, num_hypotheses=1024, device="cpu")
+    _same_result(rt, rj, n_signed)
+
+
+def test_ransac_structured_line_matches_jax_on_jax_permutation(monkeypatch):
+    jmake, tmake, n_signed = LINEAR["line"]
+    pts = _structure("line", 48, 160)
+    key = jax.random.PRNGKey(49)
+    rj = jengine.ransac_structured(jmake(), jnp.asarray(pts), key, num_hypotheses=480)
+    perm = np.asarray(jax.random.permutation(key, 160)).copy()
+    real = sampling.structured_samples
+    monkeypatch.setattr(engine, "structured_samples",
+                        lambda gen, data, k, groups, perm_=None: real(gen, data, k, groups, perm))
+    rt = engine.ransac_structured(tmake(), pts, None, num_hypotheses=480, device="cpu")
+    _same_result(rt, rj, n_signed)
+
+
+@pytest.mark.parametrize("kind", sorted(LINEAR))
+def test_ransac_fused_sweep_new_families_match_jax(monkeypatch, kind):
+    jmake, tmake, n_signed = LINEAR[kind]
+    pts = _structure(kind, 50, 256).astype(np.float32)
+    key = jax.random.PRNGKey(51)
+    rj = jengine.ransac_fused_sweep(jmake(), jnp.asarray(pts), key, num_hypotheses=1536)
+    _jax_perm_feed(monkeypatch, key, per_round=False)
+    rt = engine.ransac_fused_sweep(tmake(), pts, None, num_hypotheses=1536, device="cpu")
+    # f32 refit on the same consensus: float32 eigh/sums, not 1e-9.
+    assert int(rt.best_count) == int(rj.best_count)
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    np.testing.assert_allclose(rt.minimal_params.numpy(), np.asarray(rj.minimal_params),
+                               rtol=1e-5, atol=1e-5)
+    rt64, _ = engine.consensus_refit(tmake(), torch.as_tensor(pts, dtype=torch.float64), rt.consensus)
+    rj64, _ = jengine.consensus_refit(jmake(), jnp.asarray(pts, jnp.float64), rj.consensus)
+    _same_refit(rt64.numpy(), rj64, n_signed)
+
+
+@pytest.mark.parametrize("path", ["auto", "gather"])
+def test_ransac_adaptive_line2d_matches_jax(monkeypatch, path):
+    jmake, tmake, n_signed = LINEAR["line2d"]
+    dtype = np.float32 if path == "auto" else np.float64
+    pts = _structure("line2d", 52, 256).astype(dtype)
+    key = jax.random.PRNGKey(53)
+    rj = jengine.ransac_adaptive(jmake(), jnp.asarray(pts), key, batch_size=512, path=path)
+    if path == "auto":
+        _jax_perm_feed(monkeypatch, key, per_round=True)
+    else:
+        _jax_sample_feed(monkeypatch, key)
+    rt = engine.ransac_adaptive(tmake(), pts, None, batch_size=512, path=path, device="cpu")
+    assert int(rt.best_count) == int(rj.best_count) > 150
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    tol = dict(rtol=1e-9, atol=1e-9) if path == "gather" else dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(rt.minimal_params.numpy(), np.asarray(rj.minimal_params), **tol)
+    np.testing.assert_allclose(rt.params.numpy(), np.asarray(rj.params), **tol)
+
+
+def test_ransac_adaptive_counts_rounds_like_jax(monkeypatch):
+    # The budget update and the stop rule: the same number of rounds.
+    jmake, tmake, _ = LINEAR["plane"]
+    pts = _structure("plane", 54, 120)
+    key = jax.random.PRNGKey(55)
+    calls = {"jax": 0, "port": 0}
+    real_j, real_t = jengine.hypothesize_and_vote, engine.hypothesize_and_vote
+
+    def count_j(*a):
+        calls["jax"] += 1
+        return real_j(*a)
+
+    def count_t(*a):
+        calls["port"] += 1
+        return real_t(*a)
+
+    monkeypatch.setattr(jengine, "hypothesize_and_vote", count_j)
+    monkeypatch.setattr(engine, "hypothesize_and_vote", count_t)
+    _jax_sample_feed(monkeypatch, key)
+    rj = jengine.ransac_adaptive(jmake(), jnp.asarray(pts), key, batch_size=64, path="gather",
+                                 desired_probability=0.99)
+    rt = engine.ransac_adaptive(tmake(), pts, None, batch_size=64, path="gather",
+                                desired_probability=0.99, device="cpu")
+    assert calls["port"] == calls["jax"] >= 1
+    assert int(rt.best_count) == int(rj.best_count)
+
+
+@pytest.mark.parametrize("kind", ["plane", "line2d"])
+def test_ransac_exhaustive_matches_jax(kind):
+    jmake, tmake, n_signed = LINEAR[kind]
+    pts = _structure(kind, 56, 20)
+    rj = jengine.ransac_exhaustive(jmake(), jnp.asarray(pts), batch_size=300)
+    rt = engine.ransac_exhaustive(tmake(), pts, batch_size=300, device="cpu")
+    _same_result(rt, rj, n_signed)
+    assert int(rt.best_count) >= 14
+
+
+def test_exhaustive_and_adaptive_reject_too_few_points():
+    est = PlaneEstimator(1.0, 3)
+    for result in (engine.ransac_exhaustive(est, np.zeros((2, 3)), device="cpu"),
+                   engine.ransac_adaptive(est, np.zeros((2, 3)), None, device="cpu"),
+                   engine.ransac_adaptive(est, np.ones((9, 3)), None, desired_probability=1.0,
+                                          device="cpu")):
+        assert not bool(result.valid) and int(result.best_count) == -1
+        assert result.params.shape == (6,)
+
+
+@pytest.mark.parametrize("kind", sorted(LINEAR))
+@pytest.mark.parametrize("driver", ["fused_sweep", "gather", "structured", "adaptive"])
+def test_driver_recovers_new_structures(kind, driver):
+    _, tmake, _ = LINEAR[kind]
+    est = tmake()
+    pts = _structure(kind, 60, 256).astype(np.float32)
+    gen = torch.Generator().manual_seed(3)
+    if driver == "adaptive":
+        result = engine.ransac_adaptive(est, pts, gen, batch_size=512, device="cpu")
+    else:
+        result = DRIVERS[driver](est, pts, gen)
+    assert bool(result.valid) and float(result.inlier_fraction) > 0.7
+    params = result.params.double().numpy()
+    if kind == "plane":
+        truth = np.cross([1.0, 0.0, 0.5], [0.0, 1.0, -0.2])
+        anchor_err = abs(np.dot(params[3:] - [2.0, -1.0, 4.0], params[:3]))
+    elif kind == "line":
+        truth = np.array([0.6, -0.64, 0.48])
+        v = params[3:] - [1.0, 2.0, -3.0]
+        anchor_err = np.linalg.norm(v - np.dot(v, params[:3]) * params[:3])
+    else:
+        truth = np.array([-0.6, 0.8])
+        anchor_err = abs(np.dot(params[2:] - [-2.0, 5.0], params[:2]))
+    truth = truth / np.linalg.norm(truth)
+    angle = np.arccos(min(1.0, abs(float(np.dot(params[: len(truth)], truth)))))
+    assert angle < 0.01 and anchor_err < 0.1
+
+
+def test_fused_rounds_launch_the_family_sweep(monkeypatch):
+    seen = []
+    real = fs.sweep
+
+    def spy(family, *args):
+        seen.append(family)
+        return real(family, *args)
+
+    monkeypatch.setattr(fs, "sweep", spy)
+    engine.ransac_adaptive(Line2DEstimator(1.0), _structure("line2d", 61, 256), None,
+                           batch_size=512, device="cpu")
+    assert seen and set(seen) == {"line2d"}
+    seen.clear()
+    engine.ransac_adaptive(LineEstimator(1.0, 2), _structure("line2d", 62, 256), None,
+                           batch_size=512, device="cpu")
+    assert seen == []                       # no fused family: gathered rounds
 
 
 # ------------------------------------------------------------------ hygiene

@@ -58,7 +58,7 @@ def test_fit_size_limit_and_supports_data():
     assert fs.supports_data("sphere3d", torch.zeros(4096, 3))
     assert not fs.supports_data("sphere3d", torch.zeros(4097, 3))
     assert not fs.supports_data("sphere3d", torch.zeros(256, 2))
-    assert not fs.supports_data("plane3d", torch.zeros(256, 3))
+    assert not fs.supports_data("pivot", torch.zeros(256, 3))
 
 
 @pytest.mark.parametrize("n", [256, 1024])
@@ -167,7 +167,7 @@ def test_generator_drives_the_sweep():
     b = fs.fused_sweep("sphere3d", pts, torch.Generator().manual_seed(1), 4, 1.0)
     assert int(a[0]) == int(b[0]) and torch.equal(a[1], b[1])
     with pytest.raises(ValueError):
-        fs.fused_sweep("plane3d", pts, None, 4, 1.0)
+        fs.fused_sweep("pivot", pts, None, 4, 1.0)
     with pytest.raises(ValueError):
         fs.fused_sweep("sphere3d", pts, None, 4, 1.0, vote_subsample=100)
 

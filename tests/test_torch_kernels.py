@@ -76,6 +76,32 @@ def test_library_path_is_keyed_by_source_and_flags(monkeypatch):
     assert "arch=compute_90a,code=sm_90a" in kernels.NVCC_FLAGS
 
 
+def test_library_path_changes_with_a_header(tmp_path):
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    header = tmp_path / "common.cuh"
+    header.write_text("// v1\n")
+    k = kernels.Kernel("k", "k.cu", "k_launch", [])
+    k.source = tmp_path / "k.cu"
+    first = k.library_path()
+    (tmp_path / "notes.txt").write_text("not a header")
+    assert k.library_path() == first
+    header.write_text("// v2\n")
+    second = k.library_path()
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "other.cuh").write_text("// another header\n")
+    assert k.library_path() not in (first, second)
+
+
+def test_point_sweeps_share_one_source_and_build():
+    sweeps = [kernels.FUSED_SWEEPS[f] for f in ("plane3d", "line3d", "line2d")]
+    assert {k.source.name for k in sweeps} == {"fused_sweep_points.cu"}
+    assert len({k.library_path() for k in sweeps}) == 1
+    assert len({k.symbol for k in sweeps}) == 3
+    assert kernels.FUSED_SWEEPS["sphere3d"] is kernels.FUSED_SWEEP_SPHERE3D
+    assert set(kernels.ALL) == set(kernels.FUSED_SWEEPS.values()) | {
+        kernels.SPHERE_VOTE, kernels.PLANE_VOTE}
+
+
 def test_nvcc_path_raises_when_missing(monkeypatch):
     monkeypatch.setattr(kernels.os, "access", lambda *a: False)
     with pytest.raises(FileNotFoundError, match="nvcc"):
@@ -112,7 +138,9 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     monkeypatch.setattr(kernels.Kernel, "finish_build", finish)
     with pytest.raises(RuntimeError, match="fused_sweep_sphere3d"):
         kernels.build_all()
-    assert finished == ["fused_sweep_sphere3d", "sphere_vote"]
+    # One build per source: the three point sweeps share fused_sweep_points.cu.
+    assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
+                        "plane_vote"]
 
 
 # ------------------------------------------------------- on the card only
@@ -146,3 +174,55 @@ def test_sweep_kernel_matches_plain_on_card(cuda_device, n, gps, subsample):
     assert abs(int(kc) - int(pc)) <= 1
     if int(ki) == int(pi):
         assert torch.equal(kp, pp)
+
+
+def _family_cloud(family, seed, n):
+    """80% inliers (N(0, 0.2) noise) on a plane / 3D line / 2D line, 20%
+    uniform outliers in [-40, 40]^d, f32."""
+    rng = np.random.default_rng(seed)
+    dim = fs._FAMILIES[family][4]
+    n_in = n - n // 5
+    base = rng.uniform(-30, 30, (n_in, dim))
+    if family == "plane3d":
+        base[:, 2] = 4.0 + 0.5 * base[:, 0] - 0.2 * base[:, 1]
+    else:
+        u = np.ones(dim) / np.sqrt(dim)
+        base = np.outer(rng.uniform(-40, 40, n_in), u)
+    inl = base + 0.2 * rng.normal(size=base.shape)
+    return np.concatenate([inl, rng.uniform(-40, 40, (n - n_in, dim))]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["plane3d", "line3d", "line2d"])
+@pytest.mark.parametrize("n,gps,subsample", [(1024, 1, 0), (1000, 4, 0), (1024, 1, 512)])
+def test_point_sweep_kernels_match_plain_on_card(cuda_device, family, n, gps, subsample):
+    pts = torch.as_tensor(_family_cloud(family, 20 + n + gps, n), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(gps)
+    coords, p, nf, cols = fs.sweep_inputs(family, pts, gen, subsample)
+    groups = -(-63 // gps) * gps
+    kernel = kernels.FUSED_SWEEPS[family]
+    before = kernel.launches
+    kc, kp, ki = fs.sweep(family, coords, p, nf, groups, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, cols, 1.0)
+    assert kernel.launches == before + 1
+    assert abs(int(kc) - int(pc)) <= 1
+    assert kp.shape == (fs._FAMILIES[family][2],)
+    if int(ki) == int(pi):
+        assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [2, 3])
+def test_plane_vote_kernel_equals_plain_on_card(cuda_device, d):
+    rng = np.random.default_rng(30 + d)
+    pts = torch.as_tensor(rng.uniform(-40, 40, (1000, d)).astype(np.float32), device=cuda_device)
+    normals = rng.normal(size=(65536, d))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    params = np.concatenate([normals, rng.uniform(-20, 20, (65536, 1))], 1).astype(np.float32)
+    params = torch.as_tensor(params, device=cuda_device)
+    tt, vt, _ = vote.pack_points(pts)
+    before = kernels.PLANE_VOTE.launches
+    got = vote.plane_vote_counts(params, tt, vt, 1.0)
+    plain = vote.plane_vote_counts_plain(params, tt, vt, 1.0)
+    assert kernels.PLANE_VOTE.launches == before + 1
+    assert torch.equal(got, plain)

@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
+from lsqrrecipes_tpu.linalg import eig as jeig
 from lsqrrecipes_tpu.linalg import lstsq as jlstsq
 from lsqrrecipes_tpu.linalg import small as jsmall
-from lsqrrecipes_tpu_torch.linalg import lstsq, small
+from lsqrrecipes_tpu_torch.linalg import eig, lstsq, small
 
 torch.set_num_threads(2)
 
@@ -80,3 +81,34 @@ def test_solve2_matches_jax():
     xt, dt = small.solve2(torch.as_tensor(a), torch.as_tensor(b))
     np.testing.assert_allclose(dt.numpy(), np.asarray(dj), **TOL)
     np.testing.assert_allclose(xt.numpy(), np.asarray(xj), **TOL)
+
+
+def _same_up_to_sign(got, want, **tol):
+    """Rows of ``got`` equal ``want`` up to each row's sign (neither package
+    fixes the sign of an eigen- or singular vector)."""
+    sign = np.where(np.sum(got * want, axis=-1, keepdims=True) < 0, -1.0, 1.0)
+    np.testing.assert_allclose(got * sign, want, **tol)
+
+
+@pytest.mark.parametrize("which", ["smallest", "largest"])
+@pytest.mark.parametrize("n", [2, 3, 4])
+def test_eigvec_matches_jax(which, n):
+    rng = np.random.default_rng(20 + n)
+    x = rng.normal(size=(30, 8, n))
+    a = np.einsum("bki,bkj->bij", x, x)           # symmetric positive definite
+    vj = np.asarray(getattr(jeig, f"eigvec_{which}")(jnp.asarray(a)))
+    vt = getattr(eig, f"eigvec_{which}")(torch.as_tensor(a)).numpy()
+    _same_up_to_sign(vt, vj, **TOL)
+    np.testing.assert_allclose(np.linalg.norm(vt, axis=-1), 1.0, rtol=1e-12)
+
+
+@pytest.mark.parametrize("k", [2, 3, 4])
+def test_nullvector_matches_jax(k):
+    rng = np.random.default_rng(30 + k)
+    a = np.concatenate([rng.uniform(-30, 30, size=(40, k, k)), -np.ones((40, k, 1))], axis=-1)
+    xj, rj = jlstsq.nullvector(jnp.asarray(a))
+    xt, rt = lstsq.nullvector(torch.as_tensor(a))
+    np.testing.assert_array_equal(rt.numpy(), np.asarray(rj))
+    assert int(rt.min()) == k
+    _same_up_to_sign(xt.numpy(), np.asarray(xj), **TOL)
+    np.testing.assert_allclose(np.einsum("bij,bj->bi", a, xt.numpy()), 0.0, atol=1e-9)

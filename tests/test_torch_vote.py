@@ -1,10 +1,11 @@
 """Port parity: ``lsqrrecipes_tpu_torch.ops.vote`` vs ``lsqrrecipes_tpu.ops.vote``.
 
-The JAX Pallas kernel runs in interpret mode on the CPU (as the JAX
-package's own tests run it); the port's CPU path is the plain version of the
-CUDA kernel.  f32 counts may differ by one at a band edge, because the two
-sum ``c.p`` in different orders: |delta| <= 1 per hypothesis and >= 99.9%
-exactly equal.  float64 votes (the estimator's plain path) are exact.
+The JAX Pallas kernels run in interpret mode on the CPU (as the JAX
+package's own tests run them); the port's CPU path is the plain version of
+each CUDA kernel.  Sphere f32 counts may differ by one at a band edge,
+because the two sum ``c.p`` in different orders: |delta| <= 1 per
+hypothesis and >= 99.9% exactly equal.  Plane counts are equal.  float64
+votes (the estimator's plain path) are exact.
 """
 
 import functools
@@ -129,3 +130,83 @@ def test_numpy_input_needs_cuda_unless_cpu_is_asked():
         vote.sphere_vote_counts(params, tt, vt, 1.0)
     counts = vote.sphere_vote_counts(params, tt, vt, 1.0, device="cpu")
     assert counts.device.type == "cpu" and counts.shape == (64,)
+
+
+def _plane_params(seed, b, d):
+    """``[b, d+1]`` rows ``[unit normal, offset]``: half near the plane or
+    line of :func:`_flat_points`, half random."""
+    rng = np.random.default_rng(seed)
+    true_n = np.array([0.3, -0.5, 0.81][:d])
+    true_n /= np.linalg.norm(true_n)
+    n = np.concatenate([true_n + rng.normal(0, 0.05, (b // 2, d)), rng.normal(size=(b - b // 2, d))])
+    n /= np.linalg.norm(n, axis=1, keepdims=True)
+    off = np.concatenate([2.0 + rng.normal(0, 1.0, b // 2), rng.uniform(-20, 20, b - b // 2)])
+    return np.concatenate([n, off[:, None]], 1).astype(np.float32)
+
+
+def _flat_points(seed, n, d):
+    """80% points within N(0, 0.3) of the plane (line) n.p = 2, 20% uniform
+    outliers in [-40, 40]^d, f32."""
+    rng = np.random.default_rng(seed)
+    true_n = np.array([0.3, -0.5, 0.81][:d])
+    true_n /= np.linalg.norm(true_n)
+    n_in = n * 4 // 5
+    raw = rng.uniform(-30, 30, (n_in, d))
+    inl = raw - (raw @ true_n - 2.0)[:, None] * true_n + 0.3 * rng.normal(size=(n_in, d))
+    return np.concatenate([inl, rng.uniform(-40, 40, (n - n_in, d))]).astype(np.float32)
+
+
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n,delta_sq", [(200, 4.0), (256, 1.0)])
+def test_plane_vote_plain_equals_pallas_interpret(interpret_pallas, d, n, delta_sq):
+    pts = _flat_points(20 + d, n, d)
+    params = _plane_params(21 + d, 1024, d)
+    tj, vj, _ = jvote.pack_points(jnp.asarray(pts))
+    cj = np.asarray(jvote.plane_vote_counts(jnp.asarray(params), tj, vj, delta_sq, block_b=256))
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    ct = vote.plane_vote_counts(torch.as_tensor(params), tt, vt, delta_sq).numpy()
+    assert ct.dtype == np.int32 and ct.shape == (1024,)
+    np.testing.assert_array_equal(ct, cj)
+    assert cj.max() > n // 2               # the near half finds the structure
+
+
+@pytest.mark.parametrize("d", [2, 3])
+def test_plane_vote_plain_equals_literal_agree_away_from_edges(d):
+    pts = _flat_points(30 + d, 256, d)
+    params = _plane_params(31 + d, 512, d)
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    counts = vote.plane_vote_counts_plain(torch.as_tensor(params), tt, vt, 1.0).numpy()
+    p64, h64 = pts.astype(np.float64), params.astype(np.float64)
+    s = h64[:, :d] @ p64.T - h64[:, d:]
+    oracle = (s * s < 1.0).sum(1)
+    assert np.abs(counts - oracle).max() <= 1
+
+
+def test_plane_vote_chunks_and_pads_consistently(monkeypatch):
+    pts = _flat_points(40, 200, 3)          # 56 padding columns
+    params = torch.as_tensor(_plane_params(41, 300, 3))
+    params[0] = torch.tensor([0.0, 0.0, 1.0, 0.0])   # the pads (0, 0, 0) lie on it
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    whole = vote.plane_vote_counts_plain(params, tt, vt, 1.0)
+    monkeypatch.setattr(vote, "_PLAIN_CELLS", 7 * tt.shape[1])
+    assert torch.equal(vote.plane_vote_counts_plain(params, tt, vt, 1.0), whole)
+    assert int(whole[0]) == int((torch.as_tensor(pts)[:, 2].abs() < 1.0).sum())
+
+
+def test_plane_wrapper_on_cpu_runs_plain_and_cuda_path_rejects_cpu():
+    pts = _flat_points(42, 128, 2)
+    params = torch.as_tensor(_plane_params(43, 64, 2))
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    np.testing.assert_array_equal(
+        vote.plane_vote_counts(params, tt, vt, 1.0).numpy(),
+        vote.plane_vote_counts_plain(params, tt, vt, 1.0).numpy(),
+    )
+    with pytest.raises(ValueError, match="CUDA"):
+        vote.plane_vote_counts_cuda(params, tt, vt, 1.0)
+    with pytest.raises(ValueError, match="params must be"):
+        vote.plane_vote_counts_plain(params[:, :2], tt, vt, 1.0)
+    with pytest.raises(ValueError, match="points_t must be"):
+        vote.plane_vote_counts_plain(params, tt[:1], vt, 1.0)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            vote.plane_vote_counts(params.numpy(), tt, vt, 1.0)
