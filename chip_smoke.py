@@ -36,7 +36,25 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      line2d rounds);
  11. kernel ``plane_vote`` through ``plane_vote_counts`` (B = 65,536 x
      n = 1,024 for d = 3 and 2, B = 2^20 x n = 8,192 for d = 3) vs its plain
-     version and an f64 literal ``agree`` oracle.
+     version and an f64 literal ``agree`` oracle;
+ 12. kernels ``fused_sweep_pivot``, ``fused_sweep_absolute_orientation``,
+     ``fused_sweep_ray3d`` and ``fused_sweep_dense_linear6`` vs their plain
+     versions on phase 4's cases (pivot at n = 512 and 480);
+ 13. per rigid family, ``ransac_fused_sweep`` through its estimator at the
+     JAX family record's width (one launch), the ground truth recovered,
+     then the kernel vs its plain version at that shape;
+ 14. ``ransac`` with pivot calibration at 65,536 gathered hypotheses (the
+     tree gather and the batched f64 9x6 SVD, no kernel).
+
+The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
+2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
+(``tests/test_fused_sweep.py:145-167``); point pairs under the rotation of
+q = (0.9, 0.2, -0.3, 0.1) and t = (12, -7, 30) with N(0, 0.1) noise, 20%
+replaced (``scripts/chip_check.py:125-135``); rays from [-60, 60]^3 towards
+(3, -4, 20) with N(0, 0.05) jitter, 20% random directions, minimum angular
+deviation 0.05 (``chip_check.py:138-148``); rows ``[a | b]`` of x = (1.5,
+-2, 0.5, 3, -1, 2.5) with N(0, 0.05) noise, 20% with b shifted by U(5, 50)
+(``tests/test_fused_sweep.py:327-336``).
 
 Each main-path phase sets the launch counts to 0 just before it and fails if
 a kernel of that path did not launch.  Any failed check raises, so the exit
@@ -106,6 +124,33 @@ FAMILIES = {
     "line2d": ("line2d", np.array([-2.0, 5.0]), np.array([-0.6, 0.8])),
 }
 MAX_ANGLE, MAX_ANCHOR = 0.01, 0.1   # radians; data units
+
+# The rigid families (csrc/fused_sweep_rigid.cu): estimator registry name,
+# data size n and groups of the main path (the JAX family record,
+# docs/FAMILY_PERF.json), and f32 operations (per cell, per hypothesis)
+# counted from each family's vote and fit: pivot 3 x (3 mul + 2 add + add +
+# sub) + 3 mul + 2 add + compare + count per cell, the sums, Schur matrix,
+# Cramer solve and back-substitution per hypothesis; absolute_orientation
+# the same per cell, two frames and R, t per hypothesis; ray3d 3 sub +
+# (3 mul + 2 add) x 2 + 2 mul + 2 sub + 2 compares + and + count per cell;
+# dense_linear6 6 mul + 5 add + sub + abs + compare + count per cell, the
+# 6x6 normal equations (21 x 11 + 6 x 11), Cholesky and substitutions per
+# hypothesis.
+RIGID = {
+    "pivot": ("pivot_calibration", 480, 2048, (28, 152)),
+    "absolute_orientation": ("absolute_orientation", 1024, 1024, (28, 196)),
+    "ray3d": ("ray_intersection", 1024, 1024, (21, 72)),
+    "dense_linear6": ("dense_linear", 1024, 2048, (15, 478)),
+}
+RIGID_CASE_SIZES = {"pivot": {1024: 512, 1000: 480}}   # phase 4's n, cut to pivot's
+PIVOT_TD, PIVOT_TW = np.array([10.0, -5.0, 2.0]), np.array([100.0, 50.0, -30.0])
+ABSOR_Q, ABSOR_T = np.array([0.9, 0.2, -0.3, 0.1]), np.array([12.0, -7.0, 30.0])
+RAY_TARGET, RAY_MIN_ANGLE = np.array([3.0, -4.0, 20.0]), 0.05
+DENSE_X = np.array([1.5, -2.0, 0.5, 3.0, -1.0, 2.5])
+# Recovery limits of the JAX tests: pivot t_D and t_W, rotation entries and
+# t, the ray target, x.
+RIGID_LIMITS = {"pivot": (0.1, 0.1), "absolute_orientation": (0.01, 0.2),
+                "ray3d": (0.2,), "dense_linear6": (0.05,)}
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -113,6 +158,10 @@ REPLACES = {
     "fused_sweep_line3d": "lsqrrecipes_tpu/ops/fused_sweep.py:294",
     "fused_sweep_line2d": "lsqrrecipes_tpu/ops/fused_sweep.py:267",
     "plane_vote": "lsqrrecipes_tpu/ops/vote.py:127",
+    "fused_sweep_pivot": "lsqrrecipes_tpu/ops/fused_sweep.py:334",
+    "fused_sweep_absolute_orientation": "lsqrrecipes_tpu/ops/fused_sweep.py:467",
+    "fused_sweep_ray3d": "lsqrrecipes_tpu/ops/fused_sweep.py:588",
+    "fused_sweep_dense_linear6": "lsqrrecipes_tpu/ops/fused_sweep.py:688",
 }
 
 
@@ -140,6 +189,62 @@ def family_cloud(rng, family, n):
     inl = inl + 0.2 * rng.normal(size=inl.shape)
     out = rng.uniform(-40.0, 40.0, size=(n - n_in, inl.shape[1]))
     return np.concatenate([inl, out]).astype(np.float32)
+
+
+def rotation_np(q):
+    """Unit quaternions ``[..., 4]`` (s first) -> rotation matrices ``[..., 3, 3]``."""
+    q = q / np.linalg.norm(q, axis=-1, keepdims=True)
+    s, x, y, z = np.moveaxis(q, -1, 0)
+    return np.stack([
+        np.stack([1 - 2 * (y * y + z * z), 2 * (x * y - s * z), 2 * (x * z + s * y)], -1),
+        np.stack([2 * (x * y + s * z), 1 - 2 * (x * x + z * z), 2 * (y * z - s * x)], -1),
+        np.stack([2 * (x * z - s * y), 2 * (y * z + s * x), 1 - 2 * (x * x + y * y)], -1),
+    ], -2)
+
+
+def rigid_data(rng, family, n, geometry):
+    """A rigid family's data model (see the module docstring), float32 numpy
+    leaves in the port's types: a ``Frame``, a ``(first, second)`` pair, a
+    ``Ray3D`` or ``[n, 7]`` rows."""
+    n_in = n - n // 5
+    if family == "pivot":
+        r = rotation_np(rng.normal(size=(n, 4)))
+        t = PIVOT_TW - r[:n_in] @ PIVOT_TD + 0.05 * rng.normal(size=(n_in, 3))
+        t = np.concatenate([t, rng.uniform(-200.0, 200.0, (n - n_in, 3))])
+        data = geometry.Frame(r, t)
+    elif family == "absolute_orientation":
+        first = rng.uniform(-100.0, 100.0, (n, 3))
+        second = first @ rotation_np(ABSOR_Q).T + ABSOR_T + 0.1 * rng.normal(size=(n, 3))
+        second[n_in:] = rng.uniform(-100.0, 100.0, (n - n_in, 3))
+        data = (first, second)
+    elif family == "ray3d":
+        p = rng.uniform(-60.0, 60.0, (n, 3))
+        d = RAY_TARGET - p + 0.05 * rng.normal(size=(n, 3))
+        d[n_in:] = rng.normal(size=(n - n_in, 3))
+        data = geometry.Ray3D(p, d / np.linalg.norm(d, axis=1, keepdims=True))
+    else:
+        a = rng.uniform(-10.0, 10.0, (n, 6))
+        b = a @ DENSE_X + 0.05 * rng.normal(size=n)
+        b[n_in:] += rng.uniform(5.0, 50.0, n - n_in)
+        data = np.concatenate([a, b[:, None]], axis=1)
+    if isinstance(data, tuple):
+        leaves = [x.astype(np.float32) for x in data]
+        return type(data)(*leaves) if hasattr(data, "_fields") else tuple(leaves)
+    return data.astype(np.float32)
+
+
+def rigid_errors(family, params):
+    """Recovery errors of a rigid family's refit against its ground truth, in
+    the order of ``RIGID_LIMITS``."""
+    if family == "pivot":
+        return (float(np.abs(params[:3] - PIVOT_TD).max()),
+                float(np.abs(params[3:] - PIVOT_TW).max()))
+    if family == "absolute_orientation":
+        return (float(np.abs(rotation_np(params[:4]) - rotation_np(ABSOR_Q)).max()),
+                float(np.abs(params[4:] - ABSOR_T).max()))
+    if family == "ray3d":
+        return (float(np.abs(params - RAY_TARGET).max()),)
+    return (float(np.abs(params - DENSE_X).max()),)
 
 
 def recovery_errors(family, params):
@@ -183,15 +288,21 @@ def bound(ops, nbytes, rates):
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, voters, label):
+def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, voters, label,
+                  delta=DELTA):
     """One launch of the family's sweep kernel against its plain version on
     the same inputs: best count within 1, the kernel's winner re-achieving
     its count under ``agree`` within 1, and, where the winner indices match,
-    the parameters equal bit for bit.  Returns the largest absolute error."""
-    kc, kp, ki = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, DELTA)
-    pc, pp_, pi = fs.sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, DELTA)
+    the parameters equal bit for bit.  Returns the largest absolute error.
+    ``voters`` is the data (a tensor or a tree of tensors) the kernel voted
+    on; a family's kernel rows are converted as ``fused_sweep`` does."""
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta)
+    pc, pp_, pi = fs.sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta)
     kc, pc, ki, pi = int(kc), int(pc), int(ki), int(pi)
-    regain = int(est.agree(kp, voters).sum())
+    from lsqrrecipes_tpu_torch.tree import tree_leaves
+
+    post = fs._POSTPROCESS.get(family, lambda rows: rows)
+    regain = int(est.agree(post(kp).to(tree_leaves(voters)[0].dtype), voters).sum())
     d_count = abs(kc - pc)
     params_err = float((kp - pp_).abs().max()) if ki == pi else None
     print(f"{label}: count kernel={kc} plain={pc} agree={regain}; "
@@ -664,7 +775,113 @@ def main(argv=None):
         print(f"    ms: kernel {ms11:.4f}, plain {plain_ms11:.4f}, library {lib_ms11:.4f}, "
               f"bound {bound11:.4f} ({by11}) [{smi}]")
 
-    # 12. kernels line, card line, result line --------------------------------
+    # 12. the rigid sweeps vs their plain versions -----------------------------
+    from lsqrrecipes_tpu_torch import geometry, interop
+    from lsqrrecipes_tpu_torch.tree import tree_map
+
+    def rigid_est(family):
+        make = get(RIGID[family][0])
+        if family == "ray3d":
+            return make(DELTA, RAY_MIN_ANGLE)
+        return make(DELTA, 6) if family == "dense_linear6" else make(DELTA)
+
+    def check_rigid(result, family, label, n):
+        params = result.params.double().cpu().numpy()
+        errors = rigid_errors(family, params)
+        print(f"    {label}: valid={bool(result.valid)} params={params.round(4).tolist()} "
+              f"inliers={int(result.best_count)} fraction={float(result.inlier_fraction):.4f} "
+              f"errors={[f'{e:.2e}' for e in errors]} (limits {RIGID_LIMITS[family]})")
+        check(bool(result.valid), f"{label}: result not valid")
+        check(bool(np.isfinite(params).all()), f"{label}: non-finite params")
+        check(tuple(result.consensus.shape) == (n,), f"{label}: consensus shape")
+        check(all(e < lim for e, lim in zip(errors, RIGID_LIMITS[family])),
+              f"{label}: ground truth not recovered: {errors}")
+
+    for family in RIGID:
+        est_f = rigid_est(family)
+        delta_f = getattr(est_f, "fused_delta", DELTA)
+        family_err[family] = 0
+        for n_case, total_groups, gps, subsample in SWEEP_CASES:
+            n_case = RIGID_CASE_SIZES.get(family, {}).get(n_case, n_case)
+            subsample = subsample if subsample < n_case else n_case // 2
+            data = interop.data_to_torch(rigid_data(rng, family, n_case, geometry), device=dev)
+            g12 = torch.Generator(device=dev).manual_seed(args.seed + n_case + gps)
+            vote_perm = torch.randperm(n_case, generator=g12, device=dev)
+            coords, p, n_fit, vote_cols = fs.sweep_inputs(
+                family, data, g12, subsample, vote_perm=vote_perm
+            )
+            num_groups = -(-total_groups // gps) * gps
+            voters = tree_map(lambda x: x[vote_perm][:vote_cols], data) if subsample else data
+            family_err[family] = max(family_err[family], compare_sweep(
+                fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
+                f"[12] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
+                f"subsample={subsample}", delta_f))
+
+    # 13. main path per rigid family: ransac_fused_sweep, one launch ---------
+    for family, (_, n13, groups13, (per_cell, per_hyp)) in RIGID.items():
+        est_f = rigid_est(family)
+        delta_f = getattr(est_f, "fused_delta", DELTA)
+        name_f = f"fused_sweep_{family}"
+        data13 = rigid_data(rng, family, n13, geometry)
+        kernels.reset_launch_counts()
+        res13 = ransac_fused_sweep(est_f, data13, gen(), num_hypotheses=groups13 * n13,
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        counts13 = kernels.launch_counts()
+        hyp13 = groups13 * fs.fit_size(n13, fs._FAMILIES[family][0])
+        print(f"[13] ransac_fused_sweep {family} n={n13} groups={groups13} "
+              f"hypotheses={hyp13}: launches {counts13}")
+        check_rigid(res13, family, family, n13)
+        check(counts13[name_f] > 0, f"main path did not launch {name_f}")
+        add_launches(counts13)
+
+        def run13(est_f=est_f, data13=data13, groups13=groups13, n13=n13):
+            return ransac_fused_sweep(est_f, data13, gen(), num_hypotheses=groups13 * n13,
+                                      device=DEVICE)
+
+        wall13 = timer.wall_ms(run13, reps=WALL_REPS)
+        print(f"    wall {wall13:.3f} ms median of {WALL_REPS}, {hyp13 / wall13 * 1e3:.4g} "
+              f"hypotheses/s [{smi}]")
+        breakdown(torch, run13, family)
+
+        data13_t = interop.data_to_torch(data13, device=dev)
+        coords13, p13, nfit13, cols13 = fs.sweep_inputs(family, data13_t, gen())
+        ms13 = timer.ms(lambda: fs.sweep_cuda(family, coords13, p13, nfit13, groups13, cols13,
+                                              delta_f), reps=20)
+        plain_ms13 = timer.ms(lambda: fs.sweep_plain(family, coords13, p13, nfit13, groups13,
+                                                     cols13, delta_f), reps=2, warmup=1)
+        # The least work: every evaluated hypothesis fitted once and voted on
+        # the n observations (not on the padding columns).
+        bound13, by13 = bound(hyp13 * (n13 * per_cell + per_hyp),
+                              (coords13.numel() + p13.numel() + fs._FAMILIES[family][2] + 1) * 4,
+                              rates)
+        family_times[family] = (ms13, plain_ms13, bound13, by13)
+        print(f"    kernel ms: {name_f} {ms13:.4f}, plain {plain_ms13:.4f}, "
+              f"bound {bound13:.4f} ({by13}) [{smi}]")
+        family_err[family] = max(family_err[family], compare_sweep(
+            fs, family, est_f, coords13, p13, nfit13, groups13, cols13, data13_t,
+            f"    {name_f} at this shape ({groups13} groups)", delta_f))
+
+    # 14. gathered pivot calibration (tree gather, f64 9x6 SVD, no kernel) ----
+    pivot_est = rigid_est("pivot")
+    data14 = rigid_data(rng, "pivot", RIGID["pivot"][1], geometry)
+    kernels.reset_launch_counts()
+    res14 = ransac(pivot_est, data14, gen(), num_hypotheses=H_GATHER, device=DEVICE)
+    torch.cuda.synchronize()
+    counts14 = kernels.launch_counts()
+    print(f"[14] ransac pivot n={RIGID['pivot'][1]} hypotheses={H_GATHER}: launches {counts14}")
+    check_rigid(res14, "pivot", "gather pivot", RIGID["pivot"][1])
+    check(sum(counts14.values()) == 0, "the pivot gather path launched a kernel")
+
+    def run14():
+        return ransac(pivot_est, data14, gen(), num_hypotheses=H_GATHER, device=DEVICE)
+
+    wall14 = timer.wall_ms(run14, reps=WALL_REPS)
+    print(f"    wall {wall14:.3f} ms median of {WALL_REPS}, {H_GATHER / wall14 * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    breakdown(torch, run14, "gather pivot")
+
+    # 15. kernels line, card line, result line --------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",
@@ -683,6 +900,8 @@ def main(argv=None):
         entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in FAMILIES
     ] + [
         entry("plane_vote", plane_vote_err, pv[0], pv[1], pv[3], pv[4], pv[2]),
+    ] + [
+        entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in RIGID
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:

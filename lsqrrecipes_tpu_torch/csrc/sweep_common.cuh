@@ -21,20 +21,25 @@
 //     decodes it and refits the winner for its parameters.
 //
 // A family F provides:
-//   kSlots, kDim, kParams, kTileRows  — sample slots, coordinates per point,
-//                                       parameters, staged point rows;
+//   kSlots, kDim, kParams, kTileRows  — sample slots, features per sampled
+//                                       observation, parameters, staged rows;
+//   optionally kTileCols              — columns per shared-memory tile where
+//                                       kTileRows x kTile floats would pass
+//                                       the 48 KB static limit (else kTile);
 //   struct Fit { bool degenerate; ... };  struct Band { ... };
 //   static Fit fit(const float s[kSlots][kDim], const Consts&);
 //   static Band band(const Fit&, const Consts&);
 //   static void stage(const float* p, long long p_stride, int col,
-//                     float (*tile)[kTile], int i);
-//   static int vote(const Band&, float (*tile)[kTile], int i);
+//                     float (*tile)[TileCols<F>::value], int i);
+//   static int vote(const Band&, float (*tile)[TileCols<F>::value], int i);
 //   static void params(const Fit&, float* out);
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace lsq_sweep {
 
@@ -44,11 +49,27 @@ constexpr int kHypPerBlock = kThreads * kHypPerThread;
 constexpr int kTile = 1024;  // P columns per shared-memory tile
 constexpr unsigned kHashA = 1103515245u;
 
-// Host-computed f32 constants: 1/delta and delta^2, each the double value
-// rounded once to f32, as the TPU closures' Python-float constants are.
+// Host-computed f32 constants, each the double value rounded once to f32, as
+// the TPU closures' Python-float constants are: 1/delta and delta^2 (the
+// point families), delta and delta^2 (the rigid families) and the ray
+// family's parallel gate sin^2(min_angular_deviation).  A family reads only
+// the ones it needs; the others are 0.
 struct Consts {
   float inv_delta;
   float delta_sq;
+  float delta;
+  float cross_eps;
+};
+
+// Columns of P per shared-memory tile for family F: F::kTileCols if the
+// family declares it, else kTile.
+template <class F, class = void>
+struct TileCols {
+  static constexpr int value = kTile;
+};
+template <class F>
+struct TileCols<F, std::void_t<decltype(F::kTileCols)>> {
+  static constexpr int value = F::kTileCols;
 };
 
 // The kSlots x kDim coordinates of hypothesis (g, lane).
@@ -87,7 +108,8 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
              const float* __restrict__ p, long long p_stride, int vote_cols,
              unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
              unsigned long long* __restrict__ best_key) {
-  __shared__ float tile[F::kTileRows][kTile];
+  constexpr int kCols = TileCols<F>::value;
+  __shared__ float tile[F::kTileRows][kCols];
   __shared__ unsigned long long warp_best[kThreads / 32];
 
   const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
@@ -108,8 +130,8 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
     }
   }
 
-  for (int t0 = 0; t0 < vote_cols; t0 += kTile) {
-    const int len = min(kTile, vote_cols - t0);
+  for (int t0 = 0; t0 < vote_cols; t0 += kCols) {
+    const int len = min(kCols, vote_cols - t0);
     __syncthreads();  // the previous tile is no longer read
     for (int i = threadIdx.x; i < len; i += kThreads) F::stage(p, p_stride, t0 + i, tile, i);
     __syncthreads();

@@ -11,6 +11,8 @@ import contextlib
 import numpy as np
 import torch
 
+from lsqrrecipes_tpu_torch.tree import tree_leaves, tree_map
+
 DEFAULT_DEVICE = "cuda"
 
 
@@ -32,9 +34,14 @@ def resolve_device(device=None, like=None) -> torch.device:
     return dev
 
 
-def as_tensor(data, device=None, dtype=None) -> torch.Tensor:
+def as_tensor(data, device=None, dtype=None):
     """``data`` as a tensor on the resolved device (numpy dtype kept unless
-    ``dtype`` is given)."""
+    ``dtype`` is given).  A tuple or ``NamedTuple`` of leaves
+    (:mod:`lsqrrecipes_tpu_torch.tree`) maps leaf by leaf onto the device
+    its first leaf resolves to."""
+    if isinstance(data, tuple):
+        dev = resolve_device(device, tree_leaves(data)[0])
+        return tree_map(lambda leaf: as_tensor(leaf, dev, dtype), data)
     dev = resolve_device(device, data)
     if isinstance(data, torch.Tensor):
         return data.to(device=dev, dtype=dtype or data.dtype)

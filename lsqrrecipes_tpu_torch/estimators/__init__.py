@@ -1,9 +1,19 @@
-"""Estimator suite (ported so far: sphere, plane, kD line, 2D line)."""
+"""Estimator suite (ported so far: sphere, plane, kD line, 2D line, dense
+linear system, pivot calibration, absolute orientation, ray intersection)."""
 
+from lsqrrecipes_tpu_torch.estimators.absolute_orientation import (
+    AbsoluteOrientationEstimator,
+)
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, get, names, register
+from lsqrrecipes_tpu_torch.estimators.dense_linear import (
+    DenseLinearSystemEstimator,
+    augmented_rows,
+)
 from lsqrrecipes_tpu_torch.estimators.line2d import Line2DEstimator
 from lsqrrecipes_tpu_torch.estimators.line import LineEstimator
+from lsqrrecipes_tpu_torch.estimators.pivot_calibration import PivotCalibrationEstimator
 from lsqrrecipes_tpu_torch.estimators.plane import PlaneEstimator
+from lsqrrecipes_tpu_torch.estimators.ray_intersection import RayIntersectionEstimator
 from lsqrrecipes_tpu_torch.estimators.sphere import (
     ALGEBRAIC,
     GEOMETRIC,
@@ -15,10 +25,15 @@ __all__ = [
     "register",
     "get",
     "names",
+    "AbsoluteOrientationEstimator",
+    "DenseLinearSystemEstimator",
     "Line2DEstimator",
     "LineEstimator",
+    "PivotCalibrationEstimator",
     "PlaneEstimator",
+    "RayIntersectionEstimator",
     "SphereEstimator",
     "ALGEBRAIC",
     "GEOMETRIC",
+    "augmented_rows",
 ]

@@ -5,12 +5,16 @@ the data, and the hypothesis randomness.  These helpers take only numpy
 arrays and plain attributes, so either side can produce them:
 
   * :func:`estimator_from_attrs` — any object with ``registry_name`` and
-    ``delta`` (plus ``dim`` and ``ls_type`` where the estimator has them),
-    such as a JAX package estimator -> the port's estimator of that name;
+    ``delta`` (plus ``dim``, ``ls_type``, ``n`` or ``cross_eps`` where the
+    estimator has them), such as a JAX package estimator -> the port's
+    estimator of that name;
   * :func:`sphere_estimator_from_attrs` — the same for a sphere estimator,
     from ``delta``, ``dim`` and ``ls_type`` alone;
   * :func:`to_torch` — a numpy array (data, ``idx[B, k]`` hypothesis
     indices, slot-plane or sampling permutations) -> a tensor, dtype kept;
+  * :func:`data_to_torch` — an estimator's data of arrays: a point array,
+    a ``Frame`` (fields ``r``, ``t``), a ``Ray3D`` (fields ``p``, ``n``) or a
+    ``(first, second)`` pair -> the port's tree of tensors;
   * :func:`result_to_numpy` — a :class:`RansacResult` of tensors -> the same
     fields as numpy arrays.
 """
@@ -19,11 +23,16 @@ import numpy as np
 
 from lsqrrecipes_tpu_torch.device import as_tensor
 from lsqrrecipes_tpu_torch.estimators import (
+    AbsoluteOrientationEstimator,
+    DenseLinearSystemEstimator,
     Line2DEstimator,
     LineEstimator,
+    PivotCalibrationEstimator,
     PlaneEstimator,
+    RayIntersectionEstimator,
     SphereEstimator,
 )
+from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D
 from lsqrrecipes_tpu_torch.ransac.engine import RansacResult
 
 _FROM_ATTRS = {
@@ -31,13 +40,20 @@ _FROM_ATTRS = {
     "plane": lambda a: PlaneEstimator(float(a.delta), int(a.dim)),
     "line": lambda a: LineEstimator(float(a.delta), int(a.dim)),
     "line2d": lambda a: Line2DEstimator(float(a.delta)),
+    "dense_linear": lambda a: DenseLinearSystemEstimator(float(a.delta), int(a.n)),
+    "pivot_calibration": lambda a: PivotCalibrationEstimator(float(a.delta)),
+    "absolute_orientation": lambda a: AbsoluteOrientationEstimator(float(a.delta)),
+    # The JAX estimator keeps only the gate sin^2(min_angular_deviation):
+    # carry it as it is, not through an asin round trip.
+    "ray_intersection": lambda a: RayIntersectionEstimator(
+        float(a.delta), cross_eps=float(a.cross_eps)),
 }
 
 
 def estimator_from_attrs(attrs):
     """The port's estimator for ``attrs.registry_name`` with the same
-    ``delta`` (and ``dim``/``ls_type``); ``KeyError`` for an estimator the
-    port does not have yet."""
+    ``delta`` (and ``dim``, ``ls_type``, ``n`` or ``cross_eps``); ``KeyError``
+    for an estimator the port does not have yet."""
     return _FROM_ATTRS[attrs.registry_name](attrs)
 
 
@@ -48,6 +64,21 @@ def sphere_estimator_from_attrs(attrs) -> SphereEstimator:
 def to_torch(array_np, device=None):
     """``np.asarray(array_np)`` as a tensor on ``device`` (default CUDA)."""
     return as_tensor(np.asarray(array_np), device)
+
+
+def data_to_torch(data, device=None, dtype=None):
+    """Estimator data of arrays -> the port's tensors on ``device`` (default
+    CUDA), dtype kept unless given: a ``Frame`` for anything with fields
+    ``(r, t)``, a ``Ray3D`` for fields ``(p, n)``, a tuple for a pair."""
+    fields = getattr(type(data), "_fields", None)
+    if fields is None and not isinstance(data, (tuple, list)):
+        return as_tensor(np.asarray(data), device, dtype)
+    leaves = as_tensor(tuple(np.asarray(x) for x in data), device, dtype)
+    if fields == ("r", "t"):
+        return Frame(*leaves)
+    if fields == ("p", "n"):
+        return Ray3D(*leaves)
+    return leaves
 
 
 def result_to_numpy(result: RansacResult) -> RansacResult:

@@ -183,15 +183,35 @@ PLANE_VOTE = Kernel(
     [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P],
 )
 
+# The four rigid-body and linear-system families of csrc/fused_sweep_rigid.cu
+# share one library and one signature.
+_RIGID_SWEEP_ARGS = [
+    # coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups,
+    # b, m, mask, delta, delta_sq, cross_eps, best_key, best_out, best_index,
+    # stream
+    _P, ctypes.c_longlong, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_uint,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float, _P, _P, _P, _P,
+]
+
+RIGID_FAMILIES = ("pivot", "absolute_orientation", "ray3d", "dense_linear6")
+
+_RIGID_SWEEPS = {
+    family: Kernel(f"fused_sweep_{family}", "fused_sweep_rigid.cu",
+                   f"fused_sweep_{family}_launch", _RIGID_SWEEP_ARGS)
+    for family in RIGID_FAMILIES
+}
+
 FUSED_SWEEPS = {
     "sphere3d": FUSED_SWEEP_SPHERE3D,
     "plane3d": FUSED_SWEEP_PLANE3D,
     "line3d": FUSED_SWEEP_LINE3D,
     "line2d": FUSED_SWEEP_LINE2D,
+    **_RIGID_SWEEPS,
 }
 
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
-       FUSED_SWEEP_LINE2D, PLANE_VOTE)
+       FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values())
 
 
 def build_all(kernels=ALL) -> None:

@@ -1,14 +1,17 @@
-"""Whole-sweep fused RANSAC for the point families ``sphere3d``, ``plane3d``,
-``line3d`` and ``line2d`` (counterpart of ``lsqrrecipes_tpu/ops/fused_sweep.py``).
+"""Whole-sweep fused RANSAC (counterpart of ``lsqrrecipes_tpu/ops/fused_sweep.py``)
+for the point families ``sphere3d``, ``plane3d``, ``line3d``, ``line2d`` and
+``dense_linear6`` and the rigid-body families ``pivot``,
+``absolute_orientation`` and ``ray3d``.
 
 One call evaluates ``groups * n_fit`` hypotheses and returns only the best
 one.  Sampling is gather-free: each of the ``k`` sample slots draws from FOUR
-independent permutations of the (replication-padded) data laid out as one
-``[d, 5 n_fit]`` plane (perm0|perm1|perm2|perm3|perm0), and group ``g`` takes
-for slot ``j`` the 128-aligned window at ``shift_units(g, j)`` of it, hashed
-from ``g`` (no shift table).  Each family's minimal fit runs per lane; its
-vote counts the columns of the packed point rows ``P = [coords, 1, guard]``
-(a 1e30 guard on padding columns) that fall in the family's band:
+independent permutations of the (replication-padded) per-observation feature
+rows laid out as one ``[F, 5 n_fit]`` plane (perm0|perm1|perm2|perm3|perm0),
+and group ``g`` takes for slot ``j`` the 128-aligned window at
+``shift_units(g, j)`` of it, hashed from ``g`` (no shift table).  Each
+family's minimal fit runs per lane; its vote counts the live columns of the
+packed rows ``P`` (padding columns carry a 1e30 guard or a zero ones-row)
+that fall in the family's band:
 
   * sphere3d: Cramer circumsphere, ``|P^T A| < 1`` with
     ``A = [w(-2c), w|c|^2 + o, w]`` on ``P = [x, y, z, 1, |p|^2]``;
@@ -16,12 +19,25 @@ vote counts the columns of the packed point rows ``P = [coords, 1, guard]``
     ``A = [w n, o, w]`` on ``P = [x, y, z, 1, guard]``;
   * line2d: two-point normal, the same band on ``P = [x, y, 1, guard]``;
   * line3d: two-point direction ``u`` through ``a``, ``|p-a|^2 -
-    (u.(p-a))^2 < delta^2`` computed from ``p - a`` per cell on live columns.
+    (u.(p-a))^2 < delta^2`` computed from ``p - a`` per cell on live columns;
+  * dense_linear6: 6x6 normal-equation Cholesky over six rows ``[a | b]``,
+    ``|a.x - b| < delta`` per cell on ``P = [a(6), b, 1, guard]``;
+  * pivot: 3x3 Schur/Cramer solve over three frames (slot features
+    ``[vec(R) 9, t 3, R^T t 3]``), ``|R t_D + t - t_W|^2 < delta^2`` from the
+    three residual components per cell on ``P = [t, R^T t, vec(R), 1, guard]``;
+  * absolute_orientation: orthonormal frames of three point pairs (slot
+    features ``[p1, p2]``), ``R = R2 R1^T``, ``|R p1 + t - p2|^2 < delta^2``
+    on ``P = [p1, p2, 1, guard]``; the kernel's ``[vec(R), t]`` becomes
+    ``[q, t]`` on the host (``_POSTPROCESS``);
+  * ray3d: midpoint of the common perpendicular of two rays (slot features
+    ``[p, n]``), ``t = n.(x-p) >= 0`` and ``|x-p|^2 - t^2 (2 - |n|^2) <
+    delta^2`` on ``P = [p, n, n.p, 1, |n|^2, |p|^2]``.
 
 Degenerate lanes count 0 outright.  On CUDA tensors :func:`sweep` launches
 the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
-``csrc/fused_sweep_points.cu``); on CPU tensors it runs :func:`sweep_plain`,
-which repeats the kernels' fits operation by operation.
+``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``); on CPU
+tensors it runs :func:`sweep_plain`, which repeats the kernels' fits and
+votes operation by operation.
 """
 
 import ctypes
@@ -31,18 +47,27 @@ import torch
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.config import SPHERE_EPS
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
+from lsqrrecipes_tpu_torch.geometry import rotations
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
+from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
 
 _HASH_A = 1103515245   # odd => bijection of the shift-tuple index space
 _GUARD = 1e30          # pad-column sentinel: |e| >> 1 for any live hypothesis
 _NORM2_EPS = 1e-20     # f32 collinearity gate on the squared cross-product norm
 
-# name: (k_slots, feat_rows, n_param_rows, with_pp, dim)
+# name: (k_slots, feat_rows, n_param_rows, with_pp, dim): ``dim`` is the
+# width of a point family's ``[n, dim]`` data, None for the families whose
+# data is a Frame, a Ray3D or a point pair (see _DATA); n_param_rows counts
+# the kernel's rows (absolute_orientation's 12 become [q, t] on the host).
 _FAMILIES = {
     "sphere3d": (4, 3, 4, True, 3),
     "plane3d": (3, 3, 6, False, 3),
     "line3d": (2, 3, 6, True, 3),
     "line2d": (2, 2, 4, False, 2),
+    "dense_linear6": (6, 7, 6, False, 7),
+    "pivot": (3, 15, 6, False, None),
+    "absolute_orientation": (3, 6, 12, False, None),
+    "ray3d": (2, 6, 3, False, None),
 }
 
 # Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries.
@@ -140,15 +165,102 @@ def pack_feature_rows(points, with_pp: bool):
     return p
 
 
+def _sum3(a, b, c):
+    """``(a + b) + c`` elementwise (the TPU kernels' order)."""
+    return a + b + c
+
+
+def _pivot_features(frames):
+    """Frame batch -> per-observation slot features ``[n, 15]`` =
+    ``[vec(R) 9, t 3, R^T t 3]``."""
+    r = frames.r.to(torch.float32)
+    t = frames.t.to(torch.float32)
+    rt = torch.stack([_sum3(r[:, 0, j] * t[:, 0], r[:, 1, j] * t[:, 1], r[:, 2, j] * t[:, 2])
+                      for j in range(3)], dim=1)
+    return torch.cat([r.reshape(r.shape[0], 9), t, rt], dim=1)
+
+
+def _pivot_p(frames):
+    """Vote rows ``[17, n_pad]`` = ``[t 3, R^T t 3, vec(R) 9, 1, guard]``."""
+    f = _pivot_features(frames)
+    return pack_feature_rows(torch.cat([f[:, 9:15], f[:, 0:9]], dim=1), False)
+
+
+def _absor_features(data):
+    """``(first[n, 3], second[n, 3])`` -> slot features ``[n, 6]``."""
+    first, second = data
+    return torch.cat([first.to(torch.float32), second.to(torch.float32)], dim=1)
+
+
+def _absor_p(data):
+    """Vote rows ``[8, n_pad]`` = ``[p1 3, p2 3, 1, guard]``."""
+    return pack_feature_rows(_absor_features(data), False)
+
+
+def _ray_features(rays):
+    """Ray3D batch -> slot features ``[n, 6]`` = ``[p, n]``."""
+    return torch.cat([rays.p.to(torch.float32), rays.n.to(torch.float32)], dim=1)
+
+
+def _ray_p(rays):
+    """Vote rows ``[10, n_pad]`` = ``[p 3, n 3, n.p, 1, |n|^2, |p|^2]``; the
+    ``|p|^2`` row is the 1e30 guard on padding columns."""
+    f = _ray_features(rays)
+    pts, dirs = f[:, 0:3].T, f[:, 3:6].T
+    n = f.shape[0]
+    p = torch.zeros((10, -(-n // 128) * 128), dtype=torch.float32, device=f.device)
+    p[0:6, :n] = f.T
+    p[6, :n] = _sum3(*(dirs * pts))
+    p[7, :n] = 1.0
+    p[8, :n] = _sum_sq_rows(dirs)
+    p[9, :] = _GUARD
+    p[9, :n] = _sum_sq_rows(pts)
+    return p
+
+
+# The families whose data is not one [n, dim] point tensor:
+# name: (slot features, vote rows P, data check, rows of P).
+_DATA = {
+    "pivot": (_pivot_features, _pivot_p,
+              lambda d: hasattr(d, "r") and hasattr(d, "t"), 17),
+    "absolute_orientation": (
+        _absor_features, _absor_p,
+        lambda d: isinstance(d, tuple) and len(d) == 2
+        and getattr(d[0], "ndim", 0) == 2 and d[0].shape[1] == 3, 8),
+    "ray3d": (_ray_features, _ray_p, lambda d: hasattr(d, "p") and hasattr(d, "n"), 10),
+}
+
+
+def slot_features(family: str, data):
+    """Per-observation slot features ``[n, feat_rows]`` f32 of ``data``."""
+    if family in _DATA:
+        return _DATA[family][0](data)
+    return data.to(torch.float32)
+
+
+def pack_p(family: str, data):
+    """The family's packed vote rows ``P`` of ``data``."""
+    if family in _DATA:
+        return _DATA[family][1](data)
+    return pack_feature_rows(data, _FAMILIES[family][3])
+
+
+def _p_rows(family: str) -> int:
+    return _DATA[family][3] if family in _DATA else _FAMILIES[family][1] + 2
+
+
+def _data_ok(family: str, data) -> bool:
+    if family in _DATA:
+        return bool(_DATA[family][2](data))
+    return getattr(data, "ndim", 0) == 2 and data.shape[1] == _FAMILIES[family][4]
+
+
 def supports_data(family: str, data) -> bool:
     """True if the fused sweep covers this (family, data) pair."""
-    if family not in _FAMILIES:
-        return False
-    k_slots, dim = _FAMILIES[family][0], _FAMILIES[family][4]
-    if getattr(data, "ndim", 0) != 2 or data.shape[1] != dim:
+    if family not in _FAMILIES or not _data_ok(family, data):
         return False
     try:
-        fit_size(data.shape[0], k_slots)
+        fit_size(n_obs(data), _FAMILIES[family][0])
     except ValueError:
         return False
     return True
@@ -163,6 +275,9 @@ def supports_data(family: str, data) -> bool:
 
 
 def _f32(value, like):
+    """``value`` as an f32 0-dim tensor on ``like``'s device.  Dividing by it
+    is a correctly rounded division on the card too, where dividing by a
+    Python number multiplies by its reciprocal."""
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
@@ -279,11 +394,159 @@ def _sphere3d_rows(pts, delta):
     return center + [r], degenerate, a_rows
 
 
+def _split_delta(delta):
+    """``(delta, cross_eps)``: the ray family's pack, or ``(delta, 0)``."""
+    if isinstance(delta, (tuple, list)):
+        return float(delta[0]), float(delta[1])
+    return float(delta), 0.0
+
+
+def _cross(u, v):
+    return [u[1] * v[2] - u[2] * v[1], u[2] * v[0] - u[0] * v[2], u[0] * v[1] - u[1] * v[0]]
+
+
+def _dot3(u, v):
+    return _sum3(u[0] * v[0], u[1] * v[1], u[2] * v[2])
+
+
+def pivot_fit(pts, delta):
+    """Pivot calibration from three frames (slot features ``[vec(R) 9, t 3,
+    R^T t 3]``): with ``S = sum R``, ``v = sum t``, ``u = sum R^T t``, solve
+    ``(9I - S S^T) t_W = 3v - S u`` by Cramer (degenerate when ``|det| <
+    1e-6``), then ``t_D = (S^T t_W - u) / 3`` -> ``(params [t_D, t_W],
+    degenerate, vote rows = params)``."""
+    def ssum(c):
+        return _sum3(pts[0][c], pts[1][c], pts[2][c])
+
+    s = [[ssum(3 * j + k) for k in range(3)] for j in range(3)]
+    v = [ssum(9 + a) for a in range(3)]
+    u = [ssum(12 + a) for a in range(3)]
+
+    def dotr(a, b):
+        return _sum3(s[a][0] * s[b][0], s[a][1] * s[b][1], s[a][2] * s[b][2])
+
+    n00, n11, n22 = 9.0 - dotr(0, 0), 9.0 - dotr(1, 1), 9.0 - dotr(2, 2)
+    n01, n02, n12 = -dotr(0, 1), -dotr(0, 2), -dotr(1, 2)
+    r = [3.0 * v[j] - _sum3(s[j][0] * u[0], s[j][1] * u[1], s[j][2] * u[2]) for j in range(3)]
+    c00 = n11 * n22 - n12 * n12
+    c01 = n02 * n12 - n01 * n22
+    c02 = n01 * n12 - n02 * n11
+    det = _sum3(n00 * c00, n01 * c01, n02 * c02)
+    degenerate = det.abs() < _f32(1e-6, det)
+    det = torch.where(degenerate, torch.ones_like(det), det)
+    c11 = n00 * n22 - n02 * n02
+    c12 = n01 * n02 - n00 * n12
+    c22 = n00 * n11 - n01 * n01
+    tw = [_sum3(a * r[0], b * r[1], c * r[2]) / det
+          for a, b, c in ((c00, c01, c02), (c01, c11, c12), (c02, c12, c22))]
+    three = _f32(3.0, det)
+    td = [(_sum3(s[0][k] * tw[0], s[1][k] * tw[1], s[2][k] * tw[2]) - u[k]) / three
+          for k in range(3)]
+    params = td + tw
+    return params, degenerate, params
+
+
+def absolute_orientation_fit(pts, delta):
+    """Rigid transform of three point pairs (slot features ``[p1, p2]``):
+    per set ``x = normalize(q0 - mean)``, ``y`` by Gram-Schmidt from ``q1 -
+    mean``, ``z = x cross y`` (degenerate when ``|z|^2 < 1e-12``); ``R = R2
+    R1^T``, ``t = mean2 - R mean1`` -> ``(rows [vec(R) 9, t 3], degenerate,
+    vote rows = rows)``."""
+    floor, three = _f32(1e-30, pts[0][0]), _f32(3.0, pts[0][0])
+
+    def build_frame(q):
+        mean = [_sum3(q[0][c], q[1][c], q[2][c]) / three for c in range(3)]
+        x = [q[0][c] - mean[c] for c in range(3)]
+        xr = _rsqrt(torch.maximum(_dot3(x, x), floor))
+        x = [x[c] * xr for c in range(3)]
+        y = [q[1][c] - mean[c] for c in range(3)]
+        d = _dot3(y, x)
+        y = [y[c] - d * x[c] for c in range(3)]
+        yr = _rsqrt(torch.maximum(_dot3(y, y), floor))
+        y = [y[c] * yr for c in range(3)]
+        z = _cross(x, y)
+        return x, y, z, mean, _dot3(z, z) < _f32(1e-12, floor)
+
+    x1, y1, z1, m1, d1 = build_frame([p[0:3] for p in pts])
+    x2, y2, z2, m2, d2 = build_frame([p[3:6] for p in pts])
+    r = [[_sum3(x2[a] * x1[b], y2[a] * y1[b], z2[a] * z1[b]) for b in range(3)]
+         for a in range(3)]
+    t = [m2[a] - _dot3(r[a], m1) for a in range(3)]
+    rows = [r[a][b] for a in range(3) for b in range(3)] + t
+    return rows, d1 | d2, rows
+
+
+def ray3d_fit(pts, delta):
+    """Midpoint of the common perpendicular of two rays (slot features
+    ``[p, n]``), degenerate when ``|na x nb|^2 < cross_eps`` or either ray
+    parameter is negative -> ``(params x, degenerate, vote rows x)``."""
+    cross_eps = _f32(_split_delta(delta)[1], pts[0][0])
+    pa, na = pts[0][0:3], pts[0][3:6]
+    pb, nb = pts[1][0:3], pts[1][3:6]
+    p21 = [pb[c] - pa[c] for c in range(3)]
+    cr = _cross(na, nb)
+    denom = _dot3(cr, cr)
+    nonparallel = denom >= cross_eps
+    safe = torch.where(nonparallel, denom, torch.ones_like(denom))
+    t1 = _dot3(cr, _cross(p21, nb)) / safe
+    t2 = _dot3(cr, _cross(p21, na)) / safe
+    degenerate = ~(nonparallel & (t1 >= 0) & (t2 >= 0))
+    x = [0.5 * (pa[c] + t1 * na[c] + pb[c] + t2 * nb[c]) for c in range(3)]
+    return x, degenerate, x
+
+
+def dense_linear6_fit(pts, delta):
+    """Six rows ``[a 6, b]`` -> normal equations ``(A^T A) x = A^T b``, an
+    unrolled Cholesky whose pivots below 1e-10 flag the degenerate case,
+    forward and back substitution -> ``(params x, degenerate, vote rows x)``."""
+    eps = _f32(1e-10, pts[0][0])
+
+    def dot6(i, j):
+        acc = pts[0][i] * pts[0][j]
+        for s in range(1, 6):
+            acc = acc + pts[s][i] * pts[s][j]
+        return acc
+
+    m = {(i, j): dot6(i, j) for i in range(6) for j in range(i, 6)}
+    v = [dot6(i, 6) for i in range(6)]
+    l = {}
+    degenerate = None
+    for i in range(6):
+        s = m[i, i]
+        for k in range(i):
+            s = s - l[i, k] * l[i, k]
+        bad = s < eps
+        degenerate = bad if degenerate is None else degenerate | bad
+        l[i, i] = torch.sqrt(torch.maximum(s, eps))
+        for j in range(i + 1, 6):
+            t = m[i, j]
+            for k in range(i):
+                t = t - l[j, k] * l[i, k]
+            l[j, i] = t / l[i, i]
+    y = [None] * 6
+    for i in range(6):
+        t = v[i]
+        for k in range(i):
+            t = t - l[i, k] * y[k]
+        y[i] = t / l[i, i]
+    x = [None] * 6
+    for i in reversed(range(6)):
+        t = y[i]
+        for k in range(i + 1, 6):
+            t = t - l[k, i] * x[k]
+        x[i] = t / l[i, i]
+    return x, degenerate, x
+
+
 _FITS = {
     "sphere3d": _sphere3d_rows,
     "plane3d": plane3d_fit,
     "line3d": line3d_fit,
     "line2d": line2d_fit,
+    "dense_linear6": dense_linear6_fit,
+    "pivot": pivot_fit,
+    "absolute_orientation": absolute_orientation_fit,
+    "ray3d": ray3d_fit,
 }
 
 
@@ -306,12 +569,81 @@ def _line3d_vote(p_vote, rows, delta):
     return inside.sum(dim=0)
 
 
+def _live(p_vote, row):
+    """``[cols, 1]`` mask of the live columns (the ones row is nonzero)."""
+    return (p_vote[row] != 0)[:, None]
+
+
+def _component_vote(p_vote, e_rows, delta_sq, live_row):
+    """``#{live columns: e0^2 + e1^2 + e2^2 < delta^2}``."""
+    e0, e1, e2 = e_rows
+    dist2 = _sum3(e0 * e0, e1 * e1, e2 * e2)
+    return ((dist2 < _f32(delta_sq, dist2)) & _live(p_vote, live_row)).sum(dim=0)
+
+
+def _pivot_vote(p_vote, rows, delta):
+    """``|R t_D + t - t_W|^2 < delta^2`` from the residual components
+    ``e_j = (sum_k R[j,k] t_D[k] + t_j) - t_W[j]`` per cell (rows of P: t
+    0-2, vec(R) 6-14, ones 15)."""
+    td, tw = rows[:3], rows[3:]
+    col = [p_vote[r][:, None] for r in range(15)]
+    e = [_sum3(col[6 + 3 * j] * td[0], col[7 + 3 * j] * td[1], col[8 + 3 * j] * td[2])
+         + col[j] - tw[j] for j in range(3)]
+    d = float(delta)
+    return _component_vote(p_vote, e, d * d, 15)
+
+
+def _absor_vote(p_vote, rows, delta):
+    """``|R p1 + t - p2|^2 < delta^2`` from ``e_j = (sum_k R[j,k] p1[k] +
+    t_j) - p2[j]`` per cell (rows of P: p1 0-2, p2 3-5, ones 6)."""
+    col = [p_vote[r][:, None] for r in range(6)]
+    e = [_sum3(rows[3 * j] * col[0], rows[3 * j + 1] * col[1], rows[3 * j + 2] * col[2])
+         + rows[9 + j] - col[3 + j] for j in range(3)]
+    d = float(delta)
+    return _component_vote(p_vote, e, d * d, 6)
+
+
+def _ray3d_vote(p_vote, rows, delta):
+    """``t = n.(x - p) >= 0`` and ``|x - p|^2 - t^2 (2 - |n|^2) < delta^2``
+    per cell (rows of P: p 0-2, n 3-5, ones 7, |n|^2 8)."""
+    d = _split_delta(delta)[0]
+    v = [rows[c] - p_vote[c][:, None] for c in range(3)]
+    n = [p_vote[3 + c][:, None] for c in range(3)]
+    t = _dot3(n, v)
+    q = (t * t) * (2.0 - p_vote[8][:, None])
+    inside = (t >= 0) & (_dot3(v, v) - q < _f32(d * d, t))
+    return (inside & _live(p_vote, 7)).sum(dim=0)
+
+
+def _dense6_vote(p_vote, rows, delta):
+    """``|a.x - b| < delta`` per cell (rows of P: a 0-5, b 6, ones 7)."""
+    acc = p_vote[0][:, None] * rows[0]
+    for c in range(1, 6):
+        acc = acc + p_vote[c][:, None] * rows[c]
+    e = acc - p_vote[6][:, None]
+    return ((e.abs() < _f32(float(delta), e)) & _live(p_vote, 7)).sum(dim=0)
+
+
 _VOTES = {
     "sphere3d": _band_vote,
     "plane3d": _band_vote,
     "line3d": _line3d_vote,
     "line2d": _band_vote,
+    "dense_linear6": _dense6_vote,
+    "pivot": _pivot_vote,
+    "absolute_orientation": _absor_vote,
+    "ray3d": _ray3d_vote,
 }
+
+
+def _absor_post(rows):
+    """Kernel rows ``[vec(R) 9, t 3]`` -> estimator params ``[q 4, t 3]`` in f64."""
+    r = rows[0:9].to(torch.float64).reshape(3, 3)
+    return torch.cat([rotations.quaternion_from_matrix(r), rows[9:12].to(torch.float64)])
+
+
+# Host-side conversion of the winner's kernel rows to the estimator's layout.
+_POSTPROCESS = {"absolute_orientation": _absor_post}
 
 
 # ---------------------------------------------------------------------------
@@ -326,8 +658,8 @@ def _sweep_args(family, coords, p, n_fit, num_groups, vote_cols):
     rows = k_slots * feat_rows
     if coords.ndim != 2 or coords.shape[0] != rows or coords.shape[1] != 5 * n_fit:
         raise ValueError(f"coords must be [{rows}, {5 * n_fit}], got {tuple(coords.shape)}")
-    if p.ndim != 2 or p.shape[0] != feat_rows + 2:
-        raise ValueError(f"p must be [{feat_rows + 2}, n_pad], got {tuple(p.shape)}")
+    if p.ndim != 2 or p.shape[0] != _p_rows(family):
+        raise ValueError(f"p must be [{_p_rows(family)}, n_pad], got {tuple(p.shape)}")
     if not 0 < vote_cols <= p.shape[1]:
         raise ValueError(f"vote_cols must be in (0, {p.shape[1]}], got {vote_cols}")
     if num_groups < 1 or num_groups * n_fit >= 2**31:
@@ -342,7 +674,8 @@ def sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta):
 
     Evaluates hypotheses ``h = g * n_fit + lane`` for ``g < num_groups`` and
     returns ``(count int32[], params f32[n_param_rows], index int64[])`` of
-    the best: the highest count, ties to the lowest ``h``.
+    the best: the highest count, ties to the lowest ``h``.  ``delta`` is a
+    float, or ray3d's ``(delta, cross_eps)``.
     """
     m, b, mask = _sweep_args(family, coords, p, n_fit, num_groups, vote_cols)
     k_slots, feat_rows = _FAMILIES[family][:2]
@@ -373,7 +706,9 @@ def sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta):
 def sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta):
     """Launch the family's kernel on the current stream; same contract as
     :func:`sweep_plain`.  Raises on a non-CUDA, non-f32 or non-contiguous
-    input, and when the build or the launch fails."""
+    input, and when the build or the launch fails.  The kernel's constants
+    are the double values rounded once to f32, as the TPU closures' Python
+    floats are."""
     m, b, mask = _sweep_args(family, coords, p, n_fit, num_groups, vote_cols)
     kernels.check_inputs(coords=coords, p=p)
     npr = _FAMILIES[family][2]
@@ -384,11 +719,14 @@ def sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta):
     head = (coords.data_ptr(), coords.shape[1], p.data_ptr(), p.shape[1],
             vote_cols, n_fit, num_groups, b, m, mask)
     tail = (best_key.data_ptr(), best_out.data_ptr(), best_index.data_ptr())
-    delta = float(delta)
+    delta, cross_eps = _split_delta(delta)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if family == "sphere3d":
             consts = (ctypes.c_float(delta),)
+        elif family in kernels.RIGID_FAMILIES:
+            consts = (ctypes.c_float(delta), ctypes.c_float(delta * delta),
+                      ctypes.c_float(cross_eps))
         else:
             consts = (ctypes.c_float(1.0 / delta), ctypes.c_float(delta * delta))
         kernels.FUSED_SWEEPS[family].launch(*head, *consts, *tail, stream)
@@ -428,7 +766,7 @@ def fused_sweep(
     data,
     generator=None,
     total_groups: int = 1,
-    delta: float = 1.0,
+    delta=1.0,
     groups_per_step: int = 1,
     vote_subsample: int = 0,
     *,
@@ -436,15 +774,20 @@ def fused_sweep(
     vote_perm=None,
     device=None,
 ):
-    """Run a whole fused sweep -> ``(best_count int32[], best_params
-    f32[n_param_rows])`` in the family's parameter order (sphere ``[c, r]``,
-    plane ``[n, s0]``, line3d ``[u, a]``, line2d ``[nx, ny, x0, y0]``).
+    """Run a whole fused sweep -> ``(best_count int32[], best_params)`` in the
+    estimator's parameter order (sphere ``[c, r]``, plane ``[n, s0]``,
+    line3d ``[u, a]``, line2d ``[nx, ny, x0, y0]``, dense_linear6 ``x``,
+    pivot ``[t_D, t_W]``, ray3d ``x``: f32; absolute_orientation ``[q, t]``:
+    f64, converted from the kernel's rows on the host).
 
-    ``data``: ``[n, dim]`` points (numpy goes to ``device``, default CUDA; a
-    tensor stays on its device).  ``groups_per_step`` keeps the JAX
-    package's set of evaluated groups, ``ceil(total_groups / gps) * gps``.
+    ``data``: the estimator's data (numpy goes to ``device``, default CUDA;
+    tensors stay on their device): ``[n, dim]`` points or rows, a ``Frame``
+    (pivot), a ``(first, second)`` pair (absolute_orientation) or a
+    ``Ray3D`` (ray3d).  ``delta`` is a float, or ray3d's ``(delta,
+    cross_eps)``.  ``groups_per_step`` keeps the JAX package's set of
+    evaluated groups, ``ceil(total_groups / gps) * gps``.
     ``vote_subsample`` (a multiple of 128, ``<= n``) ranks on the first
-    ``vote_subsample`` columns of a random observation order, so the count
+    ``vote_subsample`` observations of a random order, so the count
     returned is the winner's subsample count; 0 = exact full vote.
 
     Randomness comes from ``generator``, or explicitly: ``perms`` are the
@@ -453,50 +796,58 @@ def fused_sweep(
     """
     if family not in _FAMILIES:
         raise ValueError(f"fused family {family!r} is not ported")
-    pts = as_tensor(data, device)
+    data = as_tensor(data, device)
+    if not _data_ok(family, data):
+        raise ValueError(f"data of type {type(data).__name__} does not fit the {family} sweep")
     coords, p, n_fit, vote_cols = sweep_inputs(
-        family, pts, generator, vote_subsample, perms=perms, vote_perm=vote_perm
+        family, data, generator, vote_subsample, perms=perms, vote_perm=vote_perm
     )
     num_groups = -(-total_groups // groups_per_step) * groups_per_step
-    count, params, _index = sweep(family, coords, p, n_fit, num_groups, vote_cols, float(delta))
-    return count, params
+    if not isinstance(delta, (tuple, list)):
+        delta = float(delta)
+    count, params, _index = sweep(family, coords, p, n_fit, num_groups, vote_cols, delta)
+    post = _POSTPROCESS.get(family)
+    return count, (post(params) if post else params)
 
 
-def sweep_inputs(family: str, pts, generator=None, vote_subsample: int = 0,
+def sweep_inputs(family: str, data, generator=None, vote_subsample: int = 0,
                  *, perms=None, vote_perm=None):
     """Host side of :func:`fused_sweep` -> ``(coords, p, n_fit, vote_cols)``:
-    the slot planes, the packed (optionally subsample-permuted) feature rows
-    and the sizes the kernel takes."""
-    k_slots, _, _, with_pp, _ = _FAMILIES[family]
-    n = pts.shape[0]
+    the slot planes, the packed (optionally subsample-permuted) vote rows
+    and the sizes the kernel takes.  ``data`` is a tensor or a tree of
+    tensors on one device."""
+    k_slots = _FAMILIES[family][0]
+    n = n_obs(data)
+    dev = tree_leaves(data)[0].device
     n_fit = fit_size(n, k_slots)
     if vote_subsample:
         if vote_subsample % 128 or not 0 < vote_subsample <= n:
             raise ValueError("vote_subsample must be a multiple of 128 in (0, n]")
         if vote_perm is None:
-            vote_perm = torch.randperm(
-                n, generator=generator, device=generator_device(generator, pts.device)
-            )
-        vote_perm = as_tensor(vote_perm, pts.device, torch.int64)
-        p = pack_feature_rows(pts[vote_perm], with_pp)
+            vote_perm = torch.randperm(n, generator=generator,
+                                       device=generator_device(generator, dev))
+        vote_perm = as_tensor(vote_perm, dev, torch.int64)
+        p = pack_p(family, tree_map(lambda leaf: leaf[vote_perm], data))
         vote_cols = vote_subsample
     else:
-        p = pack_feature_rows(pts, with_pp)
+        p = pack_p(family, data)
         vote_cols = p.shape[1]
     if perms is None:
-        perms = draw_slot_perms(n_fit, k_slots, generator, pts.device)
-    coords = slot_planes(_pad_features(pts.to(torch.float32), n_fit), perms, k_slots)
+        perms = draw_slot_perms(n_fit, k_slots, generator, dev)
+    coords = slot_planes(_pad_features(slot_features(family, data), n_fit), perms, k_slots)
     return coords, p, n_fit, vote_cols
 
 
 def reference_samples(family: str, data, perms, total_groups: int):
     """Plain reconstruction of the sweep's hypothesis set (tests):
-    ``[total_groups * n_fit, k_slots, feat_rows]`` samples, the engine's
-    ``[B, k, d]`` layout."""
+    ``[total_groups * n_fit, k_slots, feat_rows]`` slot features, the
+    engine's ``[B, k, d]`` layout for the point families (pivot rows are
+    ``[vec(R) 9, t 3, R^T t 3]``, absolute_orientation ``[p1, p2]``, ray3d
+    ``[p, n]``)."""
     k_slots, feat_rows = _FAMILIES[family][:2]
-    n = fit_size(data.shape[0], k_slots)
+    n = fit_size(n_obs(data), k_slots)
     m, b, mask = sweep_static(n, k_slots)
-    planes = slot_planes(_pad_features(data.to(torch.float32), n), perms, k_slots)
+    planes = slot_planes(_pad_features(slot_features(family, data), n), perms, k_slots)
     slots = []
     for j in range(k_slots):
         segs = []

@@ -14,6 +14,9 @@ subset).  Each takes a ``torch.Generator`` where the JAX package takes a
 ``key``, runs on the data's device (numpy data goes to ``device``, default
 CUDA) and raises when CUDA is asked for and missing.
 
+Data may be a tree (:mod:`lsqrrecipes_tpu_torch.tree`): a tensor, a
+``Frame`` or ``Ray3D``, or a ``(first, second)`` pair; ``n``, the dtype and
+the device come from its first leaf, and samples are gathered leaf by leaf.
 Estimators may provide ``vote_counts(params[B, P], data) -> counts[B]``;
 without it, counts are sums of ``agree`` rows, chunked over hypotheses.
 """
@@ -32,6 +35,7 @@ from lsqrrecipes_tpu_torch.ransac.sampling import (
     sample_k_with_replacement,
     structured_samples,
 )
+from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
 
 # Above this many [B, n] cells, exact distinct-subset sampling (which draws
 # a [B, n] uniform matrix) is replaced by with-replacement sampling whose
@@ -61,6 +65,17 @@ class RansacResult(NamedTuple):
     minimal_params: torch.Tensor   # [P_min] winning minimal-fit parameters
 
 
+def _leaf(data):
+    """The first leaf: it fixes the data's dtype and device."""
+    return tree_leaves(data)[0]
+
+
+def _gather(data, idx):
+    """``data`` at observation indices ``idx`` (any shape), leaf by leaf."""
+    idx = as_tensor(idx, _leaf(data).device, torch.int64)
+    return tree_map(lambda leaf: leaf[idx], data)
+
+
 def _select(est, data, counts, params):
     """Argmax (ties to the lowest index) -> ``(count, mask[n], params)``."""
     best = torch.argmax(counts)
@@ -70,9 +85,10 @@ def _select(est, data, counts, params):
 
 def _agree_counts(est, params, data):
     """``sum(est.agree(p, data))`` for every row of ``params``, in chunks
-    that keep the ``[chunk, n, d]`` temporaries bounded."""
-    chunk = max(1, _AGREE_CELLS // max(1, data.numel()))
-    out = [torch.zeros((0,), dtype=torch.int64, device=data.device)]
+    that keep the ``[chunk, n, d]`` temporaries (of every leaf) bounded."""
+    cells = sum(leaf.numel() for leaf in tree_leaves(data))
+    chunk = max(1, _AGREE_CELLS // max(1, cells))
+    out = [torch.zeros((0,), dtype=torch.int64, device=_leaf(data).device)]
     for b0 in range(0, params.shape[0], chunk):
         out.append(torch.sum(est.agree(params[b0 : b0 + chunk], data), dim=-1))
     return torch.cat(out)
@@ -94,7 +110,7 @@ def hypothesize_and_vote(est, data, idx):
     idx: ``[B, k]`` indices -> ``(best_count, best_mask[n], best_params)``.
     Only the winner's ``[n]`` agree mask is kept, never a ``[B, n]`` one.
     """
-    params, valid = est.minimal_fit(data[as_tensor(idx, data.device, torch.int64)])
+    params, valid = est.minimal_fit(_gather(data, idx))
     return _select(est, data, _vote(est, params, valid, data), params)
 
 
@@ -122,9 +138,9 @@ def ransac_structured(est, data, generator=None, num_hypotheses: int = 4096,
                       *, device=None) -> RansacResult:
     """RANSAC with structured (permutation + shift) sampling."""
     data = as_tensor(data, device)
-    n = data.shape[0]
+    n = n_obs(data)
     if n < est.k:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
     groups = max(1, -(-num_hypotheses // n))
     best_count, best_mask, best_params = hypothesize_and_vote_structured(
         est, data, generator, groups
@@ -150,9 +166,9 @@ def ransac_fused_sweep(
 
     data = as_tensor(data, device)
     family = getattr(est, "fused_family", None)
-    n = data.shape[0]
+    n = n_obs(data)
     if n < est.k:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
     if not (family and fs.supports_data(family, data)):
         return ransac_structured(est, data, generator, num_hypotheses)
     total_groups = max(1, -(-num_hypotheses // n))
@@ -160,7 +176,7 @@ def ransac_fused_sweep(
         family, data, generator, total_groups, _fused_delta(est),
         groups_per_step=groups_per_step, vote_subsample=vote_subsample,
     )
-    best_params = params.to(data.dtype)
+    best_params = params.to(_leaf(data).dtype)
     best_mask = est.agree(best_params, data)
     # The kernel's f32 band count can disagree with est.agree by a few
     # border points (and with vote_subsample counts only the subsample):
@@ -183,8 +199,9 @@ def _finalize(est, data, best_count, best_mask, best_params, n):
     if ok:
         params, valid = consensus_refit(est, data, best_mask)
     else:
-        params = torch.zeros((_nparams_lsq(est),), dtype=data.dtype, device=data.device)
-        valid = torch.tensor(False, device=data.device)
+        leaf = _leaf(data)
+        params = torch.zeros((_nparams_lsq(est),), dtype=leaf.dtype, device=leaf.device)
+        valid = torch.tensor(False, device=leaf.device)
     return RansacResult(
         params=params,
         valid=valid & ok,
@@ -200,10 +217,10 @@ def ransac(est, data, generator=None, num_hypotheses: int = 4096,
     """Fixed-budget batched RANSAC: ``num_hypotheses`` minimal subsets drawn
     at once, one hypothesize + vote + select step, then the refit."""
     data = as_tensor(data, device)
-    n = data.shape[0]
+    n = n_obs(data)
     if n < est.k:
-        return _invalid_result(est, n, data.device)
-    idx = _sample(generator, n, est.k, num_hypotheses, sampler, data.device)
+        return _invalid_result(est, data)
+    idx = _sample(generator, n, est.k, num_hypotheses, sampler, _leaf(data).device)
     best_count, best_mask, best_params = hypothesize_and_vote(est, data, idx)
     return _finalize(est, data, best_count, best_mask, best_params, n)
 
@@ -219,7 +236,7 @@ def _round_fast(est, data, generator, groups):
     family = getattr(est, "fused_family", None)
     if family and fs.supports_data(family, data):
         _, params = fs.fused_sweep(family, data, generator, groups, _fused_delta(est))
-        params = params.to(data.dtype)
+        params = params.to(_leaf(data).dtype)
         mask = est.agree(params, data)
         return torch.sum(mask), mask, params
     return hypothesize_and_vote_structured(est, data, generator, groups)
@@ -247,9 +264,9 @@ def ransac_adaptive(
     independently drawn ``[B, k]`` samples, the reference's semantics.
     """
     data = as_tensor(data, device)
-    n = data.shape[0]
+    n = n_obs(data)
     if n < est.k or not 0.0 < desired_probability < 1.0:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
 
     use_fast = path != "gather" and (
         hasattr(est, "fit_and_vote") or getattr(est, "fused_family", None)
@@ -265,7 +282,7 @@ def ransac_adaptive(
             evaluated += groups * n
         else:
             b = min(batch_size, budget - evaluated)
-            idx = _sample(generator, n, est.k, b, "auto", data.device)
+            idx = _sample(generator, n, est.k, b, "auto", _leaf(data).device)
             count, mask, params = hypothesize_and_vote(est, data, idx)
             evaluated += b
         if int(count) > best_count:
@@ -275,7 +292,7 @@ def ransac_adaptive(
             budget = min(num_tries(desired_probability, best_count / n, est.k, all_tries),
                          all_tries)
     if best_params is None:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
     return _finalize(est, data, best_count, best_mask, best_params, n)
 
 
@@ -284,27 +301,31 @@ def ransac_exhaustive(est, data, batch_size: int = 8192, *, device=None) -> Rans
     lexicographic order (the reference's recursion, ``RANSAC.hxx:149-248``)
     and voted in batches of ``batch_size``.  For small n."""
     data = as_tensor(data, device)
-    n = data.shape[0]
+    n = n_obs(data)
     if n < est.k:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
     best_count, best_mask, best_params = -1, None, None
     combos = itertools.combinations(range(n), est.k)
     while chunk := list(itertools.islice(combos, batch_size)):
-        idx = torch.as_tensor(np.array(chunk, dtype=np.int64), device=data.device)
+        idx = torch.as_tensor(np.array(chunk, dtype=np.int64), device=_leaf(data).device)
         count, mask, params = hypothesize_and_vote(est, data, idx)
         if int(count) > best_count:
             best_count, best_mask, best_params = int(count), mask, params
     if best_params is None:
-        return _invalid_result(est, n, data.device)
+        return _invalid_result(est, data)
     return _finalize(est, data, best_count, best_mask, best_params, n)
 
 
-def _invalid_result(est, n, device):
+def _invalid_result(est, data):
+    """The result of a run that found nothing, in the data's dtype and on
+    its device."""
+    leaf = _leaf(data)
+    like = {"dtype": leaf.dtype, "device": leaf.device}
     return RansacResult(
-        params=torch.zeros((_nparams_lsq(est),), device=device),
-        valid=torch.tensor(False, device=device),
+        params=torch.zeros((_nparams_lsq(est),), **like),
+        valid=torch.tensor(False, device=leaf.device),
         inlier_fraction=torch.tensor(0.0, dtype=torch.float64),
-        consensus=torch.zeros((max(n, 1),), dtype=torch.bool, device=device),
+        consensus=torch.zeros((max(n_obs(data), 1),), dtype=torch.bool, device=leaf.device),
         best_count=torch.tensor(-1),
-        minimal_params=torch.zeros((est.nparams,), device=device),
+        minimal_params=torch.zeros((est.nparams,), **like),
     )

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
+from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
 
 
 def sample_k_subsets(generator, n, k, num_subsets, device="cpu"):
@@ -56,18 +57,18 @@ def structured_samples(generator, data, k, groups, perm=None):
     hypothesis (g, i) = ``{perm[i], perm[(i+s_g1)%n], ..., perm[(i+s_g,k-1)%n]}``
     with the shifts of :func:`structured_shift_table`.  ``perm`` (a
     permutation of ``range(n)``) is drawn from ``generator`` when not given.
-    Returns ``[groups * n, k, d]`` samples.
+    ``data`` may be a tree (:mod:`lsqrrecipes_tpu_torch.tree`); every leaf
+    is sampled alike.  Returns samples with leading axes ``[groups * n, k]``.
     """
-    n = data.shape[0]
+    n = n_obs(data)
+    dev = tree_leaves(data)[0].device
     if perm is None:
-        perm = torch.randperm(
-            n, generator=generator, device=generator_device(generator, data.device)
-        )
-    permuted = data[as_tensor(perm, data.device, torch.int64)]
-    table = torch.as_tensor(structured_shift_table(n, k, groups), device=data.device)
-    rows = torch.arange(n, device=data.device)
-    idx = (rows[None, :, None] + table[:, None, :]) % n         # [G, n, k]
-    return permuted[idx.reshape(groups * n, k)]
+        perm = torch.randperm(n, generator=generator, device=generator_device(generator, dev))
+    perm = as_tensor(perm, dev, torch.int64)
+    table = torch.as_tensor(structured_shift_table(n, k, groups), device=dev)
+    rows = torch.arange(n, device=dev)
+    idx = perm[(rows[None, :, None] + table[:, None, :]) % n]    # [G, n, k]
+    return tree_map(lambda leaf: leaf[idx.reshape(groups * n, k)], data)
 
 
 def num_tries(desired_probability, inlier_fraction, k, all_tries):

@@ -72,6 +72,10 @@ def test_family_table():
         "plane3d": (3, 3, 6, False, 3),
         "line3d": (2, 3, 6, True, 3),
         "line2d": (2, 2, 4, False, 2),
+        "dense_linear6": (6, 7, 6, False, 7),
+        "pivot": (3, 15, 6, False, None),
+        "absolute_orientation": (3, 6, 12, False, None),
+        "ray3d": (2, 6, 3, False, None),
     }
     for family, (k_slots, feat_rows, npr, _, _) in fs._FAMILIES.items():
         _, jk, jf, jn, *_ = jfs._FAMILIES[family]

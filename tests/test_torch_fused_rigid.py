@@ -1,0 +1,246 @@
+"""Port parity: the dense_linear6, pivot, absolute_orientation and ray3d
+families of ``lsqrrecipes_tpu_torch.ops.fused_sweep`` vs
+``lsqrrecipes_tpu.ops.fused_sweep``.
+
+The port is fed JAX's own permutations, rebuilt from the key exactly as
+``fused_sweep.py`` draws them, so both evaluate the identical hypothesis
+set.  Slot features and packed vote rows agree with JAX's (bit for bit, but
+pivot's ``R^T t`` features, which XLA forms as a product, to 1e-6
+relative).  The best counts of the JAX kernel (interpret mode on the CPU)
+and of the port's plain version are within 2 of each other and each within
+1 of the float64 ``agree`` maximum over the same hypotheses; the port's
+winner is among them bit for bit.  The JAX kernel votes through a 3-pass
+bf16 split product; the port, like its CUDA kernels, per cell in plain f32.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lsqrrecipes_tpu.ops import fused_sweep as jfs
+from lsqrrecipes_tpu_torch.device import as_tensor
+from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
+from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+from lsqrrecipes_tpu_torch.ransac import ransac_fused_sweep
+from lsqrrecipes_tpu_torch.tree import tree_map
+from test_torch_rigid_estimators import ESTIMATORS, _rotations, make_data, to_jax, to_torch
+
+torch.set_num_threads(2)
+
+FAMILIES = {  # family: estimator kind
+    "pivot": "pivot_calibration",
+    "absolute_orientation": "absolute_orientation",
+    "ray3d": "ray_intersection",
+    "dense_linear6": "dense_linear_6",
+}
+
+
+def _f32(data):
+    kind, *arrays = data
+    return (kind, *(a.astype(np.float32) for a in arrays))
+
+
+def _jax_perms(key, n_fit, k_slots, vote_subsample=0):
+    """(slot-plane perms [4k, n_fit], vote perm or None), drawn as
+    ``fused_sweep`` / ``slot_planes`` draw them from ``key``."""
+    vote_perm = None
+    if vote_subsample:
+        key, sub = jax.random.split(key)
+    keys = jax.random.split(key, 4 * k_slots)
+    perms = np.stack([np.asarray(jax.random.permutation(keys[i], n_fit))
+                      for i in range(4 * k_slots)])
+    return perms, (sub if vote_subsample else None)
+
+
+def _delta(family):
+    if family == "ray3d":
+        return ESTIMATORS["ray_intersection"][1]().fused_delta
+    return 1.0
+
+
+def _samples_as_data(family, feats):
+    """``[B, k, F]`` slot features -> the estimator's sample tree (f64)."""
+    f = feats.double()
+    if family == "pivot":
+        return Frame(f[..., 0:9].reshape(*f.shape[:2], 3, 3), f[..., 9:12])
+    if family == "absolute_orientation":
+        return (f[..., 0:3], f[..., 3:6])
+    if family == "ray3d":
+        return Ray3D(f[..., 0:3], f[..., 3:6])
+    return f
+
+
+def _f64_agree_max(family, samples, voters):
+    est = ESTIMATORS[FAMILIES[family]][1]()
+    params, valid = est.minimal_fit(_samples_as_data(family, samples))
+    counts = est.agree(params, voters).sum(-1)
+    return int(torch.where(valid, counts, 0).max())
+
+
+def test_family_table_matches_jax():
+    for family in FAMILIES:
+        k_slots, feat_rows, npr, _, _ = fs._FAMILIES[family]
+        _, jk, jf, jn, *_ = jfs._FAMILIES[family]
+        assert (k_slots, feat_rows, npr) == (jk, jf, jn)
+
+
+@pytest.mark.parametrize("n", [256, 200])
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_host_side_matches_jax(family, n):
+    data = _f32(make_data(FAMILIES[family], n, n))
+    k_slots = fs._FAMILIES[family][0]
+    key = jax.random.PRNGKey(3)
+    n_fit = fs.fit_size(n, k_slots)
+    assert n_fit == jfs.fit_size(n, k_slots)
+    perms, _ = _jax_perms(key, n_fit, k_slots)
+    tol = {"rtol": 1e-6, "atol": 1e-4} if family == "pivot" else {"rtol": 0, "atol": 0}
+    np.testing.assert_allclose(
+        fs.reference_samples(family, to_torch(data), perms, 5).numpy(),
+        np.asarray(jfs.reference_samples(family, to_jax(data), key, 5)), **tol)
+    np.testing.assert_allclose(fs.pack_p(family, to_torch(data)).numpy(),
+                               np.asarray(jfs._FAMILIES[family][5](to_jax(data))), **tol)
+    assert fs.supports_data(family, to_torch(data)) and jfs.supports_data(family, to_jax(data))
+
+
+CASES = [  # (n, total_groups, groups_per_step, vote_subsample)
+    (256, 6, 1, 0),
+    (200, 6, 4, 128),    # replication and guard padding, 8 groups, a subsample
+]
+
+
+@pytest.mark.parametrize("n,groups,gps,subsample", CASES)
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_plain_sweep_matches_jax(family, n, groups, gps, subsample):
+    k_slots = fs._FAMILIES[family][0]
+    data = _f32(make_data(FAMILIES[family], 100 + n + gps, n))
+    key = jax.random.PRNGKey(7 + gps + subsample)
+    cj, _ = jfs.fused_sweep(family, to_jax(data), key, groups, _delta(family),
+                            groups_per_step=gps, vote_subsample=subsample)
+    n_fit = fs.fit_size(n, k_slots)
+    perms, sub = _jax_perms(key, n_fit, k_slots, subsample)
+    vote_perm = None if sub is None else np.array(jax.random.permutation(sub, n))
+    tdata = to_torch(data)
+    coords, p, nf, cols = fs.sweep_inputs(family, tdata, None, subsample,
+                                          perms=perms, vote_perm=vote_perm)
+    evaluated = -(-groups // gps) * gps
+    ct, pt, index = fs.sweep_plain(family, coords, p, nf, evaluated, cols, _delta(family))
+    ct, cj = int(ct), int(cj)
+    assert abs(ct - cj) <= 2
+
+    samples = fs.reference_samples(family, tdata, perms, evaluated)
+    voters = to_torch(make_data(FAMILIES[family], 100 + n + gps, n))       # f64
+    if subsample:
+        voters = tree_map(lambda x: x[torch.as_tensor(vote_perm)][:subsample], voters)
+    oracle = _f64_agree_max(family, samples, voters)
+    assert abs(ct - oracle) <= 1 and abs(cj - oracle) <= 1
+    assert ct > (n * 4 // 5) * (subsample or n) // n // 2
+
+    # The winner is its own hypothesis, bit for bit.
+    feat_rows = fs._FAMILIES[family][1]
+    pts = [[samples[:, j, c] for c in range(feat_rows)] for j in range(k_slots)]
+    fits = torch.stack(fs._FITS[family](pts, _delta(family))[0], dim=1)
+    assert torch.equal(fits[int(index)], pt)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_pad_columns_never_vote(family):
+    # n = 200: 56 padding columns whose rows (all 0) would lie in the band
+    # of a fit whose residual there is ~0 (t_W = 0, t = 0, a ray target at
+    # the origin; any x for the linear system), so any vote from them would
+    # push the count past what agree() re-achieves on the true data.
+    rng = np.random.default_rng(17)
+    n = 200
+    if family == "pivot":
+        r = torch.as_tensor(_rotations(rng, n))
+        data = Frame(r, -r @ torch.tensor([10.0, -5.0, 2.0], dtype=r.dtype))
+    elif family == "absolute_orientation":
+        first = torch.as_tensor(rng.uniform(-50, 50, (n, 3)))
+        data = (first, first.clone())
+    elif family == "ray3d":
+        p = torch.as_tensor(rng.uniform(-50, 50, (n, 3)))
+        data = Ray3D(p, -p / p.norm(dim=1, keepdim=True))
+    else:
+        data = torch.as_tensor(rng.normal(size=(n, 7)) * 10.0)
+    data = as_tensor(data, "cpu", torch.float32)
+    delta = 0.05 if family == "dense_linear6" else _delta(family)
+    coords, p, nf, cols = fs.sweep_inputs(family, data, torch.Generator().manual_seed(1))
+    assert p.shape[1] == 256
+    count, params, _ = fs.sweep_plain(family, coords, p, nf, 6, cols, delta)
+    est = ESTIMATORS[FAMILIES[family]][1]()
+    if family == "dense_linear6":
+        est.delta = delta
+    if family == "absolute_orientation":
+        params = fs._absor_post(params)
+    achieved = int(est.agree(params.double(), as_tensor(data, "cpu", torch.float64)).sum())
+    assert int(count) <= n and abs(achieved - int(count)) <= 1
+    if family != "dense_linear6":
+        assert int(count) >= n - 1         # the planted structure holds every observation
+
+
+TRUTH = {
+    "pivot": lambda x: max(np.abs(x[:3] - [10.0, -5.0, 2.0]).max(),
+                           np.abs(x[3:] - [100.0, 50.0, -30.0]).max()) < 0.1,
+    "ray3d": lambda x: np.abs(x - [20.0, -10.0, 35.0]).max() < 0.2,
+    "dense_linear6": lambda x: np.abs(x - np.linspace(-2.0, 3.0, 6)).max() < 0.05,
+}
+
+
+def _planted_rotation(seed, n):
+    """The rotation ``make_data("absolute_orientation", seed, n)`` applies."""
+    rng = np.random.default_rng(seed)
+    rng.uniform(-100, 100, (n, 3))
+    return _rotations(rng, 1)[0]
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+def test_ransac_fused_sweep_recovers_the_truth(family):
+    # The JAX tests' limits (tests/test_fused_sweep.py).
+    est = ESTIMATORS[FAMILIES[family]][1]()
+    data = to_torch(_f32(make_data(FAMILIES[family], 31, 256)))
+    res = ransac_fused_sweep(est, data, torch.Generator().manual_seed(2), num_hypotheses=2048)
+    assert bool(res.valid) and float(res.inlier_fraction) > 0.6
+    assert int(res.best_count) == int(res.consensus.sum())
+    x = res.params.double().numpy()
+    if family == "absolute_orientation":
+        r_fit = rotations.matrix_from_quaternion(torch.as_tensor(x[:4] / np.linalg.norm(x[:4])))
+        assert np.abs(r_fit.numpy() - _planted_rotation(31, 256)).max() < 0.01
+        assert np.abs(x[4:] - [12.0, -7.0, 30.0]).max() < 0.2
+    else:
+        assert TRUTH[family](x)
+
+
+def test_absolute_orientation_postprocess_gives_q_and_t():
+    data = to_torch(_f32(make_data("absolute_orientation", 41, 256)))
+    gen = torch.Generator().manual_seed(3)
+    count, params = fs.fused_sweep("absolute_orientation", data, gen, 4, 1.0)
+    assert params.shape == (7,) and params.dtype == torch.float64 and int(count) > 150
+    assert abs(float(params[:4].norm()) - 1.0) < 1e-6
+    coords, p, nf, cols = fs.sweep_inputs("absolute_orientation", data,
+                                          torch.Generator().manual_seed(3))
+    _, rows, _ = fs.sweep_plain("absolute_orientation", coords, p, nf, 4, cols, 1.0)
+    r = rotations.matrix_from_quaternion(params[:4])
+    np.testing.assert_allclose(r.numpy(), rows[:9].double().reshape(3, 3).numpy(), atol=1e-6)
+    np.testing.assert_array_equal(params[4:].numpy(), rows[9:].double().numpy())
+
+
+def test_supports_data_and_ray_delta_pack():
+    frames = to_torch(_f32(make_data("pivot_calibration", 1, 300)))
+    rays = to_torch(_f32(make_data("ray_intersection", 1, 300)))
+    pair = to_torch(_f32(make_data("absolute_orientation", 1, 300)))
+    rows = to_torch(_f32(make_data("dense_linear_6", 1, 300)))
+    assert fs.supports_data("pivot", frames) and not fs.supports_data("pivot", rows)
+    assert fs.supports_data("ray3d", rays) and not fs.supports_data("ray3d", pair)
+    assert fs.supports_data("absolute_orientation", pair)
+    assert not fs.supports_data("absolute_orientation", frames)
+    assert fs.supports_data("dense_linear6", rows)
+    assert not fs.supports_data("dense_linear6", torch.zeros(2048, 7))   # 6 x 6 bits: n <= 1024
+    with pytest.raises(ValueError, match="does not fit"):
+        fs.fused_sweep("pivot", rows, None, 2, 1.0)
+    # The ray family's (delta, cross_eps) reaches the fit intact: a gate above
+    # every pair's |na x nb|^2 leaves no valid hypothesis.
+    count, _ = fs.fused_sweep("ray3d", rays, torch.Generator().manual_seed(4), 2, (1.0, 2.0))
+    assert int(count) == 0
+    count, _ = fs.fused_sweep("ray3d", rays, torch.Generator().manual_seed(4), 2, _delta("ray3d"))
+    assert int(count) > 150

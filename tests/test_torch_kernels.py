@@ -13,6 +13,8 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu_torch import kernels
+from lsqrrecipes_tpu_torch.device import as_tensor
+from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ops import vote
 
@@ -102,6 +104,14 @@ def test_point_sweeps_share_one_source_and_build():
         kernels.SPHERE_VOTE, kernels.PLANE_VOTE}
 
 
+def test_rigid_sweeps_share_one_source_and_build():
+    sweeps = [kernels.FUSED_SWEEPS[f] for f in kernels.RIGID_FAMILIES]
+    assert {k.source.name for k in sweeps} == {"fused_sweep_rigid.cu"}
+    assert len({k.library_path() for k in sweeps}) == 1
+    assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.RIGID_FAMILIES]
+    assert set(kernels.RIGID_FAMILIES) <= set(fs._FAMILIES)
+
+
 def test_nvcc_path_raises_when_missing(monkeypatch):
     monkeypatch.setattr(kernels.os, "access", lambda *a: False)
     with pytest.raises(FileNotFoundError, match="nvcc"):
@@ -138,9 +148,10 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     monkeypatch.setattr(kernels.Kernel, "finish_build", finish)
     with pytest.raises(RuntimeError, match="fused_sweep_sphere3d"):
         kernels.build_all()
-    # One build per source: the three point sweeps share fused_sweep_points.cu.
+    # One build per source: the three point sweeps share fused_sweep_points.cu
+    # and the four rigid sweeps fused_sweep_rigid.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
-                        "plane_vote"]
+                        "plane_vote", "fused_sweep_pivot"]
 
 
 # ------------------------------------------------------- on the card only
@@ -226,3 +237,101 @@ def test_plane_vote_kernel_equals_plain_on_card(cuda_device, d):
     plain = vote.plane_vote_counts_plain(params, tt, vt, 1.0)
     assert kernels.PLANE_VOTE.launches == before + 1
     assert torch.equal(got, plain)
+
+
+RIGID_SIZES = {"pivot": (512, 480)}   # (n, a size that is not 128 * 2^k)
+RAY_DELTA = (1.0, float(np.sin(0.05) ** 2))
+
+
+def _rigid_data(family, seed, n, device):
+    """80% inliers of the family's planted truth, 20% outliers, f32: pivot
+    frames about t_D = (10, -5, 2), t_W = (100, 50, -30); point pairs under
+    a fixed rotation and t = (12, -7, 30); rays through (3, -4, 20); rows
+    ``[a | b]`` of x = (1.5, -2, 0.5, 3, -1, 2.5)."""
+    rng = np.random.default_rng(seed)
+    n_in = n - n // 5
+
+    def rotations_np(m):
+        q = rng.normal(size=(m, 4))
+        q /= np.linalg.norm(q, axis=1, keepdims=True)
+        return rotations.matrix_from_quaternion(torch.as_tensor(q)).numpy()
+
+    if family == "pivot":
+        r = rotations_np(n)
+        t = np.array([100.0, 50.0, -30.0]) - r @ np.array([10.0, -5.0, 2.0])
+        t += 0.05 * rng.normal(size=t.shape)
+        t[n_in:] = rng.uniform(-200, 200, (n - n_in, 3))
+        data = Frame(r, t)
+    elif family == "absolute_orientation":
+        first = rng.uniform(-100, 100, (n, 3))
+        second = first @ rotations_np(1)[0].T + np.array([12.0, -7.0, 30.0])
+        second += 0.1 * rng.normal(size=second.shape)
+        second[n_in:] = rng.uniform(-100, 100, (n - n_in, 3))
+        data = (first, second)
+    elif family == "ray3d":
+        p = rng.uniform(-60, 60, (n, 3))
+        d = np.array([3.0, -4.0, 20.0]) - p + 0.05 * rng.normal(size=(n, 3))
+        d[n_in:] = rng.normal(size=(n - n_in, 3))
+        data = Ray3D(p, d / np.linalg.norm(d, axis=1, keepdims=True))
+    else:
+        a = rng.uniform(-10, 10, (n, 6))
+        b = a @ np.array([1.5, -2.0, 0.5, 3.0, -1.0, 2.5]) + 0.05 * rng.normal(size=n)
+        b[n_in:] += rng.uniform(5, 50, n - n_in)
+        data = np.concatenate([a, b[:, None]], axis=1)
+    return as_tensor(data, device, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["pivot", "absolute_orientation", "ray3d", "dense_linear6"])
+@pytest.mark.parametrize("case,gps,subsample", [(0, 1, 0), (1, 4, 0), (0, 1, 256)])
+def test_rigid_sweep_kernels_match_plain_on_card(cuda_device, family, case, gps, subsample):
+    n = RIGID_SIZES.get(family, (1024, 1000))[case]
+    data = _rigid_data(family, 40 + n + gps, n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(gps)
+    coords, p, nf, cols = fs.sweep_inputs(family, data, gen, subsample)
+    groups = -(-63 // gps) * gps
+    delta = RAY_DELTA if family == "ray3d" else 1.0
+    kernel = kernels.FUSED_SWEEPS[family]
+    before = kernel.launches
+    kc, kp, ki = fs.sweep(family, coords, p, nf, groups, cols, delta)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, cols, delta)
+    assert kernel.launches == before + 1
+    assert int(kc) > 0
+    assert abs(int(kc) - int(pc)) <= 1
+    assert kp.shape == (fs._FAMILIES[family][2],)
+    if int(ki) == int(pi):
+        assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["pivot", "absolute_orientation", "ray3d", "dense_linear6"])
+def test_rigid_kernel_pad_columns_never_vote_on_card(cuda_device, family):
+    # n = 200: the 56 padding columns hold zero rows, which lie in the band of
+    # a fit whose residual there is ~0 (t_W = 0, t = 0, a ray target at the
+    # origin; any x for the linear system).  The kernel stages them as NaN.
+    rng = np.random.default_rng(50)
+    n = 200
+    if family == "pivot":
+        q = rng.normal(size=(n, 4))
+        r = rotations.matrix_from_quaternion(torch.as_tensor(q / np.linalg.norm(q, axis=1,
+                                                                              keepdims=True)))
+        data = Frame(r, -r @ torch.tensor([10.0, -5.0, 2.0], dtype=r.dtype))
+    elif family == "absolute_orientation":
+        first = rng.uniform(-50, 50, (n, 3))
+        data = (first, first.copy())
+    elif family == "ray3d":
+        p = rng.uniform(-50, 50, (n, 3))
+        data = Ray3D(p, -p / np.linalg.norm(p, axis=1, keepdims=True))
+    else:
+        data = rng.normal(size=(n, 7)) * 10.0
+    data = as_tensor(data, cuda_device, torch.float32)
+    delta = RAY_DELTA if family == "ray3d" else 0.05 if family == "dense_linear6" else 1.0
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    coords, p, nf, cols = fs.sweep_inputs(family, data, gen)
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, 6, cols, delta)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, 6, cols, delta)
+    assert int(kc) == int(pc) and int(kc) <= n
+    if family != "dense_linear6":
+        assert int(kc) >= n - 1
+    if int(ki) == int(pi):
+        assert torch.equal(kp, pp)
