@@ -44,7 +44,18 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      JAX family record's width (one launch), the ground truth recovered,
      then the kernel vs its plain version at that shape;
  14. ``ransac`` with pivot calibration at 65,536 gathered hypotheses (the
-     tree gather and the batched f64 9x6 SVD, no kernel).
+     tree gather and the batched f64 9x6 SVD, no kernel);
+ 15. kernels ``fused_sweep_crosswire`` and ``fused_sweep_pointer`` vs their
+     plain versions on phase 4's cases and a padding-column case: equal
+     count, equal winner index, bit-equal rows;
+ 16. per ultrasound family, ``ransac_fused_sweep`` (delta 3.0, ITERATIVE
+     Levenberg-Marquardt refit) at the JAX family record's width, n = 1,024
+     and 1,024 groups (one launch), the ground truth recovered, the refit's
+     iterations and time, then the kernel vs its plain version at that shape;
+ 17. ``ransac_structured`` on both ultrasound estimators through the
+     ``us_fast`` hook at 16,384 hypotheses, and ``ransac`` on crosswire at
+     16,384 gathered hypotheses (the batched f64 12x12 SVD minimal fit); no
+     kernel on either.
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -55,6 +66,15 @@ replaced (``scripts/chip_check.py:125-135``); rays from [-60, 60]^3 towards
 deviation 0.05 (``chip_check.py:138-148``); rows ``[a | b]`` of x = (1.5,
 -2, 0.5, 3, -1, 2.5) with N(0, 0.05) noise, 20% with b shifted by U(5, 50)
 (``tests/test_fused_sweep.py:327-336``).
+
+The ultrasound data (phases 15-17) is the JAX chip gate's
+(``scripts/chip_check.py:151-194``): scales m_x = 0.143, m_y = 0.139, R3 =
+Euler-ZYX(1.1, 0.4, -0.7), t3 = (20, -15, 40), the crosswire target t1 =
+(30, 76, -58); pixels uniform in 640 x 480 with 0.5 px noise, pose angles
+uniform in [0, pi), the pointer's t2 uniform in [-100, 100]^3; 20% of t2
+(crosswire) or p (pointer) shifted by 30-80 per axis; float64.  Recovery
+limits are the JAX tests' (``tests/test_us_calibration.py:34-36``):
+translations within 1.0, rotation within 1 degree, scales within 1.0.
 
 Each main-path phase sets the launch counts to 0 just before it and fails if
 a kernel of that path did not launch.  Any failed check raises, so the exit
@@ -151,6 +171,21 @@ DENSE_X = np.array([1.5, -2.0, 0.5, 3.0, -1.0, 2.5])
 # t, the ray target, x.
 RIGID_LIMITS = {"pivot": (0.1, 0.1), "absolute_orientation": (0.01, 0.2),
                 "ray3d": (0.2,), "dense_linear6": (0.05,)}
+# The ultrasound families (csrc/fused_sweep_us.cu): estimator registry name,
+# n and groups of the main path (the JAX family record,
+# docs/FAMILY_PERF.json), and f32 operations per vote cell: crosswire
+# 3 x (5 mul + 5 add/sub + sub) + 3 mul + 2 add + compare + count, pointer
+# 3 x (2 mul + 3 add/sub) + 3 mul + 2 add + compare + count.  The fits'
+# operations come from us_fit_ops.
+US = {"crosswire": ("us_crosswire", 1024, 1024, 40),
+      "pointer": ("us_pointer", 1024, 1024, 22)}
+US_DELTA = 3.0
+US_MX, US_MY = 0.143, 0.139
+US_R3_ANGLES = (1.1, 0.4, -0.7)
+US_T3, US_T1 = np.array([20.0, -15.0, 40.0]), np.array([30.0, 76.0, -58.0])
+US_LIMITS = (1.0, 1.0, 1.0)      # translation, rotation (degrees), scale
+H_US_STRUCT = H_US_GATHER = 16384
+US_PHASES_BUDGET_S = 300.0      # phases 15-17 together
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -162,6 +197,8 @@ REPLACES = {
     "fused_sweep_absolute_orientation": "lsqrrecipes_tpu/ops/fused_sweep.py:467",
     "fused_sweep_ray3d": "lsqrrecipes_tpu/ops/fused_sweep.py:588",
     "fused_sweep_dense_linear6": "lsqrrecipes_tpu/ops/fused_sweep.py:688",
+    "fused_sweep_crosswire": "lsqrrecipes_tpu/ops/fused_sweep.py:765",
+    "fused_sweep_pointer": "lsqrrecipes_tpu/ops/fused_sweep.py:921",
 }
 
 
@@ -262,6 +299,84 @@ def recovery_errors(family, params):
     return angle, dist
 
 
+def euler_np(wz, wy, wx):
+    """``Rz(wz) Ry(wy) Rx(wx)`` ``[..., 3, 3]``."""
+    cz, sz, cy, sy, cx, sx = np.cos(wz), np.sin(wz), np.cos(wy), np.sin(wy), np.cos(wx), np.sin(wx)
+    return np.stack([
+        np.stack([cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx], -1),
+        np.stack([sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx], -1),
+        np.stack([-sy, cy * sx, cy * cx], -1),
+    ], -2)
+
+
+def us_data(rng, family, n, geometry, exact=False):
+    """An ultrasound family's data model (see the module docstring), float64
+    numpy leaves: ``(Frame, q)`` or ``(Frame, q, p)``.  ``exact``: no noise,
+    no outliers and t3 = 0, so that all-zero padding columns would lie in
+    the band of the planted calibration."""
+    r3 = euler_np(*US_R3_ANGLES)
+    t3 = np.zeros(3) if exact else US_T3
+    q = rng.uniform(size=(n, 2)) * np.array([640.0, 480.0])
+    w2 = rng.uniform(0.0, np.pi, (n, 3))
+    r2 = euler_np(w2[:, 2], w2[:, 1], w2[:, 0])
+    mapped = np.einsum("nij,nj->ni", r2,
+                       q[:, 0:1] * (US_MX * r3[:, 0]) + q[:, 1:2] * (US_MY * r3[:, 1]) + t3)
+    n_out = 0 if exact else n // 5
+    shift = (30.0 + 50.0 * rng.uniform(size=(n_out, 3))) * np.sign(rng.normal(size=(n_out, 3)))
+    if family == "crosswire":
+        t2 = US_T1 - mapped
+        t2[n - n_out:] += shift
+        rest = ()
+    else:
+        t2 = rng.uniform(-100.0, 100.0, (n, 3))
+        p = mapped + t2
+        p[n - n_out:] += shift
+        rest = (p,)
+    if not exact:
+        q = q + 0.5 * rng.normal(size=q.shape)
+    return (geometry.Frame(r2, t2), q, *rest)
+
+
+def us_errors(family, params):
+    """(max translation error, rotation error in degrees, max scale error)
+    of an ultrasound refit against the planted calibration."""
+    x = np.asarray(params, np.float64)
+    trans = [x[0:3] - US_T1] if family == "crosswire" else []
+    if family == "crosswire":
+        x = x[3:]
+    trans.append(x[0:3] - US_T3)
+    r_fit, r_true = euler_np(*x[3:6]), euler_np(*US_R3_ANGLES)
+    cos = (np.trace(r_fit.T @ r_true) - 1.0) / 2.0
+    angle = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+    return (float(np.abs(np.concatenate(trans)).max()), angle,
+            float(np.abs(x[6:8] - [US_MX, US_MY]).max()))
+
+
+def qr_solve_ops(r, c):
+    """f32 operations of the kernels' equilibrated Householder solve of an
+    ``r x c`` system, counted from its loops."""
+    ops = c * (3 * r + 2)                 # column sums of squares, 1/sqrt, scaling
+    for k in range(c):
+        m = r - k                         # rows at and below the pivot
+        ops += 2 * m + 6                  # sigma, sqrt, gate, alpha, vk, 1/(alpha vk)
+        ops += (c - k) * (4 * m)          # each later column and the rhs
+    for i in range(c):
+        ops += 2 * (c - 1 - i) + 3        # back substitution
+    return ops + c                        # undo the scaling
+
+
+def us_fit_ops(family):
+    """f32 operations of one ultrasound minimal fit: the system (crosswire
+    4 x 3 rows of 6 products and a negation, pointer 3 x 3 rows of 6
+    products and a subtraction), the QR solve, the column norms, gates and
+    1/sqrt, the cross product, five polar steps (27 cofactor operations, 5
+    for det, 4 for the gate and 1/det, 27 for the update) and the scaled
+    columns."""
+    build = 4 * 3 * 7 if family == "crosswire" else 3 * 3 * 7
+    rows, cols = (12, 12) if family == "crosswire" else (9, 9)
+    return build + qr_solve_ops(rows, cols) + (10 + 3 + 6 + 6 + 9 + 5 * 63 + 2 + 6)
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -289,13 +404,14 @@ def bound(ops, nbytes, rates):
 
 
 def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, voters, label,
-                  delta=DELTA):
+                  delta=DELTA, exact=False):
     """One launch of the family's sweep kernel against its plain version on
     the same inputs: best count within 1, the kernel's winner re-achieving
     its count under ``agree`` within 1, and, where the winner indices match,
-    the parameters equal bit for bit.  Returns the largest absolute error.
-    ``voters`` is the data (a tensor or a tree of tensors) the kernel voted
-    on; a family's kernel rows are converted as ``fused_sweep`` does."""
+    the parameters equal bit for bit (``exact``: equal counts and indices
+    as well).  Returns the largest absolute error.  ``voters`` is the data
+    (a tensor or a tree of tensors) the kernel voted on; a family's kernel
+    rows are converted as ``fused_sweep`` does."""
     kc, kp, ki = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta)
     pc, pp_, pi = fs.sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta)
     kc, pc, ki, pi = int(kc), int(pc), int(ki), int(pi)
@@ -312,6 +428,8 @@ def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, vote
     check(abs(regain - kc) <= 1, f"{label}: fused sweep winner does not re-achieve its count")
     check(ki < num_groups * n_fit, f"{label}: fused sweep winner index out of range")
     check(params_err in (None, 0.0), f"{label}: same winner, different params")
+    check(not exact or (d_count == 0 and ki == pi),
+          f"{label}: kernel and plain version pick different winners")
     return max(d_count, params_err or 0.0)
 
 
@@ -423,7 +541,12 @@ def main(argv=None):
     from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator, get
     from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
     from lsqrrecipes_tpu_torch.ops import vote
-    from lsqrrecipes_tpu_torch.ransac import ransac, ransac_adaptive, ransac_fused_sweep
+    from lsqrrecipes_tpu_torch.ransac import (
+        ransac,
+        ransac_adaptive,
+        ransac_fused_sweep,
+        ransac_structured,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -881,7 +1004,141 @@ def main(argv=None):
           f"hypotheses/s [{smi}]")
     breakdown(torch, run14, "gather pivot")
 
-    # 15. kernels line, card line, result line --------------------------------
+    # 15. the ultrasound sweeps vs their plain versions ------------------------
+    t_us = time.perf_counter()
+
+    def check_us(result, family, label, n):
+        params = result.params.double().cpu().numpy()
+        errors = us_errors(family, params)
+        print(f"    {label}: valid={bool(result.valid)} params={params[:11].round(4).tolist()} "
+              f"inliers={int(result.best_count)} fraction={float(result.inlier_fraction):.4f} "
+              f"errors={[f'{e:.2e}' for e in errors]} (limits {US_LIMITS})")
+        check(bool(result.valid), f"{label}: result not valid")
+        check(bool(np.isfinite(params).all()), f"{label}: non-finite params")
+        check(tuple(result.consensus.shape) == (n,), f"{label}: consensus shape")
+        check(all(e < lim for e, lim in zip(errors, US_LIMITS)),
+              f"{label}: ground truth not recovered: {errors}")
+
+    us_cases = [case + (False,) for case in SWEEP_CASES] + [(200, 6, 1, 0, True)]
+    for family, (reg_name, _, _, _) in US.items():
+        est_f = get(reg_name)(US_DELTA)
+        family_err[family] = 0
+        for n_case, total_groups, gps, subsample, exact in us_cases:
+            data = interop.data_to_torch(us_data(rng, family, n_case, geometry, exact), device=dev)
+            g15 = torch.Generator(device=dev).manual_seed(args.seed + n_case + gps)
+            vote_perm = torch.randperm(n_case, generator=g15, device=dev)
+            coords, p, n_fit, vote_cols = fs.sweep_inputs(
+                family, data, g15, subsample, vote_perm=vote_perm
+            )
+            num_groups = -(-total_groups // gps) * gps
+            voters = tree_map(lambda x: x[vote_perm][:vote_cols], data) if subsample else data
+            family_err[family] = max(family_err[family], compare_sweep(
+                fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
+                f"[15] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
+                f"subsample={subsample}" + (" padding columns, exact data" if exact else ""),
+                US_DELTA, exact=True))
+            if exact:   # the planted calibration holds every observation, no more
+                count = int(fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols,
+                                          US_DELTA)[0])
+                check(n_case - 1 <= count <= n_case,
+                      f"[15] {family}: {count} votes on {n_case} exact observations")
+
+    # 16. main path per ultrasound family: ransac_fused_sweep, one launch ----
+    from lsqrrecipes_tpu_torch.estimators import us_calibration
+    from lsqrrecipes_tpu_torch.linalg import levenberg_marquardt
+
+    us_data16 = {}
+    for family, (reg_name, n16, groups16, per_cell) in US.items():
+        est_f = get(reg_name)(US_DELTA)
+        name_f = f"fused_sweep_{family}"
+        data16 = us_data16[family] = us_data(rng, family, n16, geometry)
+        kernels.reset_launch_counts()
+        res16 = ransac_fused_sweep(est_f, data16, gen(), num_hypotheses=groups16 * n16,
+                                   device=DEVICE)
+        torch.cuda.synchronize()
+        counts16 = kernels.launch_counts()
+        hyp16 = groups16 * fs.fit_size(n16, fs._FAMILIES[family][0])
+        print(f"[16] ransac_fused_sweep {family} n={n16} groups={groups16} "
+              f"hypotheses={hyp16} ({est_f.ls_type}): launches {counts16}")
+        check_us(res16, family, family, n16)
+        check(counts16[name_f] > 0, f"main path did not launch {name_f}")
+        add_launches(counts16)
+
+        def run16(est_f=est_f, data16=data16, groups16=groups16, n16=n16):
+            return ransac_fused_sweep(est_f, data16, gen(), num_hypotheses=groups16 * n16,
+                                      device=DEVICE)
+
+        wall16 = timer.wall_ms(run16, reps=WALL_REPS)
+        print(f"    wall {wall16:.3f} ms median of {WALL_REPS}, {hyp16 / wall16 * 1e3:.4g} "
+              f"hypotheses/s [{smi}]")
+        breakdown(torch, run16, family)
+
+        # The ITERATIVE refit on the winner's consensus: its LM iterations
+        # and its time alone.
+        data16_t = interop.data_to_torch(data16, device=dev)
+        mask16 = res16.consensus
+        x0, valid0 = est_f._analytic(data16_t, mask16)
+        n_min = 11 if family == "crosswire" else 8
+        residual, jacobian = ((us_calibration._crosswire_residual,
+                               us_calibration._crosswire_jacobian) if family == "crosswire" else
+                              (us_calibration._pointer_residual, us_calibration._pointer_jacobian))
+        lm16 = levenberg_marquardt(residual, jacobian, x0[:n_min], data16_t,
+                                   mask=mask16.repeat_interleave(3), config=est_f.lm_config)
+        refit_ms = timer.wall_ms(lambda: est_f.lsq_fit(data16_t, mask16), reps=WALL_REPS)
+        print(f"    ITERATIVE refit on {int(mask16.sum())} inliers: {int(lm16.iterations)} LM "
+              f"iterations, converged={bool(lm16.converged)}, analytic start valid="
+              f"{bool(valid0)}; lsq_fit wall {refit_ms:.3f} ms median of {WALL_REPS} [{smi}]")
+        check(bool(lm16.converged) and bool(valid0), f"{family}: the LM refit did not converge")
+
+        coords16, p16, nfit16, cols16 = fs.sweep_inputs(family, data16_t, gen())
+        ms16 = timer.ms(lambda: fs.sweep_cuda(family, coords16, p16, nfit16, groups16, cols16,
+                                              US_DELTA), reps=20)
+        plain_ms16 = timer.ms(lambda: fs.sweep_plain(family, coords16, p16, nfit16, groups16,
+                                                     cols16, US_DELTA), reps=2, warmup=1)
+        # The least work: every evaluated hypothesis fitted once and voted on
+        # the n observations.
+        bound16, by16 = bound(hyp16 * (n16 * per_cell + us_fit_ops(family)),
+                              (coords16.numel() + p16.numel() + fs._FAMILIES[family][2] + 1) * 4,
+                              rates)
+        family_times[family] = (ms16, plain_ms16, bound16, by16)
+        print(f"    kernel ms: {name_f} {ms16:.4f}, plain {plain_ms16:.4f}, "
+              f"bound {bound16:.4f} ({by16}; {us_fit_ops(family)} fit operations per "
+              f"hypothesis) [{smi}]")
+        family_err[family] = max(family_err[family], compare_sweep(
+            fs, family, est_f, coords16, p16, nfit16, groups16, cols16, data16_t,
+            f"    {name_f} at this shape ({groups16} groups)", US_DELTA, exact=True))
+
+    # 17. structured sweeps through us_fast and gathered crosswire (no kernel)
+    def drive17(label, fn, family, n):
+        kernels.reset_launch_counts()
+        res = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        print(f"[17] {label}: launches {counts}")
+        check_us(res, family, label, n)
+        check(sum(counts.values()) == 0, f"{label} launched a kernel")
+        wall = timer.wall_ms(fn, reps=WALL_REPS)
+        hyps = H_US_GATHER if "gather" in label else -(-H_US_STRUCT // n) * n
+        print(f"    wall {wall:.3f} ms median of {WALL_REPS}, {hyps / wall * 1e3:.4g} "
+              f"hypotheses/s [{smi}]")
+        breakdown(torch, fn, label)
+
+    for family, (reg_name, n17, _, _) in US.items():
+        est_f = get(reg_name)(US_DELTA)
+        drive17(f"ransac_structured {family} n={n17} hypotheses={H_US_STRUCT}",
+                lambda est_f=est_f, family=family: ransac_structured(
+                    est_f, us_data16[family], gen(), num_hypotheses=H_US_STRUCT, device=DEVICE),
+                family, n17)
+    cross_est = get(US["crosswire"][0])(US_DELTA)
+    drive17(f"ransac gather crosswire n={US['crosswire'][1]} hypotheses={H_US_GATHER}",
+            lambda: ransac(cross_est, us_data16["crosswire"], gen(), num_hypotheses=H_US_GATHER,
+                           device=DEVICE),
+            "crosswire", US["crosswire"][1])
+    us_s = time.perf_counter() - t_us
+    print(f"    phases 15-17 took {us_s:.1f} s (budget {US_PHASES_BUDGET_S:.0f} s)")
+    check(us_s < US_PHASES_BUDGET_S, "phases 15-17 overran their budget")
+
+    # 18. kernels line, card line, result line --------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",
@@ -901,7 +1158,7 @@ def main(argv=None):
     ] + [
         entry("plane_vote", plane_vote_err, pv[0], pv[1], pv[3], pv[4], pv[2]),
     ] + [
-        entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in RIGID
+        entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in (*RIGID, *US)
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:

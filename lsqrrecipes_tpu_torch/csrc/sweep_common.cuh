@@ -26,6 +26,9 @@
 //   optionally kTileCols              — columns per shared-memory tile where
 //                                       kTileRows x kTile floats would pass
 //                                       the 48 KB static limit (else kTile);
+//   optionally kHypPerThread          — hypotheses per thread where four
+//                                       fits' registers would spill (else
+//                                       kHypPerThread below);
 //   struct Fit { bool degenerate; ... };  struct Band { ... };
 //   static Fit fit(const float s[kSlots][kDim], const Consts&);
 //   static Band band(const Fit&, const Consts&);
@@ -45,7 +48,6 @@ namespace lsq_sweep {
 
 constexpr int kThreads = 256;
 constexpr int kHypPerThread = 4;
-constexpr int kHypPerBlock = kThreads * kHypPerThread;
 constexpr int kTile = 1024;  // P columns per shared-memory tile
 constexpr unsigned kHashA = 1103515245u;
 
@@ -70,6 +72,22 @@ struct TileCols {
 template <class F>
 struct TileCols<F, std::void_t<decltype(F::kTileCols)>> {
   static constexpr int value = F::kTileCols;
+};
+
+// Hypotheses per thread for family F: F::kHypPerThread if the family
+// declares it, else kHypPerThread.
+template <class F, class = void>
+struct HypPerThread {
+  static constexpr int value = kHypPerThread;
+};
+template <class F>
+struct HypPerThread<F, std::void_t<decltype(F::kHypPerThread)>> {
+  static constexpr int value = F::kHypPerThread;
+};
+
+template <class F>
+struct HypPerBlock {
+  static constexpr int value = kThreads * HypPerThread<F>::value;
 };
 
 // The kSlots x kDim coordinates of hypothesis (g, lane).
@@ -109,15 +127,16 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
              unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
              unsigned long long* __restrict__ best_key) {
   constexpr int kCols = TileCols<F>::value;
+  constexpr int kHyp = HypPerThread<F>::value;
   __shared__ float tile[F::kTileRows][kCols];
   __shared__ unsigned long long warp_best[kThreads / 32];
 
-  const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
-  typename F::Band band[kHypPerThread];
-  int count[kHypPerThread];
-  bool counts_zero[kHypPerThread];
+  const unsigned base = blockIdx.x * HypPerBlock<F>::value + threadIdx.x;
+  typename F::Band band[kHyp];
+  int count[kHyp];
+  bool counts_zero[kHyp];
 #pragma unroll
-  for (int q = 0; q < kHypPerThread; ++q) {
+  for (int q = 0; q < kHyp; ++q) {
     const unsigned h = base + q * kThreads;
     count[q] = 0;
     counts_zero[q] = true;
@@ -138,14 +157,14 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
 #pragma unroll 4
     for (int i = 0; i < len; ++i) {
 #pragma unroll
-      for (int q = 0; q < kHypPerThread; ++q) count[q] += F::vote(band[q], tile, i);
+      for (int q = 0; q < kHyp; ++q) count[q] += F::vote(band[q], tile, i);
     }
   }
 
   // Best key of this thread, warp, block; then one atomic per block.
   unsigned long long key = 0;
 #pragma unroll
-  for (int q = 0; q < kHypPerThread; ++q) {
+  for (int q = 0; q < kHyp; ++q) {
     const unsigned h = base + q * kThreads;
     if (h < num_hyp) {
       const unsigned long long c =
@@ -199,7 +218,8 @@ int launch_sweep(const float* coords, long long coords_stride, const float* p,
   }
   cudaError_t err = cudaMemsetAsync(best_key, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks = static_cast<unsigned>((num_hyp + kHypPerBlock - 1) / kHypPerBlock);
+  const unsigned blocks =
+      static_cast<unsigned>((num_hyp + HypPerBlock<F>::value - 1) / HypPerBlock<F>::value);
   sweep_kernel<F><<<blocks, kThreads, 0, s>>>(coords, coords_stride, p, p_stride, vote_cols,
                                               static_cast<unsigned>(n_fit),
                                               static_cast<unsigned>(num_hyp), b, m, mask, k,

@@ -1,5 +1,6 @@
 """Estimator suite (ported so far: sphere, plane, kD line, 2D line, dense
-linear system, pivot calibration, absolute orientation, ray intersection)."""
+linear system, pivot calibration, absolute orientation, ray intersection,
+crosswire and calibrated-pointer ultrasound calibration)."""
 
 from lsqrrecipes_tpu_torch.estimators.absolute_orientation import (
     AbsoluteOrientationEstimator,
@@ -19,6 +20,12 @@ from lsqrrecipes_tpu_torch.estimators.sphere import (
     GEOMETRIC,
     SphereEstimator,
 )
+from lsqrrecipes_tpu_torch.estimators.us_calibration import (
+    ANALYTIC,
+    ITERATIVE,
+    CrosswireUSCalibrationEstimator,
+    PointerUSCalibrationEstimator,
+)
 
 __all__ = [
     "Estimator",
@@ -26,14 +33,18 @@ __all__ = [
     "get",
     "names",
     "AbsoluteOrientationEstimator",
+    "CrosswireUSCalibrationEstimator",
     "DenseLinearSystemEstimator",
     "Line2DEstimator",
     "LineEstimator",
     "PivotCalibrationEstimator",
     "PlaneEstimator",
+    "PointerUSCalibrationEstimator",
     "RayIntersectionEstimator",
     "SphereEstimator",
     "ALGEBRAIC",
     "GEOMETRIC",
+    "ANALYTIC",
+    "ITERATIVE",
     "augmented_rows",
 ]

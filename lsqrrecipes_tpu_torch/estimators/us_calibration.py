@@ -1,0 +1,373 @@
+"""Freehand-3D-ultrasound probe calibration: the crosswire-phantom and
+calibrated-pointer estimators (counterpart of
+``lsqrrecipes_tpu/estimators/us_calibration.py``; the plane phantom is not
+ported yet).
+
+Parity target:
+``parametersEstimators/SinglePointTargetUSCalibrationParametersEstimator.{h,cxx}``.
+A pixel ``q = [u, v]`` of image i maps to the tracker frame through
+``T2_i o T3 o scale(m_x, m_y)``, where ``T2_i = (R2_i, t2_i)`` is the tracked
+pose of the probe and ``T3 = (R3(w_z, w_y, w_x), t3)`` with the pixel scales
+is the calibration:
+
+  * **Crosswire** (every image views one unknown point ``t1``): 11 minimal
+    parameters ``[t1 3, t3 3, w_z, w_y, w_x, m_x, m_y]``, residual
+    ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - t1``;
+  * **Pointer** (the target ``p_i`` is known per image): 8 minimal
+    parameters ``[t3 3, w_z, w_y, w_x, m_x, m_y]``, residual
+    ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - p_i``.
+
+Both have the reference's two least-squares modes: ANALYTIC (the
+over-parameterised linear system by f64 SVD pseudo-inverse with the
+FLT_EPSILON rank gate, then the closest rotation by SVD and the '+sqrt'
+Euler extraction) and ITERATIVE (that start, then Levenberg-Marquardt on the
+minimal parameters, the Jacobian by ``torch.func.jacfwd`` of the residual).
+Parameter vectors append the derived ``m_x R3(:,1), m_y R3(:,2), R3(:,3)``
+(crosswire 20, pointer 17 entries) for a cheap ``agree``.  Data:
+``(Frame[n], q[n, 2])`` and ``(Frame[n], q[n, 2], p[n, 3])``; ``minimal_fit``
+and ``agree`` broadcast over leading axes.
+"""
+
+import torch
+
+from lsqrrecipes_tpu_torch.config import HALF_PI, SMALL_ANGLE
+from lsqrrecipes_tpu_torch.device import full_f32_matmul
+from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
+from lsqrrecipes_tpu_torch.linalg.lm import LMConfig, levenberg_marquardt
+from lsqrrecipes_tpu_torch.linalg.lstsq import pinv_solve, svd_f64
+
+ANALYTIC = "analytic"
+ITERATIVE = "iterative"
+
+# ``SinglePointTarget...cxx:195-197``: the FLT_EPSILON singular-value
+# threshold of the analytic solves.
+FLT_EPS = 1.192092896e-07
+
+_LM_CONFIG = LMConfig(max_iters=200)
+
+# Cells of one [chunk, n] block of the batched matmul vote.
+_VOTE_CELLS = 1 << 24
+
+
+def _crosswire_features(data):
+    """``[n, 31]`` = ``[u vec(R2), v vec(R2), vec(R2), t2, 1]``."""
+    frames, q = data
+    r2 = frames.r.reshape(-1, 9)
+    ones = torch.ones((q.shape[0], 1), dtype=q.dtype, device=q.device)
+    return torch.cat([q[:, 0:1] * r2, q[:, 1:2] * r2, r2, frames.t, ones], dim=-1)
+
+
+def _pointer_features(data):
+    """``[n, 30]`` = ``[u vec(R2), v vec(R2), vec(R2), t2 - p]``."""
+    frames, q, p = data
+    r2 = frames.r.reshape(-1, 9)
+    return torch.cat([q[:, 0:1] * r2, q[:, 1:2] * r2, r2, frames.t - p], dim=-1)
+
+
+def _euler_zyx_matrix(wz, wy, wx):
+    """``R = Rz(wz) Ry(wy) Rx(wx)`` ``[..., 3, 3]`` (``Frame.cxx:626-648``)."""
+    cz, sz = torch.cos(wz), torch.sin(wz)
+    cy, sy = torch.cos(wy), torch.sin(wy)
+    cx, sx = torch.cos(wx), torch.sin(wx)
+    rows = [
+        [cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx],
+        [sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx],
+        [-sy, cy * sx, cy * cx],
+    ]
+    return torch.stack([torch.stack(row, dim=-1) for row in rows], dim=-2)
+
+
+def _extract_euler_plus(r3):
+    """The reference's '+sqrt' Euler-ZYX extraction with the gimbal branch
+    (``SinglePointTarget...cxx:230-247``) of ``r3[..., 3, 3]`` ->
+    ``(w_z, w_y, w_x)``."""
+    wy = torch.atan2(-r3[..., 2, 0], torch.sqrt(r3[..., 0, 0] ** 2 + r3[..., 1, 0] ** 2))
+    gimbal = ~(((wy - HALF_PI).abs() > SMALL_ANGLE) & ((wy + HALF_PI).abs() > SMALL_ANGLE))
+    cy = torch.where(gimbal, torch.ones_like(wy), torch.cos(wy))
+    wz = torch.where(gimbal, torch.zeros_like(wy),
+                     torch.atan2(r3[..., 1, 0] / cy, r3[..., 0, 0] / cy))
+    wx = torch.where(gimbal, torch.atan2(r3[..., 0, 1], r3[..., 1, 1]),
+                     torch.atan2(r3[..., 2, 1] / cy, r3[..., 2, 2] / cy))
+    return wz, wy, wx
+
+
+def _orthonormalize_scaled_columns(c1, c2):
+    """Scales and closest rotation from the raw scaled columns ``c1, c2
+    [..., 3]``: ``m_x = |c1|``, ``m_y = |c2|``, ``R3 = U V^T`` of the SVD of
+    ``[c1/m_x, c2/m_y, r1 x r2]`` (``SinglePointTarget...cxx:204-229``)."""
+    m_x = torch.sqrt(torch.sum(c1 * c1, dim=-1))
+    m_y = torch.sqrt(torch.sum(c2 * c2, dim=-1))
+    r1 = c1 / torch.where(m_x > 0, m_x, torch.ones_like(m_x))[..., None]
+    r2 = c2 / torch.where(m_y > 0, m_y, torch.ones_like(m_y))[..., None]
+    raw = torch.stack([r1, r2, torch.linalg.cross(r1, r2, dim=-1)], dim=-1)
+    u, _, vt = svd_f64(raw)
+    return m_x, m_y, (u @ vt).to(raw.dtype)
+
+
+def _pinv_solve_masked3(a, b, mask, eps):
+    """``pinv_solve`` where each observation contributes 3 stacked rows."""
+    if mask is not None:
+        m = torch.repeat_interleave(mask, 3).to(a.dtype)
+        a = a * m[:, None]
+        b = b * m
+    return pinv_solve(a, b, eps)
+
+
+def _rotation_block(m_x, m_y, r3):
+    """``[m_x R3(:,1), m_y R3(:,2), R3(:,3)]`` ``[..., 9]``."""
+    return torch.cat([m_x[..., None] * r3[..., :, 0], m_y[..., None] * r3[..., :, 1],
+                      r3[..., :, 2]], dim=-1)
+
+
+def _image_points(q, c1, c2, t3):
+    """``u c1 + v c2 + t3`` per observation (``[..., n, 3]``)."""
+    return q[..., :, 0:1] * c1 + q[..., :, 1:2] * c2 + t3
+
+
+def _mapped(frames, img):
+    """``R2_i img_i + t2_i`` for ``img[..., n, 3]``."""
+    return torch.einsum("nij,...nj->...ni", frames.r, img) + frames.t
+
+
+def _crosswire_residual(x, data):
+    """3n residuals ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - t1`` for
+    ``x = [t1 3, t3 3, w_z, w_y, w_x, m_x, m_y]`` (``SinglePointTarget...cxx:415-509``)."""
+    frames, q = data
+    r = _euler_zyx_matrix(x[6], x[7], x[8])
+    img = _image_points(q, x[9] * r[:, 0], x[10] * r[:, 1], x[3:6])
+    return (_mapped(frames, img) - x[0:3]).reshape(-1)
+
+
+def _pointer_residual(x, data):
+    """3n residuals ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - p_i`` for
+    ``x = [t3 3, w_z, w_y, w_x, m_x, m_y]`` (``SinglePointTarget...cxx:1059-1149``)."""
+    frames, q, p = data
+    r = _euler_zyx_matrix(x[3], x[4], x[5])
+    img = _image_points(q, x[6] * r[:, 0], x[7] * r[:, 1], x[0:3])
+    return (_mapped(frames, img) - p).reshape(-1)
+
+
+_crosswire_jacobian = torch.func.jacfwd(_crosswire_residual)
+_pointer_jacobian = torch.func.jacfwd(_pointer_residual)
+
+
+def _pack_crosswire(x):
+    """Minimal 11 -> the 20-parameter layout."""
+    r = _euler_zyx_matrix(x[6], x[7], x[8])
+    return torch.cat([x, x[9] * r[:, 0], x[10] * r[:, 1], r[:, 2]])
+
+
+def _pack_pointer(x):
+    """Minimal 8 -> the 17-parameter layout."""
+    r = _euler_zyx_matrix(x[3], x[4], x[5])
+    return torch.cat([x, x[6] * r[:, 0], x[7] * r[:, 1], r[:, 2]])
+
+
+def _check_ls_type(ls_type):
+    if ls_type not in (ANALYTIC, ITERATIVE):
+        raise ValueError(f"unknown least-squares type {ls_type!r}")
+    return ls_type
+
+
+def _matmul_vote(a_rows, feats, delta_sq):
+    """``#{i: sum_j (f_i . a_j)^2 < delta^2}`` per hypothesis, for ``a_rows``
+    three ``[B, F]`` blocks over features ``[n, F]``, chunked over B."""
+    b, n = a_rows[0].shape[0], feats.shape[0]
+    chunk = max(1, _VOTE_CELLS // max(1, n))
+    out = []
+    with full_f32_matmul():
+        for b0 in range(0, b, chunk):
+            d2 = None
+            for a in a_rows:
+                e = a[b0 : b0 + chunk] @ feats.T
+                d2 = e * e if d2 is None else d2 + e * e
+            out.append(torch.sum(d2 < delta_sq, dim=-1))
+    return torch.cat(out) if out else torch.zeros((0,), dtype=torch.int64, device=feats.device)
+
+
+def _vote_blocks(params, cols, const_cols, const_rows):
+    """The three ``[B, F]`` affine rows ``a_j`` of the matmul votes: the 3x3
+    blocks of ``cols`` (each ``[B, 3]`` of params) at row j, then the unit
+    vector ``e_j`` over ``const_cols`` columns and ``const_rows(j)``."""
+    b, dt, dev = params.shape[0], params.dtype, params.device
+    rows = []
+    for j in range(3):
+        blocks = []
+        for c in cols:
+            blk = torch.zeros((b, 3, 3), dtype=dt, device=dev)
+            blk[:, j, :] = c
+            blocks.append(blk.reshape(b, 9))
+        unit = torch.zeros((b, const_cols), dtype=dt, device=dev)
+        unit[:, j] = 1.0
+        rows.append(torch.cat(blocks + [unit] + const_rows(j), dim=-1))
+    return rows
+
+
+@register("us_crosswire")
+class CrosswireUSCalibrationEstimator(Estimator):
+    """``SingleUnknownPointTargetUSCalibrationParametersEstimator``.
+
+    Data: ``(Frame[n], q[n, 2])``.  Output layout (20):
+    ``[t1 3, t3 3, w_z, w_y, w_x, m_x, m_y, m_x R3(:,1), m_y R3(:,2), R3(:,3)]``.
+    """
+
+    k = 4
+    nparams = 20
+    nparams_lsq = 20
+    fused_family = "crosswire"
+
+    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
+        self.delta = float(delta)
+        self.delta_squared = float(delta) ** 2
+        self.ls_type = _check_ls_type(ls_type)
+        self.lm_config = lm_config
+
+    def _analytic(self, data, mask=None):
+        """3n x 12 system ``[u R2, v R2, R2, -I] x = -t2``, batched over
+        leading axes (``SinglePointTarget...cxx:120-270``)."""
+        frames, q = data
+        r, t = frames.r, frames.t
+        u, v = q[..., 0, None, None], q[..., 1, None, None]
+        eye = -torch.eye(3, dtype=q.dtype, device=q.device).expand(r.shape)
+        a = torch.cat([u * r, v * r, r, eye], dim=-1).reshape(*q.shape[:-2], -1, 12)
+        x, rank = _pinv_solve_masked3(a, (-t).reshape(*q.shape[:-2], -1), mask, FLT_EPS)
+        m_x, m_y, r3 = _orthonormalize_scaled_columns(x[..., 0:3], x[..., 3:6])
+        angles = torch.stack(_extract_euler_plus(r3), dim=-1)
+        params = torch.cat([x[..., 9:12], x[..., 6:9], angles, m_x[..., None], m_y[..., None],
+                            _rotation_block(m_x, m_y, r3)], dim=-1)
+        return params, rank >= 12
+
+    def minimal_fit(self, samples):
+        return self._analytic(samples)
+
+    def lsq_fit(self, data, mask=None):
+        params, valid = self._analytic(data, mask)
+        if self.ls_type == ANALYTIC:
+            return params, valid
+        x0 = params[:11]
+        result = levenberg_marquardt(
+            _crosswire_residual, _crosswire_jacobian, x0, data,
+            mask=None if mask is None else torch.repeat_interleave(mask, 3),
+            config=self.lm_config,
+        )
+        x = torch.where(valid, result.x, x0)
+        return _pack_crosswire(x), valid & result.converged
+
+    def agree(self, params, data):
+        """``|T2 (R3 S q + t3) - t1|^2 < delta^2`` (``SinglePointTarget...cxx:74-107``)."""
+        frames, q = data
+        img = _image_points(q, params[..., None, 11:14], params[..., None, 14:17],
+                            params[..., None, 3:6])
+        err = _mapped(frames, img) - params[..., None, 0:3]
+        return torch.sum(err * err, dim=-1) < self.delta_squared
+
+    def vote_counts(self, params, data):
+        """Each residual component is affine in the per-observation features
+        ``[u vec(R2), v vec(R2), vec(R2), t2, 1]``: three ``[n, 31] @ [31, B]``
+        products in full f32 (or f64), chunked over hypotheses."""
+        rows = _vote_blocks(params, [params[:, 11:14], params[:, 14:17], params[:, 3:6]], 3,
+                            lambda j: [-params[:, j : j + 1]])
+        return _matmul_vote(rows, _crosswire_features(data), self.delta_squared)
+
+    def fit_and_vote(self, samples, data):
+        """f32 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.fit_and_vote("crosswire", self, samples, data)
+
+    def structured_sweep(self, data, generator, groups, perm=None):
+        """The planar-lane structured sweep (same hypothesis set as
+        ``structured_samples`` with the same permutation)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.structured_sweep("crosswire", self, data, generator, groups, perm)
+
+    def distance_statistics(self, params, data):
+        frames, q = data
+        img = _image_points(q, params[11:14], params[14:17], params[3:6])
+        d = torch.sqrt(torch.sum((_mapped(frames, img) - params[0:3]) ** 2, dim=-1))
+        return d, torch.min(d), torch.max(d), torch.mean(d)
+
+
+@register("us_pointer")
+class PointerUSCalibrationEstimator(Estimator):
+    """``CalibratedPointerTargetUSCalibrationParametersEstimator``.
+
+    Data: ``(Frame[n], q[n, 2], p[n, 3])``.  Output layout (17):
+    ``[t3 3, w_z, w_y, w_x, m_x, m_y, m_x R3(:,1), m_y R3(:,2), R3(:,3)]``.
+    """
+
+    k = 3
+    nparams = 17
+    nparams_lsq = 17
+    fused_family = "pointer"
+
+    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
+        self.delta = float(delta)
+        self.delta_squared = float(delta) ** 2
+        self.ls_type = _check_ls_type(ls_type)
+        self.lm_config = lm_config
+
+    def _analytic(self, data, mask=None):
+        """3n x 9 system ``[u R2, v R2, R2] x = p - t2``, batched over
+        leading axes (``SinglePointTarget...cxx:763-914``)."""
+        frames, q, p = data
+        r = frames.r
+        u, v = q[..., 0, None, None], q[..., 1, None, None]
+        a = torch.cat([u * r, v * r, r], dim=-1).reshape(*q.shape[:-2], -1, 9)
+        b = (p - frames.t).reshape(*q.shape[:-2], -1)
+        x, rank = _pinv_solve_masked3(a, b, mask, FLT_EPS)
+        m_x, m_y, r3 = _orthonormalize_scaled_columns(x[..., 0:3], x[..., 3:6])
+        angles = torch.stack(_extract_euler_plus(r3), dim=-1)
+        params = torch.cat([x[..., 6:9], angles, m_x[..., None], m_y[..., None],
+                            _rotation_block(m_x, m_y, r3)], dim=-1)
+        return params, rank >= 9
+
+    def minimal_fit(self, samples):
+        return self._analytic(samples)
+
+    def lsq_fit(self, data, mask=None):
+        params, valid = self._analytic(data, mask)
+        if self.ls_type == ANALYTIC:
+            return params, valid
+        x0 = params[:8]
+        result = levenberg_marquardt(
+            _pointer_residual, _pointer_jacobian, x0, data,
+            mask=None if mask is None else torch.repeat_interleave(mask, 3),
+            config=self.lm_config,
+        )
+        x = torch.where(valid, result.x, x0)
+        return _pack_pointer(x), valid & result.converged
+
+    def agree(self, params, data):
+        """``|T2 T3 q - p|^2 < delta^2`` (``SinglePointTarget...cxx:728-761``)."""
+        frames, q, p = data
+        img = _image_points(q, params[..., None, 8:11], params[..., None, 11:14],
+                            params[..., None, 0:3])
+        err = _mapped(frames, img) - p
+        return torch.sum(err * err, dim=-1) < self.delta_squared
+
+    def vote_counts(self, params, data):
+        """Three ``[n, 30] @ [30, B]`` products (the target folds into the
+        ``t2 - p`` feature columns)."""
+        rows = _vote_blocks(params, [params[:, 8:11], params[:, 11:14], params[:, 0:3]], 3,
+                            lambda j: [])
+        return _matmul_vote(rows, _pointer_features(data), self.delta_squared)
+
+    def fit_and_vote(self, samples, data):
+        """f32 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.fit_and_vote("pointer", self, samples, data)
+
+    def structured_sweep(self, data, generator, groups, perm=None):
+        """The planar-lane structured sweep (see the crosswire estimator)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.structured_sweep("pointer", self, data, generator, groups, perm)
+
+    def distance_statistics(self, params, data):
+        frames, q, p = data
+        img = _image_points(q, params[8:11], params[11:14], params[0:3])
+        d = torch.sqrt(torch.sum((_mapped(frames, img) - p) ** 2, dim=-1))
+        return d, torch.min(d), torch.max(d), torch.mean(d)

@@ -184,7 +184,7 @@ PLANE_VOTE = Kernel(
 )
 
 # The four rigid-body and linear-system families of csrc/fused_sweep_rigid.cu
-# share one library and one signature.
+# share one library and one signature (the ultrasound families below reuse it).
 _RIGID_SWEEP_ARGS = [
     # coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups,
     # b, m, mask, delta, delta_sq, cross_eps, best_key, best_out, best_index,
@@ -202,16 +202,27 @@ _RIGID_SWEEPS = {
     for family in RIGID_FAMILIES
 }
 
+# The crosswire and calibrated-pointer ultrasound sweeps of
+# csrc/fused_sweep_us.cu: one library, the rigid families' signature.
+US_FAMILIES = ("crosswire", "pointer")
+
+_US_SWEEPS = {
+    family: Kernel(f"fused_sweep_{family}", "fused_sweep_us.cu",
+                   f"fused_sweep_{family}_launch", _RIGID_SWEEP_ARGS)
+    for family in US_FAMILIES
+}
+
 FUSED_SWEEPS = {
     "sphere3d": FUSED_SWEEP_SPHERE3D,
     "plane3d": FUSED_SWEEP_PLANE3D,
     "line3d": FUSED_SWEEP_LINE3D,
     "line2d": FUSED_SWEEP_LINE2D,
     **_RIGID_SWEEPS,
+    **_US_SWEEPS,
 }
 
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
-       FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values())
+       FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values())
 
 
 def build_all(kernels=ALL) -> None:

@@ -1,5 +1,6 @@
 """Closed-form solvers for tiny systems (counterpart of
-``lsqrrecipes_tpu/linalg/small.py``: ``solve2`` and ``solve3`` only).
+``lsqrrecipes_tpu/linalg/small.py``: ``solve2``, ``solve3``, the unrolled
+Cholesky solves, ``solve_spd`` and ``qr_solve_lanes``).
 
 Pure elementwise tensor arithmetic batched over leading axes, with the same
 cofactor arithmetic and operation order as the JAX package.
@@ -42,3 +43,177 @@ def solve3(a, b):
     x1 = (c10 * b0 + c11 * b1 + c12 * b2) / safe
     x2 = (c20 * b0 + c21 * b1 + c22 * b2) / safe
     return torch.stack([x0, x1, x2], dim=-1), det
+
+
+def cholesky_solve_lanes(a, b, n: int):
+    """Unrolled Cholesky solve in LANES form: ``a[i][j]`` and ``b[i]`` are
+    lists of same-shaped (typically ``[B]``) tensors, every scalar step its
+    own operation, as in the JAX package.  Pivots are floored at the dtype's
+    ``tiny``; returns ``(x_list, min_pivot)``."""
+    tiny = torch.finfo(b[0].dtype).tiny
+    l = [[None] * n for _ in range(n)]
+    min_pivot = None
+    for j in range(n):
+        s = a[j][j]
+        for k in range(j):
+            s = s - l[j][k] * l[j][k]
+        min_pivot = s if min_pivot is None else torch.minimum(min_pivot, s)
+        ljj = torch.sqrt(torch.clamp_min(s, tiny))
+        l[j][j] = ljj
+        for i in range(j + 1, n):
+            t = a[i][j]
+            for k in range(j):
+                t = t - l[i][k] * l[j][k]
+            l[i][j] = t / ljj
+    y = [None] * n
+    for i in range(n):
+        t = b[i]
+        for k in range(i):
+            t = t - l[i][k] * y[k]
+        y[i] = t / l[i][i]
+    x = [None] * n
+    for i in reversed(range(n)):
+        t = y[i]
+        for k in range(i + 1, n):
+            t = t - l[k][i] * x[k]
+        x[i] = t / l[i][i]
+    return x, min_pivot
+
+
+def cholesky_solve_unrolled(a, b, n: int):
+    """Cholesky solve of SPD ``a[..., n, n] x = b[..., n]`` (n static,
+    intended n <= ~16), batched over leading axes, with the pivots floored at
+    the dtype's ``tiny`` as in :func:`cholesky_solve_lanes`.  Returns ``(x,
+    min_pivot)``: ``min_pivot``, the smallest squared diagonal of L, is the
+    degeneracy signal (non-SPD inputs give ``min_pivot <= 0``).
+
+    The loops over columns and rows are unrolled; each inner product is one
+    ``torch.sum`` over a row of L (some tens of operations for n = 11 where
+    the scalar form takes hundreds, which matters on the card, where each is
+    a kernel launch), so results equal the lanes form's to rounding."""
+    tiny = torch.finfo(a.dtype).tiny
+    l = torch.zeros_like(a)
+    min_pivot = None
+    for j in range(n):
+        lj = l[..., j, :j]
+        s = a[..., j, j] - torch.sum(lj * lj, dim=-1)
+        min_pivot = s if min_pivot is None else torch.minimum(min_pivot, s)
+        ljj = torch.sqrt(torch.clamp_min(s, tiny))
+        l[..., j, j] = ljj
+        if j + 1 < n:
+            t = a[..., j + 1 :, j] - torch.sum(l[..., j + 1 :, :j] * lj[..., None, :], dim=-1)
+            l[..., j + 1 :, j] = t / ljj[..., None]
+    y = torch.zeros_like(b)
+    for i in range(n):
+        t = b[..., i] - torch.sum(l[..., i, :i] * y[..., :i], dim=-1)
+        y[..., i] = t / l[..., i, i]
+    x = torch.zeros_like(b)
+    for i in reversed(range(n)):
+        t = y[..., i] - torch.sum(l[..., i + 1 :, i] * x[..., i + 1 :], dim=-1)
+        x[..., i] = t / l[..., i, i]
+    return x, min_pivot
+
+
+def solve_spd(a, b):
+    """SPD solve dispatcher: closed forms for n <= 3, unrolled Cholesky
+    beyond.  ``a[..., n, n] x = b[..., n]`` -> ``(x, valid_signal)`` where
+    ``valid_signal > 0`` indicates a well-posed system."""
+    n = a.shape[-1]
+    if n == 1:
+        d = a[..., 0, 0]
+        return b / torch.where(d == 0, torch.ones_like(d), d)[..., None], d
+    if n == 2:
+        return solve2(a, b)
+    if n == 3:
+        return solve3(a, b)
+    return cholesky_solve_unrolled(a, b, n)
+
+
+def scalar_like(value, like):
+    """``value`` as a 0-dim tensor of ``like``'s dtype and device.  Dividing
+    by it (or by any tensor) is a correctly rounded division on the card
+    too, where PyTorch divides by a Python number through its reciprocal;
+    the plain versions of the CUDA kernels divide this way to round as
+    ``__fdiv_rn`` does."""
+    return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def rsqrt(x):
+    """``1 / sqrt(x)`` as two correctly rounded operations (``lax.rsqrt``'s
+    value and the kernels' ``rsqrt_rn``; CUDA's ``rsqrtf`` and
+    ``torch.rsqrt`` on the card are approximate)."""
+    return scalar_like(1.0, x) / torch.sqrt(x)
+
+
+def qr_solve_lanes(rows, rhs, eps=1e-5):
+    """Householder least-squares solve in LANES form.
+
+    ``rows``: list (length R) of lists (length C) of same-shaped tensors (the
+    batch, typically ``[B]``) -- the system matrix with every scalar a batch
+    tensor; ``rhs``: list of R tensors.  Returns ``(x, ok)`` with ``x`` a
+    list of C tensors and ``ok`` a bool tensor, False where a Householder
+    pivot collapsed (``norm <= eps``: the rank-deficient case).
+
+    Columns are first scaled to unit norm (``1 / sqrt`` of the sequential
+    sum of squares, restored on output) so that the pivot gate is relative.
+    Every sum is taken in row order and every product and sum is its own
+    rounded operation, so this is the arithmetic of the CUDA sweep kernels'
+    ``qr_solve`` (``csrc/fused_sweep_us.cu``) bit for bit, divisions
+    included (tensor divisors only).  The lists keep that order explicit:
+    an ``[R, C, B]`` tensor with whole-column updates would sum in the
+    library's order.
+    """
+    nr = len(rows)
+    nc = len(rows[0])
+    a = [[rows[r][c] for c in range(nc)] for r in range(nr)]
+    b = list(rhs)
+    like = b[0]
+    one = scalar_like(1.0, like)
+    tiny = torch.finfo(like.dtype).tiny
+
+    inv_scale = []
+    for c in range(nc):
+        norm2 = a[0][c] * a[0][c]
+        for r in range(1, nr):
+            norm2 = norm2 + a[r][c] * a[r][c]
+        s = rsqrt(torch.clamp_min(norm2, tiny))
+        inv_scale.append(s)
+        for r in range(nr):
+            a[r][c] = a[r][c] * s
+
+    ok = None
+    for k in range(nc):
+        sigma = a[k][k] * a[k][k]
+        for r in range(k + 1, nr):
+            sigma = sigma + a[r][k] * a[r][k]
+        norm = torch.sqrt(sigma)
+        good = norm > eps
+        ok = good if ok is None else ok & good
+        akk = a[k][k]
+        alpha = torch.where(akk >= 0, -norm, norm)
+        vk = akk - alpha
+        # v^T v = -2 alpha vk, so H = I + v v^T / (alpha vk).
+        denom = alpha * vk
+        inv_denom = one / torch.where(good, denom, one)
+        for j in range(k + 1, nc + 1):
+            col = b if j == nc else [a[r][j] for r in range(nr)]
+            w = vk * col[k]
+            for r in range(k + 1, nr):
+                w = w + a[r][k] * col[r]
+            w = w * inv_denom
+            new = [col[k] + vk * w] + [col[r] + a[r][k] * w for r in range(k + 1, nr)]
+            for r, value in zip(range(k, nr), new):
+                if j == nc:
+                    b[r] = value
+                else:
+                    a[r][j] = value
+        a[k][k] = alpha
+
+    x = [None] * nc
+    for i in reversed(range(nc)):
+        t = b[i]
+        for j in range(i + 1, nc):
+            t = t - a[i][j] * x[j]
+        diag = a[i][i]
+        x[i] = t / torch.where(diag.abs() > eps, diag, one)
+    return [x[c] * inv_scale[c] for c in range(nc)], ok

@@ -1,7 +1,8 @@
 """Whole-sweep fused RANSAC (counterpart of ``lsqrrecipes_tpu/ops/fused_sweep.py``)
 for the point families ``sphere3d``, ``plane3d``, ``line3d``, ``line2d`` and
-``dense_linear6`` and the rigid-body families ``pivot``,
-``absolute_orientation`` and ``ray3d``.
+``dense_linear6``, the rigid-body families ``pivot``,
+``absolute_orientation`` and ``ray3d``, and the ultrasound-calibration
+families ``crosswire`` and ``pointer``.
 
 One call evaluates ``groups * n_fit`` hypotheses and returns only the best
 one.  Sampling is gather-free: each of the ``k`` sample slots draws from FOUR
@@ -31,13 +32,24 @@ that fall in the family's band:
     ``[q, t]`` on the host (``_POSTPROCESS``);
   * ray3d: midpoint of the common perpendicular of two rays (slot features
     ``[p, n]``), ``t = n.(x-p) >= 0`` and ``|x-p|^2 - t^2 (2 - |n|^2) <
-    delta^2`` on ``P = [p, n, n.p, 1, |n|^2, |p|^2]``.
+    delta^2`` on ``P = [p, n, n.p, 1, |n|^2, |p|^2]``;
+  * crosswire: the minimal ``12 x 12`` system ``[u R2 | v R2 | R2 | -I] x =
+    -t2`` of four tracked images (slot features ``[vec(R2) 9, t2 3, u, v]``)
+    by equilibrated Householder QR, the scaled columns orthonormalised by
+    five Newton polar steps, ``|e|^2 < delta^2`` with ``e_j = u c1_j + v c2_j +
+    t3_j + (R2^T t2)_j - (R2 col j).t1`` on ``P = [u, v, 1, R2^T t2, vec(R2),
+    guard]``; the kernel's ``[t1, t3, c1, c2, c3]`` become the estimator's 20
+    parameters on the host (``_POSTPROCESS``);
+  * pointer: the ``9 x 9`` system ``[u R2 | v R2 | R2] x = p - t2`` of three
+    images (slot features ``[..., p 3]``), ``e_j = u c1_j + v c2_j + t3_j -
+    w_j`` on ``P = [u, v, 1, w = R2^T (p - t2), guard]``; ``[t3, c1, c2, c3]``
+    become 17 parameters on the host.
 
 Degenerate lanes count 0 outright.  On CUDA tensors :func:`sweep` launches
 the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
-``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``); on CPU
-tensors it runs :func:`sweep_plain`, which repeats the kernels' fits and
-votes operation by operation.
+``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``,
+``csrc/fused_sweep_us.cu``); on CPU tensors it runs :func:`sweep_plain`,
+which repeats the kernels' fits and votes operation by operation.
 """
 
 import ctypes
@@ -47,7 +59,11 @@ import torch
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.config import SPHERE_EPS
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
+from lsqrrecipes_tpu_torch.estimators.us_calibration import _extract_euler_plus
 from lsqrrecipes_tpu_torch.geometry import rotations
+from lsqrrecipes_tpu_torch.linalg.small import qr_solve_lanes, scalar_like
+from lsqrrecipes_tpu_torch.linalg.small import rsqrt as _rsqrt
+from lsqrrecipes_tpu_torch.ops import us_fast
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
 from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
 
@@ -57,8 +73,10 @@ _NORM2_EPS = 1e-20     # f32 collinearity gate on the squared cross-product norm
 
 # name: (k_slots, feat_rows, n_param_rows, with_pp, dim): ``dim`` is the
 # width of a point family's ``[n, dim]`` data, None for the families whose
-# data is a Frame, a Ray3D or a point pair (see _DATA); n_param_rows counts
-# the kernel's rows (absolute_orientation's 12 become [q, t] on the host).
+# data is a Frame, a Ray3D, a point pair or an ultrasound tuple (see _DATA);
+# n_param_rows counts the kernel's rows (absolute_orientation's 12 become
+# [q, t] on the host, crosswire's 15 and pointer's 12 the estimators' 20
+# and 17 parameters).
 _FAMILIES = {
     "sphere3d": (4, 3, 4, True, 3),
     "plane3d": (3, 3, 6, False, 3),
@@ -68,6 +86,8 @@ _FAMILIES = {
     "pivot": (3, 15, 6, False, None),
     "absolute_orientation": (3, 6, 12, False, None),
     "ray3d": (2, 6, 3, False, None),
+    "crosswire": (4, 14, 15, False, None),
+    "pointer": (3, 17, 12, False, None),
 }
 
 # Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries.
@@ -175,9 +195,7 @@ def _pivot_features(frames):
     ``[vec(R) 9, t 3, R^T t 3]``."""
     r = frames.r.to(torch.float32)
     t = frames.t.to(torch.float32)
-    rt = torch.stack([_sum3(r[:, 0, j] * t[:, 0], r[:, 1, j] * t[:, 1], r[:, 2, j] * t[:, 2])
-                      for j in range(3)], dim=1)
-    return torch.cat([r.reshape(r.shape[0], 9), t, rt], dim=1)
+    return torch.cat([r.reshape(r.shape[0], 9), t, _rt_times(r, t)], dim=1)
 
 
 def _pivot_p(frames):
@@ -218,6 +236,48 @@ def _ray_p(rays):
     return p
 
 
+def _rt_times(r, v):
+    """``R^T v`` per observation, ``(R^T v)_j = (R_0j v_0 + R_1j v_1) + R_2j v_2``."""
+    return torch.stack([_sum3(r[:, 0, j] * v[:, 0], r[:, 1, j] * v[:, 1], r[:, 2, j] * v[:, 2])
+                        for j in range(3)], dim=1)
+
+
+def _us_rows(q, rest):
+    """Pixels ``q [n, 2]`` and ``rest [n, K]`` -> ``P [K + 4, n_pad]`` f32 =
+    ``[u, v, 1, rest, guard]``, the guard 0 live and 1e30 on padding columns."""
+    n, width = rest.shape
+    p = torch.zeros((width + 4, -(-n // 128) * 128), dtype=torch.float32, device=q.device)
+    p[0:2, :n] = q.to(torch.float32).T
+    p[2, :n] = 1.0
+    p[3 : width + 3, :n] = rest.T
+    p[width + 3, n:] = _GUARD
+    return p
+
+
+def _crosswire_p(data):
+    """Vote rows ``[16, n_pad]`` = ``[u, v, 1, R2^T t2 3, vec(R2) 9, guard]``."""
+    frames, q = data
+    r, t = frames.r.to(torch.float32), frames.t.to(torch.float32)
+    return _us_rows(q, torch.cat([_rt_times(r, t), r.reshape(-1, 9)], dim=1))
+
+
+def _pointer_p(data):
+    """Vote rows ``[7, n_pad]`` = ``[u, v, 1, w 3, guard]``, ``w = R2^T (p - t2)``."""
+    frames, q, p = data
+    r = frames.r.to(torch.float32)
+    return _us_rows(q, _rt_times(r, p.to(torch.float32) - frames.t.to(torch.float32)))
+
+
+def _us_check(n_leaves):
+    """Data check of the ultrasound families: ``(Frame, q[n, 2])`` or
+    ``(Frame, q[n, 2], p[n, 3])``."""
+    def check(d):
+        return (isinstance(d, tuple) and not hasattr(d, "_fields") and len(d) == n_leaves
+                and hasattr(d[0], "r") and getattr(d[1], "ndim", 0) == 2 and d[1].shape[1] == 2
+                and (n_leaves == 2 or (getattr(d[2], "ndim", 0) == 2 and d[2].shape[1] == 3)))
+    return check
+
+
 # The families whose data is not one [n, dim] point tensor:
 # name: (slot features, vote rows P, data check, rows of P).
 _DATA = {
@@ -228,6 +288,8 @@ _DATA = {
         lambda d: isinstance(d, tuple) and len(d) == 2
         and getattr(d[0], "ndim", 0) == 2 and d[0].shape[1] == 3, 8),
     "ray3d": (_ray_features, _ray_p, lambda d: hasattr(d, "p") and hasattr(d, "n"), 10),
+    "crosswire": (us_fast._slot_features_crosswire, _crosswire_p, _us_check(2), 16),
+    "pointer": (us_fast._slot_features_pointer, _pointer_p, _us_check(3), 7),
 }
 
 
@@ -272,19 +334,6 @@ def supports_data(family: str, data) -> bool:
 # order; every operation is a separate rounding, as in the CUDA kernels'
 # __f*_rn arithmetic, so the two agree bit for bit.
 # ---------------------------------------------------------------------------
-
-
-def _f32(value, like):
-    """``value`` as an f32 0-dim tensor on ``like``'s device.  Dividing by it
-    is a correctly rounded division on the card too, where dividing by a
-    Python number multiplies by its reciprocal."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
-
-
-def _rsqrt(x):
-    """``1 / sqrt(x)`` as two correctly rounded operations (``lax.rsqrt``'s
-    value; CUDA's ``rsqrtf`` and ``torch.rsqrt`` on the card are approximate)."""
-    return torch.ones_like(x) / torch.sqrt(x)
 
 
 def sphere3d_fit(pts, delta):
@@ -336,7 +385,7 @@ def sphere3d_fit(pts, delta):
 def _signed_band(n_rows, d_off, degenerate, delta):
     """Band rows ``[w n, o, w]`` of ``|(n.p - d_off) / delta| < 1``:
     degenerate lanes get ``w = 0, o = 2`` (they never agree)."""
-    inv_delta = _f32(1.0 / float(delta), d_off)
+    inv_delta = scalar_like(1.0 / float(delta), d_off)
     w = torch.where(degenerate, torch.zeros_like(d_off), inv_delta)
     o = torch.where(degenerate, torch.full_like(d_off, 2.0), -d_off * inv_delta)
     return [w * n for n in n_rows] + [o, w]
@@ -353,7 +402,7 @@ def plane3d_fit(pts, delta):
     ny = v1[2] * v2[0] - v1[0] * v2[2]
     nz = v1[0] * v2[1] - v1[1] * v2[0]
     norm2 = nx * nx + ny * ny + nz * nz
-    degenerate = norm2 < _f32(_NORM2_EPS, norm2)
+    degenerate = norm2 < scalar_like(_NORM2_EPS, norm2)
     inv = _rsqrt(torch.where(degenerate, torch.ones_like(norm2), norm2))
     nx, ny, nz = nx * inv, ny * inv, nz * inv
     d_off = nx * s[0][0] + ny * s[0][1] + nz * s[0][2]
@@ -369,7 +418,7 @@ def line2d_fit(pts, delta):
     x1, y1 = pts[1][0], pts[1][1]
     dx, dy = x1 - x0, y1 - y0
     dist2 = dx * dx + dy * dy
-    degenerate = dist2 < _f32(float(delta) * float(delta), dist2)
+    degenerate = dist2 < scalar_like(float(delta) * float(delta), dist2)
     inv = _rsqrt(torch.where(degenerate, torch.ones_like(dist2), dist2))
     nx, ny = dy * inv, -dx * inv
     d_off = nx * x0 + ny * y0
@@ -383,14 +432,14 @@ def line3d_fit(pts, delta):
     a, p1 = pts[0], pts[1]
     d = [a[c] - p1[c] for c in range(3)]
     dist2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-    degenerate = dist2 < _f32(float(delta) * float(delta), dist2)
+    degenerate = dist2 < scalar_like(float(delta) * float(delta), dist2)
     inv = _rsqrt(torch.where(degenerate, torch.ones_like(dist2), dist2))
     params = [d[c] * inv for c in range(3)] + list(a)
     return params, degenerate, params
 
 
 def _sphere3d_rows(pts, delta):
-    center, r, degenerate, a_rows = sphere3d_fit(pts, _f32(float(delta), pts[0][0]))
+    center, r, degenerate, a_rows = sphere3d_fit(pts, scalar_like(float(delta), pts[0][0]))
     return center + [r], degenerate, a_rows
 
 
@@ -432,14 +481,14 @@ def pivot_fit(pts, delta):
     c01 = n02 * n12 - n01 * n22
     c02 = n01 * n12 - n02 * n11
     det = _sum3(n00 * c00, n01 * c01, n02 * c02)
-    degenerate = det.abs() < _f32(1e-6, det)
+    degenerate = det.abs() < scalar_like(1e-6, det)
     det = torch.where(degenerate, torch.ones_like(det), det)
     c11 = n00 * n22 - n02 * n02
     c12 = n01 * n02 - n00 * n12
     c22 = n00 * n11 - n01 * n01
     tw = [_sum3(a * r[0], b * r[1], c * r[2]) / det
           for a, b, c in ((c00, c01, c02), (c01, c11, c12), (c02, c12, c22))]
-    three = _f32(3.0, det)
+    three = scalar_like(3.0, det)
     td = [(_sum3(s[0][k] * tw[0], s[1][k] * tw[1], s[2][k] * tw[2]) - u[k]) / three
           for k in range(3)]
     params = td + tw
@@ -452,7 +501,7 @@ def absolute_orientation_fit(pts, delta):
     mean``, ``z = x cross y`` (degenerate when ``|z|^2 < 1e-12``); ``R = R2
     R1^T``, ``t = mean2 - R mean1`` -> ``(rows [vec(R) 9, t 3], degenerate,
     vote rows = rows)``."""
-    floor, three = _f32(1e-30, pts[0][0]), _f32(3.0, pts[0][0])
+    floor, three = scalar_like(1e-30, pts[0][0]), scalar_like(3.0, pts[0][0])
 
     def build_frame(q):
         mean = [_sum3(q[0][c], q[1][c], q[2][c]) / three for c in range(3)]
@@ -465,7 +514,7 @@ def absolute_orientation_fit(pts, delta):
         yr = _rsqrt(torch.maximum(_dot3(y, y), floor))
         y = [y[c] * yr for c in range(3)]
         z = _cross(x, y)
-        return x, y, z, mean, _dot3(z, z) < _f32(1e-12, floor)
+        return x, y, z, mean, _dot3(z, z) < scalar_like(1e-12, floor)
 
     x1, y1, z1, m1, d1 = build_frame([p[0:3] for p in pts])
     x2, y2, z2, m2, d2 = build_frame([p[3:6] for p in pts])
@@ -480,7 +529,7 @@ def ray3d_fit(pts, delta):
     """Midpoint of the common perpendicular of two rays (slot features
     ``[p, n]``), degenerate when ``|na x nb|^2 < cross_eps`` or either ray
     parameter is negative -> ``(params x, degenerate, vote rows x)``."""
-    cross_eps = _f32(_split_delta(delta)[1], pts[0][0])
+    cross_eps = scalar_like(_split_delta(delta)[1], pts[0][0])
     pa, na = pts[0][0:3], pts[0][3:6]
     pb, nb = pts[1][0:3], pts[1][3:6]
     p21 = [pb[c] - pa[c] for c in range(3)]
@@ -499,7 +548,7 @@ def dense_linear6_fit(pts, delta):
     """Six rows ``[a 6, b]`` -> normal equations ``(A^T A) x = A^T b``, an
     unrolled Cholesky whose pivots below 1e-10 flag the degenerate case,
     forward and back substitution -> ``(params x, degenerate, vote rows x)``."""
-    eps = _f32(1e-10, pts[0][0])
+    eps = scalar_like(1e-10, pts[0][0])
 
     def dot6(i, j):
         acc = pts[0][i] * pts[0][j]
@@ -538,6 +587,41 @@ def dense_linear6_fit(pts, delta):
     return x, degenerate, x
 
 
+def _us_fit(system, k, pts):
+    """The ultrasound fits' common part: ``system``'s rows by
+    :func:`~lsqrrecipes_tpu_torch.linalg.small.qr_solve_lanes`, then the
+    scaled columns ``x[0:3], x[3:6]`` to ``c1 = m_x R3(:,0)``, ``c2 = m_y
+    R3(:,1)``, ``c3 = R3(:,2)`` by :func:`~lsqrrecipes_tpu_torch.ops.us_fast.
+    orthonormalize_lanes` -> ``(x, c1, c2, c3, degenerate)``."""
+    rows, rhs = system(lambda a, f: pts[a][f], k)
+    x, ok = qr_solve_lanes(rows, rhs)
+    m_x, m_y, rot, ok_rot = us_fast.orthonormalize_lanes(x[0:3], x[3:6])
+    c1 = [m_x * rot[i][0] for i in range(3)]
+    c2 = [m_y * rot[i][1] for i in range(3)]
+    c3 = [rot[i][2] for i in range(3)]
+    return x, c1, c2, c3, ~(ok & ok_rot)
+
+
+def crosswire_fit(pts, delta):
+    """Crosswire calibration from four tracked images (slot features
+    ``[vec(R2) 9, t2 3, u, v]``): the ``12 x 12`` system by QR, the rotation
+    by polar iteration -> ``(rows [t1 3, t3 3, c1 3, c2 3, c3 3], degenerate,
+    vote rows = rows)``."""
+    x, c1, c2, c3, degenerate = _us_fit(us_fast.crosswire_system, 4, pts)
+    rows = x[9:12] + x[6:9] + c1 + c2 + c3
+    return rows, degenerate, rows
+
+
+def pointer_fit(pts, delta):
+    """Pointer calibration from three tracked images (slot features
+    ``[vec(R2) 9, t2 3, u, v, p 3]``): the ``9 x 9`` system by QR, the
+    rotation by polar iteration -> ``(rows [t3 3, c1 3, c2 3, c3 3],
+    degenerate, vote rows = rows)``."""
+    x, c1, c2, c3, degenerate = _us_fit(us_fast.pointer_system, 3, pts)
+    rows = x[6:9] + c1 + c2 + c3
+    return rows, degenerate, rows
+
+
 _FITS = {
     "sphere3d": _sphere3d_rows,
     "plane3d": plane3d_fit,
@@ -547,6 +631,8 @@ _FITS = {
     "pivot": pivot_fit,
     "absolute_orientation": absolute_orientation_fit,
     "ray3d": ray3d_fit,
+    "crosswire": crosswire_fit,
+    "pointer": pointer_fit,
 }
 
 
@@ -565,7 +651,7 @@ def _line3d_vote(p_vote, rows, delta):
     e2 = v0 * v0 + v1 * v1 + v2 * v2
     dist2 = e2 - e1 * e1
     live = (p_vote[3] != 0)[:, None]
-    inside = (dist2 < _f32(float(delta) * float(delta), dist2)) & live
+    inside = (dist2 < scalar_like(float(delta) * float(delta), dist2)) & live
     return inside.sum(dim=0)
 
 
@@ -578,7 +664,7 @@ def _component_vote(p_vote, e_rows, delta_sq, live_row):
     """``#{live columns: e0^2 + e1^2 + e2^2 < delta^2}``."""
     e0, e1, e2 = e_rows
     dist2 = _sum3(e0 * e0, e1 * e1, e2 * e2)
-    return ((dist2 < _f32(delta_sq, dist2)) & _live(p_vote, live_row)).sum(dim=0)
+    return ((dist2 < scalar_like(delta_sq, dist2)) & _live(p_vote, live_row)).sum(dim=0)
 
 
 def _pivot_vote(p_vote, rows, delta):
@@ -611,7 +697,7 @@ def _ray3d_vote(p_vote, rows, delta):
     n = [p_vote[3 + c][:, None] for c in range(3)]
     t = _dot3(n, v)
     q = (t * t) * (2.0 - p_vote[8][:, None])
-    inside = (t >= 0) & (_dot3(v, v) - q < _f32(d * d, t))
+    inside = (t >= 0) & (_dot3(v, v) - q < scalar_like(d * d, t))
     return (inside & _live(p_vote, 7)).sum(dim=0)
 
 
@@ -621,7 +707,29 @@ def _dense6_vote(p_vote, rows, delta):
     for c in range(1, 6):
         acc = acc + p_vote[c][:, None] * rows[c]
     e = acc - p_vote[6][:, None]
-    return ((e.abs() < _f32(float(delta), e)) & _live(p_vote, 7)).sum(dim=0)
+    return ((e.abs() < scalar_like(float(delta), e)) & _live(p_vote, 7)).sum(dim=0)
+
+
+def _crosswire_vote(p_vote, rows, delta):
+    """``|e|^2 < delta^2``, ``e_j = (((u c1_j + v c2_j) + t3_j) + (R2^T t2)_j)
+    - (R2 col j).t1`` per cell (rows of P: u 0, v 1, ones 2, R2^T t2 3-5,
+    vec(R2) 6-14, so ``R2[k][j]`` is row ``6 + 3k + j``)."""
+    t1, t3, c1, c2 = rows[0:3], rows[3:6], rows[6:9], rows[9:12]
+    col = [p_vote[r][:, None] for r in range(15)]
+    e = [col[0] * c1[j] + col[1] * c2[j] + t3[j] + col[3 + j]
+         - _sum3(col[6 + j] * t1[0], col[9 + j] * t1[1], col[12 + j] * t1[2]) for j in range(3)]
+    d = float(delta)
+    return _component_vote(p_vote, e, d * d, 2)
+
+
+def _pointer_vote(p_vote, rows, delta):
+    """``|e|^2 < delta^2``, ``e_j = ((u c1_j + v c2_j) + t3_j) - w_j`` per
+    cell (rows of P: u 0, v 1, ones 2, w 3-5)."""
+    t3, c1, c2 = rows[0:3], rows[3:6], rows[6:9]
+    col = [p_vote[r][:, None] for r in range(6)]
+    e = [col[0] * c1[j] + col[1] * c2[j] + t3[j] - col[3 + j] for j in range(3)]
+    d = float(delta)
+    return _component_vote(p_vote, e, d * d, 2)
 
 
 _VOTES = {
@@ -633,6 +741,8 @@ _VOTES = {
     "pivot": _pivot_vote,
     "absolute_orientation": _absor_vote,
     "ray3d": _ray3d_vote,
+    "crosswire": _crosswire_vote,
+    "pointer": _pointer_vote,
 }
 
 
@@ -642,8 +752,24 @@ def _absor_post(rows):
     return torch.cat([rotations.quaternion_from_matrix(r), rows[9:12].to(torch.float64)])
 
 
+def _us_post(rows):
+    """Kernel rows ``[translations..., c1 3, c2 3, c3 3]`` -> ``[translations,
+    w_z, w_y, w_x, m_x, m_y, c1, c2, c3]`` in f64: the scales are the column
+    norms and the angles the '+sqrt' Euler-ZYX extraction of
+    ``[c1/m_x, c2/m_y, c3]``."""
+    v = rows.to(torch.float64)
+    c1, c2, c3 = v[-9:-6], v[-6:-3], v[-3:]
+    m_x, m_y = torch.linalg.vector_norm(c1), torch.linalg.vector_norm(c2)
+    one = torch.ones_like(m_x)
+    r3 = torch.stack([c1 / torch.where(m_x > 0, m_x, one), c2 / torch.where(m_y > 0, m_y, one),
+                      c3], dim=1)
+    derived = torch.stack([*_extract_euler_plus(r3), m_x, m_y])
+    return torch.cat([v[:-9], derived, c1, c2, c3])
+
+
 # Host-side conversion of the winner's kernel rows to the estimator's layout.
-_POSTPROCESS = {"absolute_orientation": _absor_post}
+_POSTPROCESS = {"absolute_orientation": _absor_post, "crosswire": _us_post,
+                "pointer": _us_post}
 
 
 # ---------------------------------------------------------------------------
@@ -724,7 +850,7 @@ def sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta):
         stream = torch.cuda.current_stream().cuda_stream
         if family == "sphere3d":
             consts = (ctypes.c_float(delta),)
-        elif family in kernels.RIGID_FAMILIES:
+        elif family in kernels.RIGID_FAMILIES + kernels.US_FAMILIES:
             consts = (ctypes.c_float(delta), ctypes.c_float(delta * delta),
                       ctypes.c_float(cross_eps))
         else:
@@ -777,13 +903,15 @@ def fused_sweep(
     """Run a whole fused sweep -> ``(best_count int32[], best_params)`` in the
     estimator's parameter order (sphere ``[c, r]``, plane ``[n, s0]``,
     line3d ``[u, a]``, line2d ``[nx, ny, x0, y0]``, dense_linear6 ``x``,
-    pivot ``[t_D, t_W]``, ray3d ``x``: f32; absolute_orientation ``[q, t]``:
-    f64, converted from the kernel's rows on the host).
+    pivot ``[t_D, t_W]``, ray3d ``x``: f32; absolute_orientation ``[q, t]``,
+    crosswire's 20 and pointer's 17 parameters: f64, converted from the
+    kernel's rows on the host).
 
     ``data``: the estimator's data (numpy goes to ``device``, default CUDA;
     tensors stay on their device): ``[n, dim]`` points or rows, a ``Frame``
-    (pivot), a ``(first, second)`` pair (absolute_orientation) or a
-    ``Ray3D`` (ray3d).  ``delta`` is a float, or ray3d's ``(delta,
+    (pivot), a ``(first, second)`` pair (absolute_orientation), a
+    ``Ray3D`` (ray3d), ``(Frame, q)`` (crosswire) or ``(Frame, q, p)``
+    (pointer).  ``delta`` is a float, or ray3d's ``(delta,
     cross_eps)``.  ``groups_per_step`` keeps the JAX package's set of
     evaluated groups, ``ceil(total_groups / gps) * gps``.
     ``vote_subsample`` (a multiple of 128, ``<= n``) ranks on the first
@@ -843,7 +971,7 @@ def reference_samples(family: str, data, perms, total_groups: int):
     ``[total_groups * n_fit, k_slots, feat_rows]`` slot features, the
     engine's ``[B, k, d]`` layout for the point families (pivot rows are
     ``[vec(R) 9, t 3, R^T t 3]``, absolute_orientation ``[p1, p2]``, ray3d
-    ``[p, n]``)."""
+    ``[p, n]``, crosswire ``[vec(R2) 9, t2 3, u, v]``, pointer ``[..., p 3]``)."""
     k_slots, feat_rows = _FAMILIES[family][:2]
     n = fit_size(n_obs(data), k_slots)
     m, b, mask = sweep_static(n, k_slots)

@@ -120,11 +120,20 @@ def consensus_refit(est, data, mask):
 
 def hypothesize_and_vote_structured(est, data, generator, groups, perm=None):
     """Variant of :func:`hypothesize_and_vote` on ``groups * n`` structured
-    samples (:func:`~lsqrrecipes_tpu_torch.ransac.sampling.structured_samples`),
-    fitted and voted by the estimator's ``fit_and_vote(samples, data) ->
-    (counts, params)`` hook where it has one, else by ``minimal_fit`` and
-    :func:`hypothesize_and_vote`'s vote.  ``perm`` fixes the sampling
-    permutation."""
+    samples (:func:`~lsqrrecipes_tpu_torch.ransac.sampling.structured_samples`).
+    Estimator hooks, in priority order:
+
+      * ``structured_sweep(data, generator, groups, perm) -> (counts,
+        params)`` draws the same hypothesis set itself, never materialising
+        the samples (the ultrasound estimators);
+      * ``fit_and_vote(samples, data) -> (counts, params)`` fits and votes
+        materialised samples;
+      * otherwise ``minimal_fit`` and :func:`hypothesize_and_vote`'s vote.
+
+    ``perm`` fixes the sampling permutation."""
+    if hasattr(est, "structured_sweep"):
+        counts, params = est.structured_sweep(data, generator, groups, perm)
+        return _select(est, data, counts, params)
     samples = structured_samples(generator, data, est.k, groups, perm)
     if hasattr(est, "fit_and_vote"):
         counts, params = est.fit_and_vote(samples, data)
@@ -269,7 +278,8 @@ def ransac_adaptive(
         return _invalid_result(est, data)
 
     use_fast = path != "gather" and (
-        hasattr(est, "fit_and_vote") or getattr(est, "fused_family", None)
+        hasattr(est, "structured_sweep") or hasattr(est, "fit_and_vote")
+        or getattr(est, "fused_family", None)
     )
     all_tries = min(choose(n, est.k), max_hypotheses)
     budget = all_tries

@@ -76,6 +76,8 @@ def test_family_table():
         "pivot": (3, 15, 6, False, None),
         "absolute_orientation": (3, 6, 12, False, None),
         "ray3d": (2, 6, 3, False, None),
+        "crosswire": (4, 14, 15, False, None),
+        "pointer": (3, 17, 12, False, None),
     }
     for family, (k_slots, feat_rows, npr, _, _) in fs._FAMILIES.items():
         _, jk, jf, jn, *_ = jfs._FAMILIES[family]

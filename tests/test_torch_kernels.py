@@ -112,6 +112,16 @@ def test_rigid_sweeps_share_one_source_and_build():
     assert set(kernels.RIGID_FAMILIES) <= set(fs._FAMILIES)
 
 
+def test_us_sweeps_share_one_source_and_build():
+    sweeps = [kernels.FUSED_SWEEPS[f] for f in kernels.US_FAMILIES]
+    assert {k.source.name for k in sweeps} == {"fused_sweep_us.cu"}
+    assert len({k.library_path() for k in sweeps}) == 1
+    assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.US_FAMILIES]
+    assert all(k.argtypes == kernels.FUSED_SWEEPS["pivot"].argtypes for k in sweeps)
+    assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
+    assert len(kernels.ALL) == 12 and len({k.source for k in kernels.ALL}) == 6
+
+
 def test_nvcc_path_raises_when_missing(monkeypatch):
     monkeypatch.setattr(kernels.os, "access", lambda *a: False)
     with pytest.raises(FileNotFoundError, match="nvcc"):
@@ -148,10 +158,11 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     monkeypatch.setattr(kernels.Kernel, "finish_build", finish)
     with pytest.raises(RuntimeError, match="fused_sweep_sphere3d"):
         kernels.build_all()
-    # One build per source: the three point sweeps share fused_sweep_points.cu
-    # and the four rigid sweeps fused_sweep_rigid.cu.
+    # One build per source: the three point sweeps share fused_sweep_points.cu,
+    # the four rigid sweeps fused_sweep_rigid.cu and the two ultrasound sweeps
+    # fused_sweep_us.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
-                        "plane_vote", "fused_sweep_pivot"]
+                        "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire"]
 
 
 # ------------------------------------------------------- on the card only
@@ -335,3 +346,76 @@ def test_rigid_kernel_pad_columns_never_vote_on_card(cuda_device, family):
         assert int(kc) >= n - 1
     if int(ki) == int(pi):
         assert torch.equal(kp, pp)
+
+
+def _euler(w):
+    """``Rz(w0) Ry(w1) Rx(w2)`` for ``w[..., 3]`` in numpy."""
+    cz, sz, cy, sy, cx, sx = (f(w[..., i]) for i in range(3) for f in (np.cos, np.sin))
+    return np.stack([
+        np.stack([cz * cy, cz * sy * sx - sz * cx, cz * sy * cx + sz * sx], -1),
+        np.stack([sz * cy, sz * sy * sx + cz * cx, sz * sy * cx - cz * sx], -1),
+        np.stack([-sy, cy * sx, cy * cx], -1),
+    ], -2)
+
+
+def _us_data(family, seed, n, device, noise=True):
+    """The ultrasound calibration model: m_x = 0.143, m_y = 0.139, R3 of Euler
+    angles (1.1, 0.4, -0.7), t3 = (20, -15, 40) (t3 = 0 without noise),
+    crosswire target t1 = (30, 76, -58); pixels in 640 x 480, pose angles in
+    [0, pi); with noise, 0.5 px on q and 20% of t2 (crosswire) or p (pointer)
+    shifted by 30-80.  f32 leaves ``(Frame, q)`` or ``(Frame, q, p)``."""
+    rng = np.random.default_rng(seed)
+    r3 = _euler(np.array([1.1, 0.4, -0.7]))
+    t3 = np.array([20.0, -15.0, 40.0]) if noise else np.zeros(3)
+    q = rng.uniform(size=(n, 2)) * np.array([640.0, 480.0])
+    r2 = _euler(rng.uniform(0, np.pi, (n, 3))[:, ::-1])
+    img = q[:, 0:1] * (0.143 * r3[:, 0]) + q[:, 1:2] * (0.139 * r3[:, 1]) + t3
+    mapped = np.einsum("nij,nj->ni", r2, img)
+    n_out = n // 5 if noise else 0
+    shift = (30.0 + 50.0 * rng.uniform(size=(n_out, 3))) * np.sign(rng.normal(size=(n_out, 3)))
+    if family == "crosswire":
+        t2 = np.array([30.0, 76.0, -58.0]) - mapped
+        t2[n - n_out:] += shift
+        rest = ()
+    else:
+        t2 = rng.uniform(-100, 100, (n, 3))
+        p = mapped + t2
+        p[n - n_out:] += shift
+        rest = (p,)
+    if noise:
+        q = q + 0.5 * rng.normal(size=q.shape)
+    return as_tensor((Frame(r2, t2), q, *rest), device, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["crosswire", "pointer"])
+@pytest.mark.parametrize("n,gps,subsample", [(1024, 1, 0), (1000, 4, 0), (1024, 1, 512)])
+def test_us_sweep_kernels_match_plain_on_card(cuda_device, family, n, gps, subsample):
+    data = _us_data(family, 60 + n + gps, n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(gps)
+    coords, p, nf, cols = fs.sweep_inputs(family, data, gen, subsample)
+    groups = -(-63 // gps) * gps
+    kernel = kernels.FUSED_SWEEPS[family]
+    before = kernel.launches
+    kc, kp, ki = fs.sweep(family, coords, p, nf, groups, cols, 3.0)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, cols, 3.0)
+    assert kernel.launches == before + 1
+    assert int(kc) > (subsample or n) // 2
+    assert int(kc) == int(pc) and int(ki) == int(pi)
+    assert kp.shape == (fs._FAMILIES[family][2],)
+    assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["crosswire", "pointer"])
+def test_us_kernel_pad_columns_never_vote_on_card(cuda_device, family):
+    # n = 200, exact data with t3 = 0: the 56 padding columns hold zero rows,
+    # whose residual under the planted calibration is |t3| = 0.  The kernel
+    # stages them as NaN.
+    data = _us_data(family, 70, 200, cuda_device, noise=False)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    coords, p, nf, cols = fs.sweep_inputs(family, data, gen)
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, 6, cols, 3.0)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, 6, cols, 3.0)
+    assert int(kc) == int(pc) and 199 <= int(kc) <= 200
+    assert int(ki) == int(pi) and torch.equal(kp, pp)
