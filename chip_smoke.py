@@ -55,7 +55,27 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
  17. ``ransac_structured`` on both ultrasound estimators through the
      ``us_fast`` hook at 16,384 hypotheses, and ``ransac`` on crosswire at
      16,384 gathered hypotheses (the batched f64 12x12 SVD minimal fit); no
-     kernel on either.
+     kernel on either;
+ 18. kernel ``sphere_lm`` through ``sphere_lm_batch`` at the bench's LM
+     shape (4,096 problems x 256 points, 30 iterations, gtol 1e-6) against
+     its plain version and the float64 LM, with the iterations and the LM
+     iterations/s;
+ 19. kernel ``sphere_mega`` through ``fast_sphere_ransac_sweep`` at the
+     bench's scan shape (n = 1,024, 128 groups, 100 steps: 13.1M
+     hypotheses) on phase 5's cloud, the ground truth recovered by the
+     GEOMETRIC refit of the winner's consensus, then the kernel against its
+     plain version on one step at that shape, and a 256-point, 4-group step
+     against ``minimal_fit`` + ``agree`` on its hypothesis set;
+ 20. kernel ``sphere_planar_vote`` through ``planar_sphere_samples`` +
+     ``sphere_fit_and_vote_planar`` at B = 131,072 (128 groups x n =
+     1,024) against its plain version and ``minimal_fit`` + ``vote_counts``;
+ 21. the drivers that add no kernel: ``ransac_fused_sweep`` with the
+     GEOMETRIC (Levenberg-Marquardt) refit at n = 1,024 and 2^22 hypotheses,
+     the ground truth, the refit's iterations and time; ``ransac_batched``
+     on the JAX chip gate's fleet (4 datasets of 512 points, centres (5 + i,
+     -2, 11), 4 groups: the sphere vote kernel), equal to per-dataset
+     ``ransac_structured``; ``sphere3d_planar_sweep`` in float64 at n =
+     1,024 and 8 groups, its double-single counts equal to its f64 ones.
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -75,6 +95,10 @@ uniform in [0, pi), the pointer's t2 uniform in [-100, 100]^3; 20% of t2
 (crosswire) or p (pointer) shifted by 30-80 per axis; float64.  Recovery
 limits are the JAX tests' (``tests/test_us_calibration.py:34-36``):
 translations within 1.0, rotation within 1 degree, scales within 1.0.
+
+The LM problems of phase 18 are the bench's (``bench.py:656-664``): centres
+uniform in [-50, 50]^3, radius 25, N(0, 0.3) noise, start at centre + 1 and
+radius 23.
 
 Each main-path phase sets the launch counts to 0 just before it and fails if
 a kernel of that path did not launch.  Any failed check raises, so the exit
@@ -186,6 +210,24 @@ US_T3, US_T1 = np.array([20.0, -15.0, 40.0]), np.array([30.0, 76.0, -58.0])
 US_LIMITS = (1.0, 1.0, 1.0)      # translation, rotation (degrees), scale
 H_US_STRUCT = H_US_GATHER = 16384
 US_PHASES_BUDGET_S = 300.0      # phases 15-17 together
+# Phases 18-21: the bench's LM batch and its float64 oracle
+# (scripts/chip_check.py:500-511), the scan sweep, the planar batch, the
+# fleet (scripts/chip_check.py:409-465) and the generic engine's batch.
+LM_B, LM_M, LM_ITERS, LM_GTOL = 4096, 256, 30, 1e-6
+LM_F64 = {"max_iters": 60, "ftol": 0.0, "xtol": 0.0, "gtol": 1e-9}
+SCAN_GROUPS, SCAN_STEPS = 128, 100
+MEGA_SMALL = (256, 4)            # n, groups of the estimator check
+FLEET_D, FLEET_N, FLEET_GROUPS = 4, 512, 4
+GENERIC_GROUPS = 8
+SPHERE_PHASES_BUDGET_S = 60.0    # phases 18-21 together
+# f32 operations counted from the kernels: sphere_lm 38 per observation in
+# the pass that forms the 13 sums and 12 in the trial cost, 12 in the start
+# cost; sphere_mega 4 multiplies + 4 adds + compare + count per cell and the
+# fit and band rows (SWEEP_OPS_PER_HYP) per hypothesis; sphere_planar_vote 3
+# multiplies + 6 adds + 2 compares + and + count per cell, ~111 per fit.
+LM_OPS_PER_OBS_ITER, LM_OPS_PER_OBS_START = 50, 12
+MEGA_OPS_PER_CELL = 11
+PLANAR_OPS = (13, 111)
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -199,6 +241,9 @@ REPLACES = {
     "fused_sweep_dense_linear6": "lsqrrecipes_tpu/ops/fused_sweep.py:688",
     "fused_sweep_crosswire": "lsqrrecipes_tpu/ops/fused_sweep.py:765",
     "fused_sweep_pointer": "lsqrrecipes_tpu/ops/fused_sweep.py:921",
+    "sphere_lm": "lsqrrecipes_tpu/ops/sphere_lm.py:50",
+    "sphere_mega": "lsqrrecipes_tpu/ops/sphere_ransac.py:225",
+    "sphere_planar_vote": "lsqrrecipes_tpu/ops/sphere_ransac.py:80",
 }
 
 
@@ -210,6 +255,31 @@ def bench_cloud(rng, n):
     inliers = TRUE_CENTER + TRUE_RADIUS * d + 0.3 * rng.normal(size=(n_in, 3))
     outliers = rng.uniform(-40.0, 40.0, size=(n - n_in, 3))
     return np.concatenate([inliers, outliers]).astype(np.float32)
+
+
+def lm_problems(rng, b, m):
+    """The bench's LM problems (see the module docstring), float32
+    ``points[b, m, 3]`` and ``x0[b, 4]``."""
+    centers = rng.uniform(-50.0, 50.0, (b, 3))
+    d = rng.normal(size=(b, m, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = centers[:, None, :] + 25.0 * d + 0.3 * rng.normal(size=(b, m, 3))
+    x0 = np.concatenate([centers + 1.0, np.full((b, 1), 23.0)], axis=1)
+    return pts.astype(np.float32), x0.astype(np.float32)
+
+
+def fleet_data(rng, num, n):
+    """The JAX chip gate's fleet: dataset i has 80% of its points on the
+    radius-25 sphere at (5 + i, -2, 11) with N(0, 0.3) noise, 20% uniform in
+    [-40, 40]^3, float32 ``[num, n, 3]``."""
+    out = []
+    for i in range(num):
+        n_in = n * 4 // 5
+        d = rng.normal(size=(n_in, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        inl = np.array([5.0 + i, -2.0, 11.0]) + 25.0 * d + 0.3 * rng.normal(size=(n_in, 3))
+        out.append(np.concatenate([inl, rng.uniform(-40.0, 40.0, (n - n_in, 3))]))
+    return np.stack(out).astype(np.float32)
 
 
 def family_cloud(rng, family, n):
@@ -541,6 +611,7 @@ def main(argv=None):
     from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator, get
     from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
     from lsqrrecipes_tpu_torch.ops import vote
+    from lsqrrecipes_tpu_torch.estimators import sphere as sphere_est
     from lsqrrecipes_tpu_torch.ransac import (
         ransac,
         ransac_adaptive,
@@ -1138,7 +1209,246 @@ def main(argv=None):
     print(f"    phases 15-17 took {us_s:.1f} s (budget {US_PHASES_BUDGET_S:.0f} s)")
     check(us_s < US_PHASES_BUDGET_S, "phases 15-17 overran their budget")
 
-    # 18. kernels line, card line, result line --------------------------------
+    # 18. sphere_lm at the bench's LM shape ------------------------------------
+    from lsqrrecipes_tpu_torch.linalg import LMConfig
+    from lsqrrecipes_tpu_torch.ops import planar_points, sphere_lm
+    from lsqrrecipes_tpu_torch.ops import sphere_ransac as sr
+    from lsqrrecipes_tpu_torch.ransac import ransac_batched
+
+    t_sphere = time.perf_counter()
+    lm_pts, lm_x0 = (torch.as_tensor(a, device=dev) for a in lm_problems(rng, LM_B, LM_M))
+
+    def run18():
+        return sphere_lm.sphere_lm_batch(lm_pts, lm_x0, LM_ITERS, gtol=LM_GTOL)
+
+    kernels.reset_launch_counts()
+    lm_x, lm_cost, lm_it, lm_conv = run18()
+    torch.cuda.synchronize()
+    counts18 = kernels.launch_counts()
+    check(counts18["sphere_lm"] > 0, "sphere_lm_batch did not launch sphere_lm")
+    add_launches(counts18)
+    plain_x, _, plain_it, plain_conv = sphere_lm.sphere_lm_batch_plain(
+        lm_pts, lm_x0, LM_ITERS, gtol=LM_GTOL)
+    ref18 = sphere_lm.sphere_lm_batch_f64(lm_pts, lm_x0, LMConfig(**LM_F64))
+    lm_err = float((lm_x - plain_x).abs().max())
+    lm_f64_err = float((lm_x.double() - ref18.x).abs().max())
+    print(f"[18] sphere_lm B={LM_B} m={LM_M} max_iters={LM_ITERS}: launches "
+          f"{counts18['sphere_lm']}; iterations mean {float(lm_it.float().mean()):.2f} max "
+          f"{int(lm_it.max())} (plain {float(plain_it.float().mean()):.2f}); converged "
+          f"{float(lm_conv.float().mean()):.4f}; max|kernel-plain|={lm_err:.3g} (<1e-3), "
+          f"max|kernel-f64 LM|={lm_f64_err:.3g} (<5e-3)")
+    check(bool(lm_conv.all()) and bool(plain_conv.all()), "sphere_lm: a problem did not converge")
+    check(lm_err < 1e-3, "sphere_lm disagrees with its plain version")
+    check(lm_f64_err < 5e-3, "sphere_lm disagrees with the float64 LM")
+    lm_wall = timer.wall_ms(run18, reps=WALL_REPS)
+    lm_ms = timer.ms(lambda: sphere_lm.sphere_lm_batch_cuda(lm_pts, lm_x0, LM_ITERS, gtol=LM_GTOL),
+                     reps=10)
+    lm_plain_ms = timer.ms(lambda: sphere_lm.sphere_lm_batch_plain(lm_pts, lm_x0, LM_ITERS,
+                                                                   gtol=LM_GTOL),
+                           reps=2, warmup=1)
+    lm_bound, lm_by = bound(
+        LM_M * (LM_OPS_PER_OBS_ITER * int(lm_it.sum()) + LM_OPS_PER_OBS_START * LM_B),
+        (lm_pts.numel() + lm_x0.numel() + 8 * LM_B) * 4, rates)
+    print(f"    wall {lm_wall:.3f} ms median of {WALL_REPS}, "
+          f"{LM_B * LM_ITERS / lm_wall * 1e3:.4g} LM iterations/s (B x max_iters / wall); "
+          f"kernel ms {lm_ms:.4f}, plain {lm_plain_ms:.4f}, bound {lm_bound:.4f} ({lm_by}) "
+          f"[{smi}]")
+
+    # 19. sphere_mega through the per-step sweep -------------------------------
+    geo_est = SphereEstimator(DELTA)        # GEOMETRIC, the default
+    pt19, valid19, _ = vote.pack_points(pts5)
+
+    def run19():
+        return sr.fast_sphere_ransac_sweep(pts5, pt19, valid19, gen(), SCAN_GROUPS, SCAN_STEPS,
+                                           DELTA)
+
+    kernels.reset_launch_counts()
+    count19, params19 = run19()
+    torch.cuda.synchronize()
+    counts19 = kernels.launch_counts()
+    hyp19 = SCAN_GROUPS * SCAN_STEPS * N_MAIN
+    check(counts19["sphere_mega"] == SCAN_STEPS, "the per-step sweep did not launch once per step")
+    add_launches(counts19)
+    mask19 = est.agree(params19.double(), pts5.double())
+    refit19, valid_refit19 = geo_est.lsq_fit(pts5.double(), mask19)
+    min_err = float((params19.double().cpu() - torch.tensor([*TRUE_CENTER, TRUE_RADIUS])).abs().max())
+    print(f"[19] fast_sphere_ransac_sweep n={N_MAIN} groups={SCAN_GROUPS} steps={SCAN_STEPS} "
+          f"({hyp19} hypotheses): launches {counts19['sphere_mega']}; best count {int(count19)}, "
+          f"minimal winner {params19.cpu().numpy().round(4).tolist()} (max error {min_err:.3g})")
+    refit_err = float((refit19.cpu() - torch.tensor([*TRUE_CENTER, TRUE_RADIUS])).abs().max())
+    print(f"    GEOMETRIC refit of its {int(mask19.sum())} inliers: valid={bool(valid_refit19)} "
+          f"{refit19.cpu().numpy().round(4).tolist()} (max error {refit_err:.3g})")
+    check(bool(valid_refit19) and refit_err < 0.1, "the scan sweep's refit misses the sphere")
+    check(min_err < 0.5, "the per-step sweep's winner is far from the sphere")
+    wall19 = timer.wall_ms(run19, reps=WALL_REPS)
+    print(f"    wall {wall19:.3f} ms median of {WALL_REPS}, {hyp19 / wall19 * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    breakdown(torch, run19, "scan sweep")
+
+    coords19 = sr._slot_planes(pts5, gen(), N_MAIN)
+    shifts19 = torch.as_tensor(sr.mega_group_shifts(SCAN_GROUPS, N_MAIN), dtype=torch.int32,
+                               device=dev)
+    kc19, kp19 = sr.megakernel_call_cuda(shifts19, coords19, pt19, valid19, DELTA)
+    pc19, pp19 = sr.megakernel_call_plain(shifts19, coords19, pt19, valid19, DELTA)
+    mega_err = max(int((kc19 - pc19).abs().max()), float((kp19 - pp19).abs().max()))
+    print(f"    sphere_mega vs plain at {SCAN_GROUPS} groups x {N_MAIN}: counts equal "
+          f"{bool(torch.equal(kc19, pc19))}, params_t bit-equal {bool(torch.equal(kp19, pp19))}")
+    check(torch.equal(kc19, pc19) and torch.equal(kp19, pp19),
+          "sphere_mega disagrees with its plain version")
+    mega_ms = timer.ms(lambda: sr._mega_launch(shifts19, coords19, pt19, valid19, DELTA), reps=20)
+    mega_plain_ms = timer.ms(lambda: sr.megakernel_call_plain(shifts19, coords19, pt19, valid19,
+                                                              DELTA), reps=2, warmup=1)
+    hyp_step = SCAN_GROUPS * N_MAIN
+    mega_bound, mega_by = bound(
+        hyp_step * (N_MAIN * MEGA_OPS_PER_CELL + SWEEP_OPS_PER_HYP),
+        (coords19.numel() + 4 * pt19.shape[1] + shifts19.numel() + 9 * hyp_step) * 4, rates)
+    print(f"    kernel ms: sphere_mega {mega_ms:.4f}, plain {mega_plain_ms:.4f}, bound "
+          f"{mega_bound:.4f} ({mega_by}) [{smi}]")
+
+    n_small, g_small = MEGA_SMALL
+    pts_small = torch.as_tensor(bench_cloud(rng, n_small), device=dev)
+    pt_small, valid_small, _ = vote.pack_points(pts_small)
+    coords_small = sr._slot_planes(pts_small, gen(), n_small)
+    c_small, p_small = sr.fast_sphere_ransac_step(pts_small, pt_small, valid_small, None,
+                                                  g_small, DELTA, coords2=coords_small)
+    samples = sr.reference_mega_samples(pts_small, None, g_small, coords2=coords_small)
+    p_ref, v_ref = est.minimal_fit(samples)
+    agree_best = int(torch.where(v_ref, est.agree(p_ref, pts_small).sum(-1), 0).max())
+    regain = int(est.agree(p_small, pts_small).sum())
+    print(f"    step n={n_small} groups={g_small}: best {int(c_small)}, minimal_fit + agree best "
+          f"{agree_best}, the winner re-achieves {regain}")
+    check(abs(int(c_small) - agree_best) <= 1 and abs(regain - int(c_small)) <= 1,
+          "the per-step sweep disagrees with minimal_fit + agree")
+    mega_err = max(mega_err, abs(int(c_small) - agree_best))
+
+    # 20. sphere_planar_vote on a sampled plane --------------------------------
+    def run20():
+        sxyz = sr.planar_sphere_samples(gen(), pts5, SCAN_GROUPS)
+        return sxyz, sr.sphere_fit_and_vote_planar(sxyz, pt19, valid19, DELTA)
+
+    kernels.reset_launch_counts()
+    sxyz20, (kc20, kp20) = run20()
+    torch.cuda.synchronize()
+    counts20 = kernels.launch_counts()
+    check(counts20["sphere_planar_vote"] > 0,
+          "sphere_fit_and_vote_planar did not launch sphere_planar_vote")
+    add_launches(counts20)
+    pc20, pp20 = sr.sphere_fit_and_vote_planar_plain(sxyz20, pt19, valid19, DELTA)
+    samples20 = torch.stack([sxyz20[0:4].T, sxyz20[4:8].T, sxyz20[8:12].T], dim=-1)
+    p_ref20, v_ref20 = est.minimal_fit(samples20)
+    cref20 = torch.where(v_ref20, est.vote_counts(p_ref20, pts5), 0)
+    d20 = (kc20.long() - cref20.long()).abs()
+    planar_err = max(int((kc20 - pc20).abs().max()), float((kp20 - pp20).abs().max()))
+    hyp20 = kc20.numel()
+    # Border flips against an f64 literal agree on the kernel's own fits.
+    sub = torch.arange(0, hyp20, max(1, hyp20 // 4096), device=dev)
+    c64 = kp20[:4, sub].T.double()
+    dist = torch.cdist(c64[:, :3], pts5.double(), compute_mode="donot_use_mm_for_euclid_dist")
+    oracle = torch.where(kp20[4, sub] == 0, ((dist - c64[:, 3:4]).abs() < DELTA).sum(1), 0)
+    flips20 = (kc20[sub].long() - oracle).abs()
+    print(f"[20] sphere_fit_and_vote_planar B={hyp20} n={N_MAIN}: launches "
+          f"{counts20['sphere_planar_vote']}; counts equal to plain {bool(torch.equal(kc20, pc20))}, "
+          f"params_t bit-equal {bool(torch.equal(kp20, pp20))}; vs minimal_fit + vote_counts "
+          f"max|d|={int(d20.max())} (<=2) on {int((d20 > 0).sum())} hypotheses, max "
+          f"{int(kc20.max())} vs {int(cref20.max())}; vs f64 agree on {len(sub)}: "
+          f"max|d|={int(flips20.max())} (<=5)")
+    check(torch.equal(kc20, pc20) and torch.equal(kp20, pp20),
+          "sphere_planar_vote disagrees with its plain version")
+    # Two f32 evaluations of one band, each flipping border points: at
+    # 131,072 hypotheses a hypothesis may lose two to the other's rounding.
+    check(int(d20.max()) <= 2 and int(kc20.max()) == int(cref20.max()),
+          "sphere_planar_vote disagrees with minimal_fit + vote_counts")
+    check(int(flips20.max()) <= 5, "sphere_planar_vote disagrees with the f64 oracle")
+    planar_ms = timer.ms(lambda: sr.sphere_fit_and_vote_planar_cuda(sxyz20, pt19, valid19, DELTA),
+                         reps=20)
+    planar_plain_ms = timer.ms(lambda: sr.sphere_fit_and_vote_planar_plain(sxyz20, pt19, valid19,
+                                                                           DELTA),
+                               reps=2, warmup=1)
+    planar_bound, planar_by = bound(hyp20 * (N_MAIN * PLANAR_OPS[0] + PLANAR_OPS[1]),
+                                    (sxyz20.numel() + 4 * pt19.shape[1] + 9 * hyp20) * 4, rates)
+    print(f"    kernel ms: sphere_planar_vote {planar_ms:.4f}, plain {planar_plain_ms:.4f}, "
+          f"bound {planar_bound:.4f} ({planar_by}) [{smi}]")
+
+    # 21. drivers without a new kernel -----------------------------------------
+    kernels.reset_launch_counts()
+    res21 = ransac_fused_sweep(geo_est, cloud5, gen(), num_hypotheses=H_FUSED, device=DEVICE)
+    torch.cuda.synchronize()
+    counts21 = kernels.launch_counts()
+    print(f"[21] ransac_fused_sweep GEOMETRIC n={N_MAIN} hypotheses={H_FUSED}: launches {counts21}")
+    check_result(res21, "fused GEOMETRIC", N_MAIN)
+    check(counts21["fused_sweep_sphere3d"] > 0, "the GEOMETRIC fused path did not launch B1")
+    add_launches(counts21)
+    lm21 = levenberg_marquardt(sphere_est._sphere_residual, sphere_est._sphere_jacobian,
+                               SphereEstimator(DELTA, 3, ALGEBRAIC).lsq_fit(pts5, res21.consensus)[0],
+                               pts5, mask=res21.consensus, config=geo_est.lm_config)
+    refit21_ms = timer.wall_ms(lambda: geo_est.lsq_fit(pts5, res21.consensus), reps=WALL_REPS)
+    print(f"    GEOMETRIC refit on {int(res21.consensus.sum())} inliers: {int(lm21.iterations)} LM "
+          f"iterations, converged={bool(lm21.converged)}; lsq_fit wall {refit21_ms:.3f} ms median "
+          f"of {WALL_REPS} [{smi}]")
+
+    def run21():
+        return ransac_fused_sweep(geo_est, cloud5, gen(), num_hypotheses=H_FUSED, device=DEVICE)
+
+    wall21 = timer.wall_ms(run21, reps=WALL_REPS)
+    print(f"    wall {wall21:.3f} ms median of {WALL_REPS}, {H_FUSED / wall21 * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    breakdown(torch, run21, "fused GEOMETRIC")
+
+    fleet = torch.as_tensor(fleet_data(rng, FLEET_D, FLEET_N), device=dev)
+    fleet_seeds = [next(seeds) for _ in range(FLEET_D)]
+
+    def fleet_gens():
+        return [torch.Generator(device=dev).manual_seed(s) for s in fleet_seeds]
+
+    kernels.reset_launch_counts()
+    res21b = ransac_batched(est, fleet, fleet_gens(), FLEET_GROUPS * FLEET_N)
+    torch.cuda.synchronize()
+    counts21b = kernels.launch_counts()
+    check(counts21b["sphere_vote"] >= FLEET_D, "the fleet did not launch sphere_vote per dataset")
+    add_launches(counts21b)
+    single = [ransac_structured(est, fleet[d], g, FLEET_GROUPS * FLEET_N)
+              for d, g in enumerate(fleet_gens())]
+    single_counts = [int(r.best_count) for r in single]
+    dparam = max(float((res21b.params[d] - single[d].params).abs().max()) for d in range(FLEET_D))
+    print(f"    ransac_batched {FLEET_D} x n={FLEET_N} groups={FLEET_GROUPS}: launches "
+          f"{counts21b['sphere_vote']}; counts {res21b.best_count.tolist()} per dataset "
+          f"{single_counts}; max|dparam|={dparam:.2e} (<1e-5)")
+    check(bool(res21b.valid.all()), "the fleet has an invalid result")
+    check(res21b.best_count.tolist() == single_counts and dparam < 1e-5,
+          "the fleet differs from per-dataset ransac_structured")
+    check(min(single_counts) > (4 * FLEET_N) // 5 - FLEET_N // 10, "the fleet missed its spheres")
+    wall21b = timer.wall_ms(lambda: ransac_batched(est, fleet, fleet_gens(), FLEET_GROUPS * FLEET_N),
+                            reps=WALL_REPS)
+    print(f"    wall {wall21b:.3f} ms median of {WALL_REPS} [{smi}]")
+
+    pts21 = pts5.double()
+    perm21 = torch.randperm(N_MAIN, generator=gen(), device=dev)
+
+    def run21c(vote_mode):
+        return planar_points.sphere3d_planar_sweep(pts21, None, GENERIC_GROUPS, DELTA,
+                                                   vote=vote_mode, perm=perm21)
+
+    kernels.reset_launch_counts()
+    c_ds, p_ds = run21c("ds")
+    c_f64, p_f64 = run21c("f64")
+    torch.cuda.synchronize()
+    check(sum(kernels.launch_counts().values()) == 0, "the generic engine launched a kernel")
+    best21 = int(torch.argmax(c_f64))
+    print(f"    sphere3d_planar_sweep f64 n={N_MAIN} groups={GENERIC_GROUPS}: ds counts equal f64 "
+          f"{bool(torch.equal(c_ds, c_f64))}, best {int(c_f64[best21])} at "
+          f"{p_f64[best21].cpu().numpy().round(4).tolist()}")
+    check(torch.equal(c_ds, c_f64) and torch.equal(p_ds, p_f64),
+          "the double-single vote differs from the f64 vote")
+    hyp21c = GENERIC_GROUPS * N_MAIN
+    for vote_mode in ("ds", "f64"):
+        wall = timer.wall_ms(lambda vote_mode=vote_mode: run21c(vote_mode), reps=WALL_REPS)
+        print(f"    {vote_mode} vote: wall {wall:.3f} ms median of {WALL_REPS}, "
+              f"{hyp21c / wall * 1e3:.4g} hypotheses/s [{smi}]")
+    sphere_s = time.perf_counter() - t_sphere
+    print(f"    phases 18-21 took {sphere_s:.1f} s (budget {SPHERE_PHASES_BUDGET_S:.0f} s)")
+    check(sphere_s < SPHERE_PHASES_BUDGET_S, "phases 18-21 overran their budget")
+
+    # 22. kernels line, card line, result line --------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",
@@ -1159,6 +1469,11 @@ def main(argv=None):
         entry("plane_vote", plane_vote_err, pv[0], pv[1], pv[3], pv[4], pv[2]),
     ] + [
         entry(f"fused_sweep_{f}", family_err[f], *family_times[f], None) for f in (*RIGID, *US)
+    ] + [
+        entry("sphere_lm", lm_err, lm_ms, lm_plain_ms, lm_bound, lm_by, None),
+        entry("sphere_mega", mega_err, mega_ms, mega_plain_ms, mega_bound, mega_by, None),
+        entry("sphere_planar_vote", planar_err, planar_ms, planar_plain_ms, planar_bound,
+              planar_by, None),
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:

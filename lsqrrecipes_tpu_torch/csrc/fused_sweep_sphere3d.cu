@@ -9,8 +9,8 @@
 //     shift_units = (((g * 1103515245) & mask) >> (b j)) & (m - 1) in uint32
 //     (the TPU kernel's int32 wraparound has the same low bits);
 //   * a Cramer circumsphere in f32 with the closure's exact operation order
-//     (explicit __f*_rn intrinsics, so no multiply-add is contracted and the
-//     fit is bit-for-bit the plain PyTorch version's);
+//     (sphere_fit.cuh: explicit __f*_rn intrinsics, so no multiply-add is
+//     contracted and the fit is bit-for-bit the plain PyTorch version's);
 //   * an affine band vote |P^T A| < 1 over the first vote_cols columns of P
 //     [5, p_stride] (rows x, y, z, 1, |p|^2; padding columns carry a 1e30
 //     guard in row 4) with A = [w(-2c), w|c|^2 + o, w];
@@ -40,35 +40,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "sphere_fit.cuh"
+
 namespace {
+
+using lsq_sphere::band_rows;
+using lsq_sphere::circumsphere;
+using lsq_sphere::Hypothesis;
 
 constexpr int kThreads = 256;
 constexpr int kHypPerThread = 4;
 constexpr int kHypPerBlock = kThreads * kHypPerThread;
 constexpr int kTile = 1024;  // P columns per shared-memory tile
 constexpr unsigned kHashA = 1103515245u;
-constexpr float kSphereEps = 1e-9f;
 
-struct Hypothesis {
-  float cx, cy, cz, r;
-  bool degenerate;
-};
-
-// jnp.maximum: NaN if either operand is NaN.
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || a > b) ? a : b;
-}
-
-// Minor of rows with row i and column j removed, with the cofactor sign.
-__device__ __forceinline__ float cofactor(const float rows[3][3], int i, int j) {
-  const int i1 = i == 0 ? 1 : 0, i2 = i == 2 ? 1 : 2;
-  const int j1 = j == 0 ? 1 : 0, j2 = j == 2 ? 1 : 2;
-  const float v = __fsub_rn(__fmul_rn(rows[i1][j1], rows[i2][j2]),
-                            __fmul_rn(rows[i1][j2], rows[i2][j1]));
-  return ((i + j) & 1) ? -v : v;
-}
-
-// Cramer circumsphere of hypothesis (g, lane), in sphere3d_fit_vote's order.
+// The four sample points of hypothesis (g, lane) and their circumsphere.
 __device__ __forceinline__ Hypothesis fit_sphere(const float* __restrict__ coords,
                                                  long long stride, unsigned g,
                                                  unsigned lane, int b, int m,
@@ -82,65 +68,7 @@ __device__ __forceinline__ Hypothesis fit_sphere(const float* __restrict__ coord
 #pragma unroll
     for (int c = 0; c < 3; ++c) p[j][c] = __ldg(coords + (3 * j + c) * stride + col);
   }
-
-  // Equal-radius system: row_i = p0 - p_(i+1), rhs_i = row_i . (p0 + p_(i+1)).
-  float rows[3][3], rhs[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int c = 0; c < 3; ++c) rows[i][c] = __fsub_rn(p[0][c], p[i + 1][c]);
-    rhs[i] = __fadd_rn(
-        __fadd_rn(__fmul_rn(rows[i][0], __fadd_rn(p[0][0], p[i + 1][0])),
-                  __fmul_rn(rows[i][1], __fadd_rn(p[0][1], p[i + 1][1]))),
-        __fmul_rn(rows[i][2], __fadd_rn(p[0][2], p[i + 1][2])));
-  }
-  float adj[3][3];  // adj[i][j] = cofactor(j, i)
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j) adj[i][j] = cofactor(rows, j, i);
-  }
-  const float det = __fadd_rn(__fadd_rn(__fmul_rn(rows[0][0], adj[0][0]),
-                                        __fmul_rn(rows[0][1], adj[1][0])),
-                              __fmul_rn(rows[0][2], adj[2][0]));
-  Hypothesis hyp;
-  hyp.degenerate = fabsf(det) < kSphereEps;
-  const float det2 = hyp.degenerate ? 1.f : __fmul_rn(2.f, det);
-  float center[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    center[i] = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(adj[i][0], rhs[0]),
-                                              __fmul_rn(adj[i][1], rhs[1])),
-                                    __fmul_rn(adj[i][2], rhs[2])),
-                          det2);
-  }
-  const float d0 = __fsub_rn(p[0][0], center[0]);
-  const float d1 = __fsub_rn(p[0][1], center[1]);
-  const float d2 = __fsub_rn(p[0][2], center[2]);
-  hyp.cx = center[0];
-  hyp.cy = center[1];
-  hyp.cz = center[2];
-  hyp.r = __fsqrt_rn(__fadd_rn(__fadd_rn(__fmul_rn(d0, d0), __fmul_rn(d1, d1)),
-                               __fmul_rn(d2, d2)));
-  return hyp;
-}
-
-// Band rows A = [w(-2cx), w(-2cy), w(-2cz), w|c|^2 + o, w] of |P^T A| < 1.
-__device__ __forceinline__ void band_rows(const Hypothesis& s, float delta, float a[5]) {
-  const float cc = __fadd_rn(__fadd_rn(__fmul_rn(s.cx, s.cx), __fmul_rn(s.cy, s.cy)),
-                             __fmul_rn(s.cz, s.cz));
-  const float rp = __fadd_rn(s.r, delta);
-  const float hi = __fmul_rn(rp, rp);
-  const float lo_root = nan_max(__fsub_rn(s.r, delta), 0.f);
-  const float lo = __fmul_rn(lo_root, lo_root);
-  const float width = nan_max(__fsub_rn(hi, lo), 1e-30f);
-  const float w = s.degenerate ? 0.f : __fdiv_rn(2.f, width);
-  const float o = s.degenerate ? 2.f : __fdiv_rn(-__fadd_rn(hi, lo), width);
-  a[0] = __fmul_rn(w, __fmul_rn(-2.f, s.cx));
-  a[1] = __fmul_rn(w, __fmul_rn(-2.f, s.cy));
-  a[2] = __fmul_rn(w, __fmul_rn(-2.f, s.cz));
-  a[3] = __fadd_rn(__fmul_rn(w, cc), o);
-  a[4] = w;
+  return circumsphere(p);
 }
 
 __global__ void __launch_bounds__(kThreads)

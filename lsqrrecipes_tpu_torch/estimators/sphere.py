@@ -1,17 +1,27 @@
 """Hypersphere estimator, params ``[c(dim), r]`` (counterpart of
 ``lsqrrecipes_tpu/estimators/sphere.py``).
 
-``ALGEBRAIC`` least squares solves ``[-2p, 1] [c; c^2 - r^2] = -p^2`` by
-SVD pseudo-inverse (``SphereParametersEstimator.hxx:267-307``).
-``GEOMETRIC`` (Levenberg-Marquardt on ``||p - c|| - r``) is the JAX
-package's default and can be constructed, but its refit is not ported yet.
+Two least-squares modes, as in the reference
+(``SphereParametersEstimator.hxx:14-22``):
+
+  * ``ALGEBRAIC`` solves ``[-2p, 1] [c; c^2 - r^2] = -p^2`` by SVD
+    pseudo-inverse (``SphereParametersEstimator.hxx:267-307``);
+  * ``GEOMETRIC`` (the default) starts there and runs Levenberg-Marquardt
+    on the point-to-sphere distance ``f_i = ||p_i - c|| - r`` with the
+    analytic Jacobian (``SphereParametersEstimator.hxx:310-338,392-431``).
 """
 
 import torch
 
 from lsqrrecipes_tpu_torch.config import SPHERE_EPS
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
-from lsqrrecipes_tpu_torch.linalg import masked_pinv_solve, pinv_solve, small
+from lsqrrecipes_tpu_torch.linalg import (
+    LMConfig,
+    levenberg_marquardt,
+    masked_pinv_solve,
+    pinv_solve,
+    small,
+)
 
 ALGEBRAIC = "algebraic"
 GEOMETRIC = "geometric"
@@ -25,9 +35,26 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x, dim=-1))
 
 
+def _sphere_residual(x, points):
+    """``f_i = ||p_i - c|| - r`` for ``x[..., dim + 1]`` and ``points[..., m,
+    dim]`` (``SphereParametersEstimator.hxx:394-409``)."""
+    c, r = x[..., None, :-1], x[..., -1:]
+    return _norm(points - c) - r
+
+
+def _sphere_jacobian(x, points):
+    """``d f_i / d c_j = (c_j - p_ij) / ||p_i - c||``, ``d f_i / d r = -1``,
+    the distance floored at the dtype's ``tiny``
+    (``SphereParametersEstimator.hxx:413-431``)."""
+    diff = x[..., None, :-1] - points
+    dist = torch.clamp_min(_norm(diff)[..., None], torch.finfo(x.dtype).tiny)
+    return torch.cat([diff / dist, -torch.ones_like(dist)], dim=-1)
+
+
 @register("sphere")
 class SphereEstimator(Estimator):
-    def __init__(self, delta: float, dim: int = 3, ls_type: str = GEOMETRIC):
+    def __init__(self, delta: float, dim: int = 3, ls_type: str = GEOMETRIC,
+                 lm_config: LMConfig = LMConfig(max_iters=500)):
         if ls_type not in (ALGEBRAIC, GEOMETRIC):
             raise ValueError(f"unknown least-squares type {ls_type!r}")
         self.delta = float(delta)
@@ -36,6 +63,7 @@ class SphereEstimator(Estimator):
         self.k = self.dim + 1
         self.nparams = self.dim + 1
         self.ls_type = ls_type
+        self.lm_config = lm_config
 
     # ------------------------------------------------------------- exact fit
     def minimal_fit(self, samples):
@@ -60,12 +88,16 @@ class SphereEstimator(Estimator):
 
     # --------------------------------------------------------- least squares
     def lsq_fit(self, data, mask=None):
-        if self.ls_type == GEOMETRIC:
-            raise NotImplementedError(
-                "GEOMETRIC sphere refit (Levenberg-Marquardt) is not ported yet: "
-                "ROADMAP Queue 1 item 9; use ls_type=ALGEBRAIC"
-            )
-        return self._algebraic_fit(data, mask)
+        """The algebraic fit, then (GEOMETRIC) Levenberg-Marquardt from it on
+        the rows of ``mask``.  A fit that does not converge is invalid, like
+        the reference's empty-vector return
+        (``SphereParametersEstimator.hxx:331-337``)."""
+        params, valid = self._algebraic_fit(data, mask)
+        if self.ls_type == ALGEBRAIC:
+            return params, valid
+        result = levenberg_marquardt(_sphere_residual, _sphere_jacobian, params, data,
+                                     mask=mask, config=self.lm_config)
+        return torch.where(valid, result.x, params), valid & result.converged
 
     def _algebraic_fit(self, data, mask=None):
         """``[-2p, 1] x = -p.p`` via SVD pseudo-inverse; rejects r^2 <= 0."""
@@ -136,3 +168,9 @@ class SphereEstimator(Estimator):
         if not out:
             return torch.zeros((0,), dtype=torch.int32, device=params.device)
         return torch.cat(out)
+
+    def distance_statistics(self, params, data):
+        """Per-point ``|distance - r|`` plus (min, max, mean)
+        (``SphereParametersEstimator.hxx:341-377``)."""
+        dist = (_norm(data - params[..., : self.dim]) - params[..., self.dim]).abs()
+        return dist, torch.min(dist), torch.max(dist), torch.mean(dist)

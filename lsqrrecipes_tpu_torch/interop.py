@@ -9,7 +9,7 @@ arrays and plain attributes, so either side can produce them:
     ``lm_config`` where the estimator has them), such as a JAX package
     estimator -> the port's estimator of that name;
   * :func:`sphere_estimator_from_attrs` — the same for a sphere estimator,
-    from ``delta``, ``dim`` and ``ls_type`` alone;
+    from ``delta``, ``dim``, ``ls_type`` and ``lm_config``;
   * :func:`to_torch` — a numpy array (data, ``idx[B, k]`` hypothesis
     indices, slot-plane or sampling permutations) -> a tensor, dtype kept;
   * :func:`data_to_torch` — an estimator's data of arrays: a point array,
@@ -40,7 +40,8 @@ from lsqrrecipes_tpu_torch.linalg import LMConfig
 from lsqrrecipes_tpu_torch.ransac.engine import RansacResult
 
 _FROM_ATTRS = {
-    "sphere": lambda a: SphereEstimator(float(a.delta), int(a.dim), str(a.ls_type)),
+    "sphere": lambda a: SphereEstimator(
+        float(a.delta), int(a.dim), str(a.ls_type), LMConfig(*a.lm_config)),
     "plane": lambda a: PlaneEstimator(float(a.delta), int(a.dim)),
     "line": lambda a: LineEstimator(float(a.delta), int(a.dim)),
     "line2d": lambda a: Line2DEstimator(float(a.delta)),
@@ -60,8 +61,9 @@ _FROM_ATTRS = {
 
 def estimator_from_attrs(attrs):
     """The port's estimator for ``attrs.registry_name`` with the same
-    ``delta`` (and ``dim``, ``ls_type``, ``n`` or ``cross_eps``); ``KeyError``
-    for an estimator the port does not have yet."""
+    ``delta`` (and ``dim``, ``ls_type``, ``lm_config``, ``n`` or
+    ``cross_eps``); ``KeyError`` for an estimator the port does not have
+    yet."""
     return _FROM_ATTRS[attrs.registry_name](attrs)
 
 

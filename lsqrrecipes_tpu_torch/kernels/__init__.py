@@ -221,8 +221,32 @@ FUSED_SWEEPS = {
     **_US_SWEEPS,
 }
 
+SPHERE_LM = Kernel(
+    "sphere_lm", "sphere_lm.cu", "sphere_lm_launch",
+    # rows, x0, num_problems, m, max_iters, init_lambda, max_lambda, gtol,
+    # out, stream
+    [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+     ctypes.c_float, _P, _P],
+)
+
+# The per-step sphere sweep and the planar fit-and-vote of
+# csrc/sphere_ransac.cu share one library.
+SPHERE_MEGA = Kernel(
+    "sphere_mega", "sphere_ransac.cu", "sphere_mega_launch",
+    # shifts, coords2, points_t, valid, n, n_pad, num_groups, delta, counts,
+    # params_t, stream
+    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P],
+)
+
+SPHERE_PLANAR_VOTE = Kernel(
+    "sphere_planar_vote", "sphere_ransac.cu", "sphere_planar_vote_launch",
+    # sxyz, points_t, valid, num_hyp, n_pad, delta, counts, params_t, stream
+    [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P],
+)
+
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
-       FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values())
+       FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values(),
+       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE)
 
 
 def build_all(kernels=ALL) -> None:

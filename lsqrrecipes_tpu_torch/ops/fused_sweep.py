@@ -336,13 +336,11 @@ def supports_data(family: str, data) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def sphere3d_fit(pts, delta):
-    """Cramer circumsphere + band rows for f32 lane tensors ``pts[j][c]``
-    and ``delta`` (a float or an f32 scalar tensor), in the TPU closure's
-    exact operation order.
-
-    Returns ``(center [cx, cy, cz], r, degenerate, a_rows[5])``.
-    """
+def circumsphere(pts):
+    """Cramer circumsphere of f32 lane tensors ``pts[j][c]`` (slot j,
+    coordinate c) in the TPU kernels' exact operation order (the sphere3d
+    closure, the per-step sweep and the planar fit-and-vote share it) ->
+    ``(center [cx, cy, cz], r, degenerate)``."""
     rows = [[pts[0][c] - pts[i][c] for c in range(3)] for i in (1, 2, 3)]
     rhs = [
         rows[i][0] * (pts[0][0] + pts[i + 1][0])
@@ -365,10 +363,20 @@ def sphere3d_fit(pts, delta):
         (adj[i][0] * rhs[0] + adj[i][1] * rhs[1] + adj[i][2] * rhs[2]) / det2
         for i in range(3)
     ]
-    cx, cy, cz = center
     d = [pts[0][c] - center[c] for c in range(3)]
     r = torch.sqrt(d[0] * d[0] + d[1] * d[1] + d[2] * d[2])
+    return center, r, degenerate
 
+
+def sphere3d_fit(pts, delta):
+    """Circumsphere + band rows for f32 lane tensors ``pts[j][c]`` and
+    ``delta`` (a float or an f32 scalar tensor), in the TPU closure's exact
+    operation order.
+
+    Returns ``(center [cx, cy, cz], r, degenerate, a_rows[5])``.
+    """
+    center, r, degenerate = circumsphere(pts)
+    cx, cy, cz = center
     cc = cx * cx + cy * cy + cz * cz
     rp = r + delta
     hi = rp * rp

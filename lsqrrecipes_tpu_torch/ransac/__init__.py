@@ -7,6 +7,7 @@ from lsqrrecipes_tpu_torch.ransac.engine import (
     hypothesize_and_vote_structured,
     ransac,
     ransac_adaptive,
+    ransac_batched,
     ransac_exhaustive,
     ransac_fused_sweep,
     ransac_structured,
@@ -24,6 +25,7 @@ __all__ = [
     "RansacResult",
     "ransac",
     "ransac_adaptive",
+    "ransac_batched",
     "ransac_exhaustive",
     "ransac_fused_sweep",
     "ransac_structured",

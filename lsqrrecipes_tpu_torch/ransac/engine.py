@@ -9,8 +9,9 @@ Drivers: :func:`ransac` (fixed budget, gathered samples),
 :func:`ransac_structured` (permutation + shifts), :func:`ransac_fused_sweep`
 (the whole sweep as one kernel, falling back to ``ransac_structured`` where
 the fused sweep does not apply), :func:`ransac_adaptive` (rounds with the
-reference's adaptive budget) and :func:`ransac_exhaustive` (every C(n, k)
-subset).  Each takes a ``torch.Generator`` where the JAX package takes a
+reference's adaptive budget), :func:`ransac_exhaustive` (every C(n, k)
+subset) and :func:`ransac_batched` (a fleet of datasets, one generator
+each).  Each takes a ``torch.Generator`` where the JAX package takes a
 ``key``, runs on the data's device (numpy data goes to ``device``, default
 CUDA) and raises when CUDA is asked for and missing.
 
@@ -232,6 +233,46 @@ def ransac(est, data, generator=None, num_hypotheses: int = 4096,
     idx = _sample(generator, n, est.k, num_hypotheses, sampler, _leaf(data).device)
     best_count, best_mask, best_params = hypothesize_and_vote(est, data, idx)
     return _finalize(est, data, best_count, best_mask, best_params, n)
+
+
+def ransac_batched(est, data, generators=None, num_hypotheses: int = 4096, *, perms=None,
+                   device=None) -> RansacResult:
+    """Fleet RANSAC: D independent datasets of equal size, stacked on a
+    leading axis of every leaf (``[D, n, ...]``), one generator each
+    (``generators``: a sequence of D, or None).  Each dataset runs
+    :func:`hypothesize_and_vote_structured` and the estimator's masked
+    refit on the winner's consensus (no recount, as in the JAX package);
+    ``inlier_fraction`` is ``max(count, 0) / n``.  Returns a
+    :class:`RansacResult` whose fields carry the leading ``[D]`` axis.  A
+    loop over the datasets stands in for the JAX package's ``vmap``; on a
+    sphere at float32 with ``groups * n % 512 == 0`` each dataset's vote
+    launches the sphere vote kernel once.  ``perms`` (``[D, n]``) fixes
+    each dataset's sampling permutation."""
+    data = as_tensor(data, device)
+    num = tree_leaves(data)[0].shape[0]
+    n = n_obs(tree_map(lambda leaf: leaf[0], data))
+    if n < est.k:
+        raise ValueError(f"need at least k={est.k} observations per dataset")
+    if generators is None:
+        generators = [None] * num
+    if len(generators) != num:
+        raise ValueError(f"need {num} generators, got {len(generators)}")
+    groups = max(1, -(-num_hypotheses // n))
+    fields = []
+    for d in range(num):
+        data_d = tree_map(lambda leaf: leaf[d], data)
+        count, mask, params = hypothesize_and_vote_structured(
+            est, data_d, generators[d], groups, None if perms is None else perms[d])
+        refit, rvalid = est.lsq_fit(data_d, mask)
+        fields.append(RansacResult(
+            params=refit,
+            valid=rvalid & (count > 0),
+            inlier_fraction=torch.clamp_min(count, 0).to(torch.float64) / n,
+            consensus=mask,
+            best_count=count,
+            minimal_params=params,
+        ))
+    return RansacResult(*(torch.stack(list(f)) for f in zip(*fields)))
 
 
 def _round_fast(est, data, generator, groups):

@@ -22,6 +22,7 @@ from lsqrrecipes_tpu.estimators import Line2DEstimator as JLine2D
 from lsqrrecipes_tpu.estimators import LineEstimator as JLine
 from lsqrrecipes_tpu.estimators import PlaneEstimator as JPlane
 from lsqrrecipes_tpu.estimators import SphereEstimator as JSphere
+from lsqrrecipes_tpu.linalg import LMConfig as JLMConfig
 from lsqrrecipes_tpu.ransac import engine as jengine
 from lsqrrecipes_tpu.ransac import sampling as jsampling
 from lsqrrecipes_tpu_torch import interop
@@ -33,6 +34,7 @@ from lsqrrecipes_tpu_torch.estimators import (
     SphereEstimator,
 )
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+from lsqrrecipes_tpu_torch.ops import planar_points, sphere_lm, sphere_ransac, vote
 from lsqrrecipes_tpu_torch.ransac import engine, sampling
 
 torch.set_num_threads(2)
@@ -175,10 +177,157 @@ def test_too_few_points_is_invalid():
     assert not bool(result.valid) and int(result.best_count) == -1
 
 
-def test_geometric_refit_not_ported_raises():
+# ------------------------------------------- the GEOMETRIC sphere refit
+
+
+def _inlier_mask(pts, delta=1.0):
+    d = np.abs(np.linalg.norm(pts - [5.0, -2.0, 11.0], axis=1) - 25.0)
+    return d < delta
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_geometric_lsq_fit_matches_jax(masked):
+    pts = _cloud(13, 128)
+    mask = _inlier_mask(pts) if masked else None
+    pj, vj = JSphere(1.0, 3).lsq_fit(jnp.asarray(pts), None if mask is None else jnp.asarray(mask))
     est = SphereEstimator(1.0, 3)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        engine.ransac(est, _cloud(13, 128), torch.Generator().manual_seed(0), 256, device="cpu")
+    assert est.ls_type == "geometric" and est.lm_config.max_iters == 500
+    pt, vt = est.lsq_fit(torch.as_tensor(pts), None if mask is None else torch.as_tensor(mask))
+    assert bool(vt) == bool(vj) and bool(vt)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-8, atol=1e-8)
+    # The refit beats the algebraic start on the geometric cost.
+    alg, _ = SphereEstimator(1.0, 3, ALGEBRAIC).lsq_fit(
+        torch.as_tensor(pts), None if mask is None else torch.as_tensor(mask))
+    keep = slice(None) if mask is None else torch.as_tensor(mask)
+    geo_cost = (est.distance_statistics(pt, torch.as_tensor(pts))[0][keep] ** 2).sum()
+    alg_cost = (est.distance_statistics(alg, torch.as_tensor(pts))[0][keep] ** 2).sum()
+    assert float(geo_cost) <= float(alg_cost)
+
+
+def test_geometric_lsq_fit_invalid_start_keeps_algebraic_params():
+    # Three points: too few for the algebraic fit, so the refit is invalid
+    # and returns the start, as the JAX package does.
+    pts = _cloud(14, 128)[:3]
+    pj, vj = JSphere(1.0, 3).lsq_fit(jnp.asarray(pts))
+    pt, vt = SphereEstimator(1.0, 3).lsq_fit(torch.as_tensor(pts))
+    assert not bool(vt) and not bool(vj)
+    np.testing.assert_allclose(pt.numpy(), np.asarray(pj), rtol=1e-8, atol=1e-8)
+
+
+def test_distance_statistics_matches_jax():
+    pts = _cloud(15, 96)
+    params = np.array([5.1, -2.2, 10.9, 24.8])
+    want = JSphere(1.0, 3).distance_statistics(jnp.asarray(params), jnp.asarray(pts))
+    got = SphereEstimator(1.0, 3).distance_statistics(torch.as_tensor(params), torch.as_tensor(pts))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-12, atol=1e-12)
+
+
+def test_geometric_ransac_matches_jax_on_jax_indices(monkeypatch):
+    pts = _cloud(16, 200)
+    key = jax.random.PRNGKey(17)
+    rj = jengine.ransac(JSphere(1.0, 3), jnp.asarray(pts), key, num_hypotheses=1024)
+    monkeypatch.setattr(engine, "_sample", lambda gen, n, k, b, sampler="auto", device="cpu":
+                        torch.as_tensor(np.array(jengine._sample(key, n, k, b, sampler)),
+                                        dtype=torch.int64))
+    rt = engine.ransac(SphereEstimator(1.0, 3), pts, None, num_hypotheses=1024, device="cpu")
+    assert int(rt.best_count) == int(rj.best_count) and bool(rt.valid) == bool(rj.valid)
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    np.testing.assert_allclose(rt.params.numpy(), np.asarray(rj.params), rtol=1e-8, atol=1e-8)
+
+
+def test_geometric_structured_matches_jax_on_jax_permutation(monkeypatch):
+    pts = _cloud(18, 160)
+    key = jax.random.PRNGKey(19)
+    rj = jengine.ransac_structured(JSphere(1.0, 3), jnp.asarray(pts), key, num_hypotheses=480)
+    perm = np.asarray(jax.random.permutation(key, 160)).copy()
+    real = sampling.structured_samples
+    monkeypatch.setattr(engine, "structured_samples",
+                        lambda gen, data, k, groups, perm_=None: real(gen, data, k, groups, perm))
+    rt = engine.ransac_structured(SphereEstimator(1.0, 3), pts, None, num_hypotheses=480,
+                                  device="cpu")
+    assert int(rt.best_count) == int(rj.best_count) and bool(rt.valid) and bool(rj.valid)
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    np.testing.assert_allclose(rt.params.numpy(), np.asarray(rj.params), rtol=1e-8, atol=1e-8)
+
+
+GEOMETRIC_DRIVERS = dict(DRIVERS, adaptive=lambda est, pts, gen: engine.ransac_adaptive(
+    est, pts, gen, batch_size=512, device="cpu"))
+
+
+@pytest.mark.parametrize("driver", sorted(GEOMETRIC_DRIVERS))
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_geometric_driver_recovers_sphere(driver, dtype):
+    pts = _cloud(20, 256, dtype)
+    est = SphereEstimator(1.0, 3)
+    result = GEOMETRIC_DRIVERS[driver](est, pts, torch.Generator().manual_seed(2))
+    assert bool(result.valid) and float(result.inlier_fraction) > 0.6
+    assert result.params.dtype == torch.from_numpy(pts).dtype
+    assert np.abs(result.params.double().numpy() - [5.0, -2.0, 11.0, 25.0]).max() < 0.3
+    # The same consensus refit by the algebraic fit lies no closer to it.
+    mask = result.consensus
+    alg, _ = SphereEstimator(1.0, 3, ALGEBRAIC).lsq_fit(torch.as_tensor(pts), mask)
+    geo_res = est.distance_statistics(result.params, torch.as_tensor(pts))[0][mask]
+    alg_res = est.distance_statistics(alg, torch.as_tensor(pts))[0][mask]
+    assert float((geo_res.double() ** 2).sum()) <= float((alg_res.double() ** 2).sum()) * (1 + 1e-5)
+
+
+def test_interop_carries_lm_config():
+    jest = JSphere(2.0, 3, lm_config=JLMConfig(max_iters=77, gtol=1e-9))
+    est = interop.sphere_estimator_from_attrs(jest)
+    assert est.ls_type == "geometric" and est.lm_config.max_iters == 77
+    assert est.lm_config.gtol == 1e-9
+    assert interop.estimator_from_attrs(jest).lm_config == est.lm_config
+
+
+# ------------------------------------------------------------ the fleet
+
+
+def _fleet(seed, num, n, dtype=np.float64):
+    return np.stack([_cloud(seed + d, n, dtype) for d in range(num)])
+
+
+@pytest.mark.parametrize("ls_type", ["geometric", "algebraic"])
+def test_ransac_batched_matches_jax_fleet(ls_type):
+    data = _fleet(30, 3, 128)
+    keys = jax.random.split(jax.random.PRNGKey(31), 3)
+    rj = jengine.ransac_batched(JSphere(1.0, 3, ls_type), jnp.asarray(data), keys,
+                                num_hypotheses=256)
+    perms = np.stack([np.asarray(jax.random.permutation(k, 128)) for k in keys])
+    rt = engine.ransac_batched(SphereEstimator(1.0, 3, ls_type), data, None, 256,
+                               perms=perms, device="cpu")
+    assert rt.params.shape == (3, 4) and rt.consensus.shape == (3, 128)
+    np.testing.assert_array_equal(rt.best_count.numpy(), np.asarray(rj.best_count))
+    np.testing.assert_array_equal(rt.consensus.numpy(), np.asarray(rj.consensus))
+    np.testing.assert_array_equal(rt.valid.numpy(), np.asarray(rj.valid))
+    np.testing.assert_allclose(rt.params.numpy(), np.asarray(rj.params), rtol=1e-8, atol=1e-8)
+    np.testing.assert_allclose(rt.minimal_params.numpy(), np.asarray(rj.minimal_params),
+                               rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(rt.inlier_fraction.numpy(), np.asarray(rj.inlier_fraction))
+
+
+def test_ransac_batched_equals_per_dataset_structured():
+    # f32 at groups * n = 512: each dataset's vote is the sphere vote path.
+    data = _fleet(40, 4, 128, np.float32)
+    gens = [torch.Generator().manual_seed(d) for d in range(4)]
+    fleet = engine.ransac_batched(SphereEstimator(1.0, 3), data, gens, 512, device="cpu")
+    for d in range(4):
+        one = engine.ransac_structured(SphereEstimator(1.0, 3), data[d],
+                                       torch.Generator().manual_seed(d), 512, device="cpu")
+        assert int(fleet.best_count[d]) == int(one.best_count)
+        assert torch.equal(fleet.consensus[d], one.consensus)
+        assert bool(fleet.valid[d]) == bool(one.valid)
+        assert torch.equal(fleet.params[d], one.params)
+        assert torch.equal(fleet.minimal_params[d], one.minimal_params)
+    assert fleet.inlier_fraction.dtype == torch.float64
+    assert bool(fleet.valid.all()) and float(fleet.inlier_fraction.min()) > 0.6
+
+
+def test_ransac_batched_rejects_bad_fleets():
+    with pytest.raises(ValueError, match="generators"):
+        engine.ransac_batched(SphereEstimator(1.0, 3), _fleet(50, 2, 64), [None], 64, device="cpu")
+    with pytest.raises(ValueError, match="at least k"):
+        engine.ransac_batched(SphereEstimator(1.0, 3), np.zeros((2, 3, 3)), None, 64, device="cpu")
 
 
 def test_entry_points_need_cuda_unless_cpu_is_asked():
@@ -192,6 +341,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked():
             fn(est, pts, None, 256)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         engine.ransac_exhaustive(Line2DEstimator(1.0), pts[:10, :2])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        engine.ransac_batched(est, np.stack([pts, pts]), None, 256)
+    pts32 = pts.astype(np.float32)
+    packed = vote.pack_points(torch.as_tensor(pts32))[:2]
+    coords2 = np.zeros((12, 256), np.float32)
+    calls = [
+        lambda: sphere_lm.sphere_lm_batch(pts32[None], np.zeros((1, 4), np.float32)),
+        lambda: sphere_lm.sphere_lm_batch_f64(pts[None], np.zeros((1, 4))),
+        lambda: sphere_ransac.planar_sphere_samples(None, pts32, 2),
+        lambda: sphere_ransac.sphere_fit_and_vote_planar(np.zeros((12, 8), np.float32), *packed, 1.0),
+        lambda: sphere_ransac.megakernel_call(np.zeros((1, 4)), coords2, *packed, 1.0),
+        lambda: sphere_ransac.fast_sphere_ransac_step(pts32, *packed, None, 2, 1.0),
+        lambda: sphere_ransac.fast_sphere_ransac_sweep(pts32, *packed, None, 2, 2, 1.0),
+        lambda: sphere_ransac.reference_mega_samples(pts32, None, 2),
+        lambda: planar_points.sphere3d_planar_sweep(pts, None, 2, 1.0),
+        lambda: planar_points.planar_samples_reference(pts, None, 2),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_interop_round_trip():

@@ -16,7 +16,7 @@ from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor
 from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
-from lsqrrecipes_tpu_torch.ops import vote
+from lsqrrecipes_tpu_torch.ops import sphere_lm, sphere_ransac, vote
 
 torch.set_num_threads(2)
 
@@ -101,7 +101,8 @@ def test_point_sweeps_share_one_source_and_build():
     assert len({k.symbol for k in sweeps}) == 3
     assert kernels.FUSED_SWEEPS["sphere3d"] is kernels.FUSED_SWEEP_SPHERE3D
     assert set(kernels.ALL) == set(kernels.FUSED_SWEEPS.values()) | {
-        kernels.SPHERE_VOTE, kernels.PLANE_VOTE}
+        kernels.SPHERE_VOTE, kernels.PLANE_VOTE, kernels.SPHERE_LM, kernels.SPHERE_MEGA,
+        kernels.SPHERE_PLANAR_VOTE}
 
 
 def test_rigid_sweeps_share_one_source_and_build():
@@ -119,7 +120,18 @@ def test_us_sweeps_share_one_source_and_build():
     assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.US_FAMILIES]
     assert all(k.argtypes == kernels.FUSED_SWEEPS["pivot"].argtypes for k in sweeps)
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
-    assert len(kernels.ALL) == 12 and len({k.source for k in kernels.ALL}) == 6
+    assert len(kernels.ALL) == 15 and len({k.source for k in kernels.ALL}) == 8
+
+
+def test_sphere_step_kernels_share_one_source_and_build():
+    pair = (kernels.SPHERE_MEGA, kernels.SPHERE_PLANAR_VOTE)
+    assert {k.source.name for k in pair} == {"sphere_ransac.cu"}
+    assert len({k.library_path() for k in pair}) == 1
+    assert [k.symbol for k in pair] == ["sphere_mega_launch", "sphere_planar_vote_launch"]
+    assert kernels.SPHERE_LM.source.name == "sphere_lm.cu"
+    # Every sphere kernel with a fit shares the circumsphere header.
+    for name in ("fused_sweep_sphere3d.cu", "sphere_ransac.cu"):
+        assert '#include "sphere_fit.cuh"' in (kernels.CSRC_DIR / name).read_text()
 
 
 def test_nvcc_path_raises_when_missing(monkeypatch):
@@ -159,10 +171,11 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     with pytest.raises(RuntimeError, match="fused_sweep_sphere3d"):
         kernels.build_all()
     # One build per source: the three point sweeps share fused_sweep_points.cu,
-    # the four rigid sweeps fused_sweep_rigid.cu and the two ultrasound sweeps
-    # fused_sweep_us.cu.
+    # the four rigid sweeps fused_sweep_rigid.cu, the two ultrasound sweeps
+    # fused_sweep_us.cu and the two per-step sphere kernels sphere_ransac.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
-                        "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire"]
+                        "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire",
+                        "sphere_lm", "sphere_mega"]
 
 
 # ------------------------------------------------------- on the card only
@@ -419,3 +432,74 @@ def test_us_kernel_pad_columns_never_vote_on_card(cuda_device, family):
     pc, pp, pi = fs.sweep_plain(family, coords, p, nf, 6, cols, 3.0)
     assert int(kc) == int(pc) and 199 <= int(kc) <= 200
     assert int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+def _lm_problems(seed, b, m):
+    """The bench's LM problems: centres in U(-50, 50)^3, radius 25, N(0, 0.3)
+    noise, start at centre + 1 and radius 23 (f32)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-50, 50, (b, 3))
+    d = rng.normal(size=(b, m, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = centers[:, None, :] + 25.0 * d + 0.3 * rng.normal(size=(b, m, 3))
+    x0 = np.concatenate([centers + 1.0, np.full((b, 1), 23.0)], axis=1)
+    return pts.astype(np.float32), x0.astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,m", [(4096, 256), (100, 37)])
+def test_sphere_lm_kernel_matches_plain_on_card(cuda_device, b, m):
+    pts, x0 = _lm_problems(80 + m, b, m)
+    pts_d, x0_d = torch.as_tensor(pts, device=cuda_device), torch.as_tensor(x0, device=cuda_device)
+    before = kernels.SPHERE_LM.launches
+    x, cost, it, conv = sphere_lm.sphere_lm_batch(pts_d, x0_d)
+    px, pcost, pit, pconv = sphere_lm.sphere_lm_batch_plain(pts_d, x0_d)
+    assert kernels.SPHERE_LM.launches == before + 1
+    assert bool(conv.all()) and torch.equal(conv, pconv)
+    assert float((x - px).abs().max()) < 1e-3
+    assert int(it.max()) <= 30
+
+
+def _step_inputs(device, n, seed):
+    pts = torch.as_tensor(_cloud(seed, n), device=device)
+    points_t, valid, _ = vote.pack_points(pts)
+    return pts, points_t, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups", [(1024, 128), (256, 4)])
+def test_sphere_mega_kernel_equals_plain_on_card(cuda_device, n, groups):
+    pts, points_t, valid = _step_inputs(cuda_device, n, 90 + groups)
+    gen = torch.Generator(device=cuda_device).manual_seed(groups)
+    coords2 = sphere_ransac._slot_planes(pts, gen, n)
+    shifts = torch.as_tensor(sphere_ransac.mega_group_shifts(groups, n), dtype=torch.int32,
+                             device=cuda_device)
+    before = kernels.SPHERE_MEGA.launches
+    counts, params_t = sphere_ransac.megakernel_call(shifts, coords2, points_t, valid, 1.0)
+    pcounts, pparams = sphere_ransac.megakernel_call_plain(shifts, coords2, points_t, valid, 1.0)
+    assert kernels.SPHERE_MEGA.launches == before + 1
+    assert torch.equal(counts, pcounts) and torch.equal(params_t, pparams)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups", [(1024, 128), (200, 3)])
+def test_sphere_planar_vote_kernel_equals_plain_on_card(cuda_device, n, groups):
+    pts, points_t, valid = _step_inputs(cuda_device, n, 95 + groups)
+    gen = torch.Generator(device=cuda_device).manual_seed(groups)
+    sxyz = sphere_ransac.planar_sphere_samples(gen, pts, groups)
+    before = kernels.SPHERE_PLANAR_VOTE.launches
+    counts, params_t = sphere_ransac.sphere_fit_and_vote_planar(sxyz, points_t, valid, 1.0)
+    pcounts, pparams = sphere_ransac.sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, 1.0)
+    assert kernels.SPHERE_PLANAR_VOTE.launches == before + 1
+    assert torch.equal(counts, pcounts) and torch.equal(params_t, pparams)
+
+
+@pytest.mark.cuda
+def test_fast_sweep_launches_once_per_step_on_card(cuda_device):
+    pts, points_t, valid = _step_inputs(cuda_device, 1024, 99)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    before = kernels.SPHERE_MEGA.launches
+    count, params = sphere_ransac.fast_sphere_ransac_sweep(pts, points_t, valid, gen, 16, 5, 1.0)
+    assert kernels.SPHERE_MEGA.launches == before + 5
+    assert int(count) > 700
+    assert float((params.cpu() - torch.tensor([5.0, -2.0, 11.0, 25.0])).abs().max()) < 0.5

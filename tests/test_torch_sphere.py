@@ -117,10 +117,15 @@ def test_fit_and_vote_matches_jax():
 
 
 def test_geometric_constructs_and_refit_names_the_roadmap():
+    # The GEOMETRIC default (ROADMAP Queue 1 item 3) refits as the JAX
+    # package does: Levenberg-Marquardt from the algebraic start, f64.
     est = SphereEstimator(1.0)
     assert est.ls_type == GEOMETRIC and est.fused_family == "sphere3d" and est.k == 4
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        est.lsq_fit(torch.as_tensor(_cloud(8, 32)))
+    pts = _cloud(8, 32)
+    params, valid = est.lsq_fit(torch.as_tensor(pts))
+    jparams, jvalid = JSphere(1.0).lsq_fit(jnp.asarray(pts))
+    assert bool(valid) == bool(jvalid)
+    np.testing.assert_allclose(params.numpy(), np.asarray(jparams), rtol=1e-8, atol=1e-8)
     with pytest.raises(ValueError):
         SphereEstimator(1.0, 3, "lm")
 

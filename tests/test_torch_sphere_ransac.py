@@ -1,0 +1,317 @@
+"""Port parity: ``lsqrrecipes_tpu_torch.ops.sphere_ransac`` vs
+``lsqrrecipes_tpu.ops.sphere_ransac`` (the per-step sweep and the planar
+fit-and-vote kernels, run in Pallas interpret mode).
+
+Both packages get the same points and JAX's own slot planes, permutations
+and sample planes (the generators differ).  Tolerances: counts within 1 per
+hypothesis (the interpreted kernels sum the band products in XLA's order
+and may contract into FMAs; the plain versions keep every multiply and add
+apart, as the CUDA kernels do) and the best count equal; the winner's rows
+within 1e-6 relative.  The per-step sweep's independent slot permutations
+can put one point into two slots: such a sample's system is exactly
+singular, its rounding residue decides the fit in each package alike
+arbitrarily, and those lanes are left out of the per-lane comparisons.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+
+from lsqrrecipes_tpu.ops import sphere_ransac as jsr
+from lsqrrecipes_tpu.ops.vote import pack_points as jpack_points
+from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+from lsqrrecipes_tpu_torch.ops import sphere_ransac as sr
+from lsqrrecipes_tpu_torch.ops import vote
+
+torch.set_num_threads(2)
+
+N, GROUPS = 256, 4
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(pl, "pallas_call", functools.partial(pl.pallas_call, interpret=True))
+
+
+def _cloud(seed, n):
+    """80% inliers on the radius-25 sphere at (5, -2, 11) with N(0, 0.3)
+    noise, 20% uniform outliers in [-40, 40]^3, f32."""
+    rng = np.random.default_rng(seed)
+    n_in = n - n // 5
+    d = rng.normal(size=(n_in, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inl = np.array([5.0, -2.0, 11.0]) + 25.0 * d + 0.3 * rng.normal(size=(n_in, 3))
+    return np.concatenate([inl, rng.uniform(-40, 40, (n - n_in, 3))]).astype(np.float32)
+
+
+def _packed(pts):
+    points_t, valid, _ = vote.pack_points(torch.as_tensor(pts))
+    with jax.enable_x64(False):
+        jt, jv, _ = jpack_points(jnp.asarray(pts))
+    return points_t, valid, jt, jv
+
+
+def _jax_coords2(pts, key):
+    with jax.enable_x64(False):
+        return np.asarray(jsr._slot_planes(jnp.asarray(pts), key, pts.shape[0]))
+
+
+def _distinct_points(samples):
+    """Lanes whose four sample points are pairwise distinct."""
+    s = np.asarray(samples)
+    same = [(s[:, i] == s[:, j]).all(-1) for i in range(4) for j in range(i + 1, 4)]
+    return ~np.any(same, axis=0)
+
+
+def _rows_close(got, want, rtol=1e-6):
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+# --------------------------------------------------------- static tables
+
+
+@pytest.mark.parametrize("groups,n", [(64, 1024), (4, 256), (300, 256), (7, 128)])
+def test_mega_group_shifts_identical(groups, n):
+    got = sr.mega_group_shifts(groups, n)
+    np.testing.assert_array_equal(got, jsr.mega_group_shifts(groups, n))
+    assert (got % 128 == 0).all() and got.min() >= 0 and got.max() < n
+    if groups <= (n // 128) ** 4:
+        assert len({tuple(s) for s in got}) == groups
+
+
+@pytest.mark.parametrize("groups,k,n", [(4, 4, 256), (9, 4, 1000), (3, 3, 64)])
+def test_group_shifts_identical(groups, k, n):
+    np.testing.assert_array_equal(sr.group_shifts(groups, k, n), jsr.group_shifts(groups, k, n))
+
+
+def test_slot_planes_and_reference_samples_identical():
+    pts = _cloud(1, N)
+    key = jax.random.PRNGKey(5)
+    perms = [np.asarray(jax.random.permutation(k, N)) for k in jax.random.split(key, 4)]
+    planes = sr._slot_planes(torch.as_tensor(pts), None, N, perms)
+    np.testing.assert_array_equal(planes.numpy(), _jax_coords2(pts, key))
+    with jax.enable_x64(False):
+        want = np.asarray(jsr.reference_mega_samples(jnp.asarray(pts), key, GROUPS))
+    got = sr.reference_mega_samples(pts, None, GROUPS, coords2=planes, device="cpu")
+    assert got.shape == (GROUPS * N, 4, 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_planar_samples_identical():
+    pts = _cloud(2, N)
+    key = jax.random.PRNGKey(3)
+    with jax.enable_x64(False):
+        want = np.asarray(jsr.planar_sphere_samples(key, jnp.asarray(pts), GROUPS))
+    perm = np.asarray(jax.random.permutation(key, N))
+    got = sr.planar_sphere_samples(None, pts, GROUPS, perm=perm, device="cpu")
+    assert got.dtype == torch.float32 and got.shape == (12, GROUPS * N)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -------------------------------------------------- the per-step sweep (B7)
+
+
+def _mega_both(seed, key):
+    pts = _cloud(seed, N)
+    points_t, valid, jt, jv = _packed(pts)
+    coords2 = _jax_coords2(pts, key)
+    with jax.enable_x64(False):
+        shifts = jnp.asarray(jsr.mega_group_shifts(GROUPS, N), jnp.int32)
+        jc, jp = jsr._megakernel_call(shifts, jnp.asarray(coords2), jt, jv, GROUPS, 1.0, N,
+                                      jt.shape[1])
+    counts, params_t = sr.megakernel_call(np.asarray(shifts), coords2, points_t, valid, 1.0,
+                                          device="cpu")
+    samples = sr.reference_mega_samples(pts, None, GROUPS, coords2=coords2, device="cpu")
+    return pts, coords2, counts.numpy(), params_t.numpy(), np.asarray(jc)[0], np.asarray(jp), \
+        samples
+
+
+@pytest.mark.parametrize("seed,key", [(10, 5), (11, 8)])
+def test_megakernel_plain_matches_jax(interpret_pallas, seed, key):
+    pts, _, counts, params_t, jc, jp, samples = _mega_both(seed, jax.random.PRNGKey(key))
+    assert counts.dtype == np.int32 and params_t.shape == (8, GROUPS * N)
+    lanes = _distinct_points(samples)
+    assert lanes.mean() > 0.9
+    assert np.abs(counts - jc)[lanes].max() <= 1
+    assert counts.max() == jc.max()
+    best = int(np.argmax(counts))
+    _rows_close(params_t[:4, best], jp[:4, best])
+    np.testing.assert_array_equal(params_t[5:], 0.0)
+
+
+def test_megakernel_best_count_matches_estimator(interpret_pallas):
+    # tests/test_sphere_fastpath.py: the best count against minimal_fit +
+    # vote_counts on the same hypotheses, and the winner re-achieves it.
+    pts, coords2, counts, params_t, _, _, samples = _mega_both(12, jax.random.PRNGKey(5))
+    est = SphereEstimator(1.0, 3, ALGEBRAIC)
+    p_ref, v_ref = est.minimal_fit(samples)
+    cref = torch.where(v_ref, est.vote_counts(p_ref, torch.as_tensor(pts)), 0).numpy()
+    assert counts.max() == cref.max()
+    best = int(np.argmax(counts))
+    achieved = int(est.agree(torch.as_tensor(params_t[:4, best]), torch.as_tensor(pts)).sum())
+    assert achieved == counts[best]
+
+
+def test_fast_step_matches_jax(interpret_pallas):
+    pts = _cloud(13, N)
+    points_t, valid, jt, jv = _packed(pts)
+    key = jax.random.PRNGKey(5)
+    with jax.enable_x64(False):
+        jc, jp = jsr.fast_sphere_ransac_step(jnp.asarray(pts), jt, jv, key, GROUPS, 1.0)
+    count, params = sr.fast_sphere_ransac_step(pts, points_t, valid, None, GROUPS, 1.0,
+                                               coords2=_jax_coords2(pts, key), device="cpu")
+    assert count.dtype == torch.int32 and params.shape == (4,)
+    assert int(count) == int(jc)
+    _rows_close(params.numpy(), np.asarray(jp))
+    assert np.abs(params.numpy() - [5.0, -2.0, 11.0, 25.0]).max() < 1.0
+
+
+def test_fast_sweep_matches_jax_and_carries_strictly(interpret_pallas):
+    pts = _cloud(14, N)
+    points_t, valid, jt, jv = _packed(pts)
+    key = jax.random.PRNGKey(6)
+    steps = 3
+    with jax.enable_x64(False):
+        jc, jp = jsr.fast_sphere_ransac_sweep(jnp.asarray(pts), jt, jv, key, GROUPS, steps, 1.0)
+    coords2 = _jax_coords2(pts, key)
+    count, params = sr.fast_sphere_ransac_sweep(pts, points_t, valid, None, GROUPS, steps, 1.0,
+                                                coords2=coords2, device="cpu")
+    assert int(count) == int(jc)
+    _rows_close(params.numpy(), np.asarray(jp))
+    # The carry: per-step winners (argmax, lowest index), a later step
+    # replaces the best only when strictly greater.
+    table = sr.mega_group_shifts(steps * GROUPS, N).reshape(steps, GROUPS, 4)
+    best = (-1, None)
+    for s in range(steps):
+        c, p = sr.megakernel_call(table[s], coords2, points_t, valid, 1.0, device="cpu")
+        i = int(torch.argmax(c))
+        if int(c[i]) > best[0]:
+            best = (int(c[i]), p[:4, i])
+    assert int(count) == best[0] and torch.equal(params, best[1])
+
+
+def test_fast_sweep_keeps_the_first_of_equal_steps():
+    # Two steps over the same shifts give equal counts: the first one's
+    # winner stays.  Reordered planes make the second step's rows differ.
+    pts = _cloud(15, 128)
+    points_t, valid, _, _ = _packed(pts)
+    coords2 = sr._slot_planes(torch.as_tensor(pts), torch.Generator().manual_seed(0), 128)
+    one_c, one_p = sr.fast_sphere_ransac_step(pts, points_t, valid, None, 1, 1.0,
+                                              coords2=coords2, device="cpu")
+    count, params = sr.fast_sphere_ransac_sweep(pts, points_t, valid, None, 1, 2, 1.0,
+                                                coords2=coords2, device="cpu")
+    # With n = 128 every shift is 0: both steps evaluate the same hypotheses.
+    assert int(count) == int(one_c) and torch.equal(params, one_p)
+
+
+def test_step_and_sweep_need_n_divisible_by_128():
+    pts = _cloud(16, 200)
+    points_t, valid, _, _ = _packed(pts)
+    with pytest.raises(ValueError, match="divisible by 128"):
+        sr.fast_sphere_ransac_step(pts, points_t, valid, None, 2, 1.0, device="cpu")
+    with pytest.raises(ValueError, match="divisible by 128"):
+        sr.fast_sphere_ransac_sweep(pts, points_t, valid, None, 2, 2, 1.0, device="cpu")
+
+
+def test_step_draws_its_own_planes_on_the_cpu():
+    pts = _cloud(17, N)
+    points_t, valid, _, _ = _packed(pts)
+    count, params = sr.fast_sphere_ransac_step(pts, points_t, valid,
+                                               torch.Generator().manual_seed(1), 8, 1.0,
+                                               device="cpu")
+    assert int(count) > 150
+    assert np.abs(params.numpy() - [5.0, -2.0, 11.0, 25.0]).max() < 1.0
+
+
+# ---------------------------------------- the planar fit-and-vote (B8)
+
+
+@pytest.mark.parametrize("seed,key", [(20, 3), (21, 9)])
+def test_planar_plain_matches_jax(interpret_pallas, seed, key):
+    pts = _cloud(seed, N)
+    points_t, valid, jt, jv = _packed(pts)
+    key = jax.random.PRNGKey(key)
+    with jax.enable_x64(False):
+        sxyz = jsr.planar_sphere_samples(key, jnp.asarray(pts), GROUPS)
+        jc, jp = jsr.sphere_fit_and_vote_planar(sxyz, jt, jv, 1.0, block_b=256)
+    counts, params_t = sr.sphere_fit_and_vote_planar(np.asarray(sxyz), points_t, valid, 1.0,
+                                                     device="cpu")
+    jc, jp = np.asarray(jc), np.asarray(jp)
+    assert counts.dtype == torch.int32 and params_t.shape == (8, GROUPS * N)
+    assert np.abs(counts.numpy() - jc).max() <= 1
+    assert int(counts.max()) == int(jc.max())
+    best = int(torch.argmax(counts))
+    _rows_close(params_t[:4, best].numpy(), jp[:4, best])
+    np.testing.assert_array_equal(params_t[4].numpy(), jp[4])
+
+
+def test_planar_matches_minimal_fit_and_vote_counts():
+    # tests/test_sphere_fastpath.py: squared bounds against the estimator's
+    # band vote flip single border points at most.
+    pts = _cloud(22, N)
+    points_t, valid, _, _ = _packed(pts)
+    sxyz = sr.planar_sphere_samples(torch.Generator().manual_seed(4), pts, GROUPS, device="cpu")
+    counts, params_t = sr.sphere_fit_and_vote_planar(sxyz, points_t, valid, 1.0)
+    est = SphereEstimator(1.0, 3, ALGEBRAIC)
+    samples = torch.stack([sxyz[0:4].T, sxyz[4:8].T, sxyz[8:12].T], dim=-1)
+    p_ref, v_ref = est.minimal_fit(samples)
+    cref = torch.where(v_ref, est.vote_counts(p_ref, torch.as_tensor(pts)), 0)
+    assert int((counts - cref).abs().max()) <= 1
+    assert int(counts.max()) == int(cref.max())
+    assert torch.equal(params_t[4] != 0, ~v_ref)
+
+
+def test_invalid_columns_never_vote():
+    # valid == 0 marks a column out: the counts equal those on the rest.
+    pts = _cloud(23, N)
+    points_t, valid, _, _ = _packed(pts)
+    keep = torch.ones(N, dtype=torch.bool)
+    keep[::3] = False
+    masked = valid.clone()
+    masked[0, :N] = keep.float()
+    sub_t, sub_v, _ = vote.pack_points(torch.as_tensor(pts)[keep])
+    sxyz = sr.planar_sphere_samples(torch.Generator().manual_seed(5), pts, 2, device="cpu")
+    c_mask, _ = sr.sphere_fit_and_vote_planar(sxyz, points_t, masked, 1.0)
+    c_sub, _ = sr.sphere_fit_and_vote_planar(sxyz, sub_t, sub_v, 1.0)
+    assert torch.equal(c_mask, c_sub)
+    coords2 = sr._slot_planes(torch.as_tensor(pts), torch.Generator().manual_seed(6), N)
+    shifts = sr.mega_group_shifts(2, N)
+    m_mask, _ = sr.megakernel_call(shifts, coords2, points_t, masked, 1.0)
+    m_sub, _ = sr.megakernel_call(shifts, coords2, sub_t, sub_v, 1.0)
+    assert torch.equal(m_mask, m_sub)
+
+
+def test_plain_chunks_without_changing_results(monkeypatch):
+    pts = _cloud(24, N)
+    points_t, valid, _, _ = _packed(pts)
+    sxyz = sr.planar_sphere_samples(torch.Generator().manual_seed(7), pts, 3, device="cpu")
+    coords2 = sr._slot_planes(torch.as_tensor(pts), torch.Generator().manual_seed(8), N)
+    shifts = sr.mega_group_shifts(3, N)
+    whole = (sr.sphere_fit_and_vote_planar(sxyz, points_t, valid, 1.0),
+             sr.megakernel_call(shifts, coords2, points_t, valid, 1.0))
+    monkeypatch.setattr(sr, "_PLAIN_CELLS", 100 * N)
+    chunked = (sr.sphere_fit_and_vote_planar(sxyz, points_t, valid, 1.0),
+               sr.megakernel_call(shifts, coords2, points_t, valid, 1.0))
+    for (cw, pw), (cc, pc) in zip(whole, chunked):
+        assert torch.equal(cw, cc) and torch.equal(pw, pc)
+
+
+def test_rejects_misshapen_inputs():
+    pts = _cloud(25, N)
+    points_t, valid, _, _ = _packed(pts)
+    with pytest.raises(ValueError, match="sxyz"):
+        sr.sphere_fit_and_vote_planar(torch.zeros(11, 8), points_t, valid, 1.0)
+    with pytest.raises(ValueError, match="shifts"):
+        sr.megakernel_call(np.zeros((2, 3)), torch.zeros(12, 2 * N), points_t, valid, 1.0)
+    with pytest.raises(ValueError, match="coords2"):
+        sr.megakernel_call(np.zeros((2, 4)), torch.zeros(12, 3), points_t, valid, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sr.megakernel_call_cuda(torch.zeros((2, 4), dtype=torch.int32), torch.zeros(12, 2 * N),
+                                points_t, valid, 1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        sr.sphere_fit_and_vote_planar_cuda(torch.zeros(12, 8), points_t, valid, 1.0)
