@@ -75,7 +75,20 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      on the JAX chip gate's fleet (4 datasets of 512 points, centres (5 + i,
      -2, 11), 4 groups: the sphere vote kernel), equal to per-dataset
      ``ransac_structured``; ``sphere3d_planar_sweep`` in float64 at n =
-     1,024 and 8 groups, its double-single counts equal to its f64 ones.
+     1,024 and 8 groups, its double-single counts equal to its f64 ones;
+ 22. the plane phantom (k = 31) at the JAX bench's shape: ``ransac_structured``
+     with the ITERATIVE refit at 65,536 hypotheses (1,024 groups x n = 64),
+     kernel ``phantom_qr`` (B6) launched once per 4,352-hypothesis chunk, the
+     ground truth recovered and no shoved pose in the consensus, the refit's
+     LM iterations and time, a profile with B6's share;
+     ``ransac_fused_sweep``, which falls back to the same sweep; B6 against
+     its plain version, bit for bit, at the chunk, at the whole sweep and on
+     duplicate-row samples (which the fit must reject); the JAX chip check's
+     f64 gate on 4,096 hypotheses of its data model (poses on the plane,
+     1 px noise) and of phase 22's: equal maxima, and the sweep's counts
+     within 2 of f64 ``minimal_fit`` + ``agree`` on every sample with a
+     unique null direction (sigma_30 / sigma_31 >= 4); ``ransac`` at 16,384
+     gathered hypotheses (the batched f64 31x31 SVD, no kernel).
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -99,6 +112,18 @@ translations within 1.0, rotation within 1 degree, scales within 1.0.
 The LM problems of phase 18 are the bench's (``bench.py:656-664``): centres
 uniform in [-50, 50]^3, radius 25, N(0, 0.3) noise, start at centre + 1 and
 radius 23.
+
+The plane phantom (phase 22) is the JAX package's ``make_plane_phantom_data``
+(``lsqrrecipes_tpu/synthetic.py:68-96``) at the bench's shape
+(``bench.py:457-477``): scales m_x = 0.143, m_y = 0.139, R3 of Euler angles
+uniform in [0, pi), t3 uniform in [-100, 100]^3, the plane's (w1_y, w1_x)
+uniform in [-1, 1] and t1_z in [-100, 100]; n = 64 poses with angles uniform
+in [0, pi), pixels uniform in 640 x 480 with N(0, 0.5) noise, each free
+translation in [-100, 100]^3 projected onto the plane constraint; the last
+10% of the poses shoved 20-60 along the plane normal with a random sign;
+delta 1.0, float64.  Limits are the JAX tests'
+(``tests/test_us_calibration.py:7-8, 153``): translations within 3.0,
+rotation and plane normal within 5 degrees, scales within 1.0.
 
 Each main-path phase sets the launch counts to 0 just before it and fails if
 a kernel of that path did not launch.  Any failed check raises, so the exit
@@ -228,6 +253,19 @@ SPHERE_PHASES_BUDGET_S = 60.0    # phases 18-21 together
 LM_OPS_PER_OBS_ITER, LM_OPS_PER_OBS_START = 50, 12
 MEGA_OPS_PER_CELL = 11
 PLANAR_OPS = (13, 111)
+# Phase 22, the plane phantom (k = 31) at the JAX bench's shape
+# (bench.py:457-484): n = 64, 10% of the poses shoved 20-60 along the plane
+# normal, delta 1.0, 1,024 groups (65,536 hypotheses); the f64 gate of the
+# JAX chip check (scripts/chip_check.py:353-406) on 64 groups; the gathered
+# driver at 16,384 hypotheses; the JAX tests' limits
+# (tests/test_us_calibration.py:7-8, 153): translations within 3.0, rotation
+# and plane normal within 5 degrees, scales within 1.0.
+PHANTOM_N, PHANTOM_GROUPS, PHANTOM_GATE_GROUPS = 64, 1024, 64
+PHANTOM_DELTA, H_PHANTOM_GATHER = 1.0, 16384
+PHANTOM_LIMITS = (3.0, 5.0, 1.0)   # translation, rotation (degrees), scale
+PHANTOM_DUPLICATES = 512           # duplicate-row samples held against the plain version
+PHANTOM_GAP = 4.0                  # sigma_30 / sigma_31 of a sample with a unique null direction
+PHANTOM_BUDGET_S = 150.0           # phase 22
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -244,6 +282,7 @@ REPLACES = {
     "sphere_lm": "lsqrrecipes_tpu/ops/sphere_lm.py:50",
     "sphere_mega": "lsqrrecipes_tpu/ops/sphere_ransac.py:225",
     "sphere_planar_vote": "lsqrrecipes_tpu/ops/sphere_ransac.py:80",
+    "phantom_qr": "lsqrrecipes_tpu/ops/phantom_qr.py:46",
 }
 
 
@@ -447,6 +486,70 @@ def us_fit_ops(family):
     return build + qr_solve_ops(rows, cols) + (10 + 3 + 6 + 6 + 9 + 5 * 63 + 2 + 6)
 
 
+def phantom_data(rng, n, geometry, sigma=0.5, shove=True):
+    """The JAX package's ``make_plane_phantom_data`` model (see the module
+    docstring), float64 numpy ``((Frame, q), truth, n_out)``: N(0, sigma)
+    pixel noise and, with ``shove``, the last n // 10 poses shoved 20-60
+    along the plane normal with a random sign."""
+    w3 = rng.uniform(0.0, np.pi, 3)
+    r3 = euler_np(w3[2], w3[1], w3[0])
+    t3 = rng.uniform(-100.0, 100.0, 3)
+    wy1, wx1 = rng.uniform(-1.0, 1.0, 2)
+    normal = np.array([-np.sin(wy1), np.cos(wy1) * np.sin(wx1), np.cos(wy1) * np.cos(wx1)])
+    t1_z = rng.uniform(-100.0, 100.0)
+    q = rng.uniform(size=(n, 2)) * np.array([640.0, 480.0])
+    w2 = rng.uniform(0.0, np.pi, (n, 3))
+    r2 = euler_np(w2[:, 2], w2[:, 1], w2[:, 0])
+    mapped = np.einsum("nij,nj->ni", r2,
+                       q[:, 0:1] * (US_MX * r3[:, 0]) + q[:, 1:2] * (US_MY * r3[:, 1]) + t3)
+    free = rng.uniform(-100.0, 100.0, (n, 3))
+    t2 = free - ((mapped + free) @ normal + t1_z)[:, None] * normal
+    q = q + sigma * rng.normal(size=q.shape)
+    n_out = n // 10 if shove else 0
+    shift = (20.0 + 40.0 * rng.uniform(size=(n_out, 1))) * np.sign(rng.normal(size=(n_out, 1)))
+    if n_out:
+        t2[n - n_out:] += shift * normal
+    truth = {"normal": normal, "t1_z": t1_z, "t3": t3, "r3": r3}
+    return (geometry.Frame(r2, t2), q), truth, n_out
+
+
+def phantom_errors(params, truth):
+    """(max translation error, max rotation error in degrees (R3 and the
+    plane normal), max scale error) of a plane-phantom fit; the normal and
+    t1_z up to their common sign."""
+    x = np.asarray(params, np.float64)
+    normal = np.array([-np.sin(x[0]), np.cos(x[0]) * np.sin(x[1]), np.cos(x[0]) * np.cos(x[1])])
+    sign = 1.0 if normal @ truth["normal"] >= 0 else -1.0
+    n_angle = np.degrees(np.arccos(np.clip(sign * normal @ truth["normal"], -1.0, 1.0)))
+    cos = (np.trace(euler_np(*x[6:9]).T @ truth["r3"]) - 1.0) / 2.0
+    r_angle = np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
+    trans = max(abs(sign * x[2] - truth["t1_z"]), float(np.abs(x[3:6] - truth["t3"]).max()))
+    return trans, float(max(n_angle, r_angle)), float(np.abs(x[9:11] - [US_MX, US_MY]).max())
+
+
+def phantom_qr_ops():
+    """f32 operations of one hypothesis of the phantom subspace kernel,
+    counted from its loops over the 31 live rows: Householder step j (m = 31
+    - j rows) takes 2m for sigma and 6 for the pivot, then 4m + 1 for each of
+    the 31 - j columns it updates; the diagonal clamp 3 per pivot; each of the
+    two iterations solves four vectors (forward step c: 2c + 2, backward:
+    2c + 2 + 2), normalises them (2 x 31 + 3) and runs Gram-Schmidt (six
+    projections of 4 x 31, four more normalisations)."""
+    ops = 0
+    for j in range(31):
+        m = 31 - j
+        ops += 2 * m + 6 + (31 - j) * (4 * m + 1)
+    ops += 3 * 31
+    solve = sum(2 * c + 2 for c in range(31)) + sum(2 * c + 4 for c in range(31))
+    norm = 2 * 31 + 3
+    return ops + 2 * (4 * solve + 4 * norm + 6 * 4 * 31 + 4 * norm)
+
+
+def max_or(t, default):
+    """``int(t.max())``, or ``default`` for an empty tensor."""
+    return int(t.max()) if t.numel() else default
+
+
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
@@ -565,6 +668,7 @@ def breakdown(torch, fn, label, top=6):
           f"idle share {idle:.3f}")
     for ms, count, key in rows[:top]:
         print(f"      {ms:9.4f} ms  x{count:<4d} {key[:90]}")
+    return busy, rows
 
 
 def library_plane_vote(torch, params, points_t, valid, delta_sq, chunk=8192):
@@ -1448,7 +1552,181 @@ def main(argv=None):
     print(f"    phases 18-21 took {sphere_s:.1f} s (budget {SPHERE_PHASES_BUDGET_S:.0f} s)")
     check(sphere_s < SPHERE_PHASES_BUDGET_S, "phases 18-21 overran their budget")
 
-    # 22. kernels line, card line, result line --------------------------------
+    # 22. the plane phantom (k = 31): B6 through ransac_structured ------------
+    from lsqrrecipes_tpu_torch.ops import phantom_qr, us_fast
+    from lsqrrecipes_tpu_torch.ransac import structured_samples
+
+    t_phantom = time.perf_counter()
+    ph_est = get("us_plane_phantom")(PHANTOM_DELTA)          # ITERATIVE, the default
+    data22, truth22, n_out22 = phantom_data(rng, PHANTOM_N, geometry)
+    data22_t = interop.data_to_torch(data22, device=dev)
+    h22 = PHANTOM_GROUPS * PHANTOM_N
+    chunk22 = us_fast._chunk_size(h22, PHANTOM_N, ph_est.k)
+    chunks22 = -(-h22 // chunk22)
+
+    def check_phantom(result, label):
+        params = result.params.double().cpu().numpy()
+        errors = phantom_errors(params, truth22)
+        shoved = int(result.consensus[PHANTOM_N - n_out22:].sum())
+        print(f"    {label}: valid={bool(result.valid)} params={params[:11].round(4).tolist()} "
+              f"inliers={int(result.best_count)} fraction={float(result.inlier_fraction):.4f} "
+              f"shoved poses in consensus={shoved} errors={[f'{e:.2e}' for e in errors]} "
+              f"(limits {PHANTOM_LIMITS})")
+        check(bool(result.valid), f"{label}: result not valid")
+        check(bool(np.isfinite(params).all()), f"{label}: non-finite params")
+        check(tuple(result.consensus.shape) == (PHANTOM_N,), f"{label}: consensus shape")
+        check(shoved == 0, f"{label}: a shoved pose is in the consensus")
+        check(all(e < lim for e, lim in zip(errors, PHANTOM_LIMITS)),
+              f"{label}: ground truth not recovered: {errors}")
+
+    def run22(seed=None):
+        g = gen() if seed is None else torch.Generator(device=dev).manual_seed(seed)
+        return ransac_structured(ph_est, data22, g, num_hypotheses=h22, device=DEVICE)
+
+    kernels.reset_launch_counts()
+    res22 = run22(args.seed + 22)
+    torch.cuda.synchronize()
+    counts22 = kernels.launch_counts()
+    print(f"[22] ransac_structured plane phantom n={PHANTOM_N} groups={PHANTOM_GROUPS} "
+          f"hypotheses={h22} ({ph_est.ls_type}; chunks of {chunk22}): launches {counts22}")
+    check_phantom(res22, "structured")
+    check(counts22["phantom_qr"] == chunks22, "the phantom sweep did not launch B6 once per chunk")
+    check(sum(counts22.values()) == chunks22, "the phantom sweep launched another kernel")
+    add_launches(counts22)
+    wall22 = timer.wall_ms(run22, reps=WALL_REPS)
+    print(f"    wall {wall22:.3f} ms median of {WALL_REPS}, {h22 / wall22 * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    busy22, rows22 = breakdown(torch, run22, "phantom structured", top=8)
+    b6_ms22 = sum(ms for ms, _, key in rows22 if "phantom_qr" in key)
+    print(f"    B6 device time {b6_ms22:.4f} ms, {b6_ms22 / busy22:.3f} of the device busy time")
+
+    # ransac_fused_sweep has no phantom family: it runs the same structured sweep.
+    kernels.reset_launch_counts()
+    res22f = ransac_fused_sweep(ph_est, data22, torch.Generator(device=dev).manual_seed(
+        args.seed + 22), num_hypotheses=h22, device=DEVICE)
+    torch.cuda.synchronize()
+    counts22f = kernels.launch_counts()
+    print(f"    ransac_fused_sweep (structured fallback): launches {counts22f['phantom_qr']}; "
+          f"same consensus {bool(torch.equal(res22f.consensus, res22.consensus))}")
+    check(counts22f["phantom_qr"] == chunks22, "the fused fallback did not launch B6 per chunk")
+    check(torch.equal(res22f.consensus, res22.consensus) and torch.equal(res22f.params, res22.params),
+          "ransac_fused_sweep differs from ransac_structured on the phantom")
+    add_launches(counts22f)
+
+    # The ITERATIVE refit on the winner's consensus: its LM iterations and time.
+    mask22 = res22.consensus
+    x022, valid022 = ph_est._analytic(data22_t, mask22)
+    lm22 = levenberg_marquardt(us_calibration._plane_phantom_residual,
+                               us_calibration._plane_phantom_jacobian, x022[:11], data22_t,
+                               mask=mask22, config=ph_est.lm_config)
+    refit22_ms = timer.wall_ms(lambda: ph_est.lsq_fit(data22_t, mask22), reps=WALL_REPS)
+    print(f"    ITERATIVE refit on {int(mask22.sum())} inliers: {int(lm22.iterations)} LM "
+          f"iterations, converged={bool(lm22.converged)}, analytic start valid={bool(valid022)}; "
+          f"lsq_fit wall {refit22_ms:.3f} ms median of {WALL_REPS} [{smi}]")
+    check(bool(lm22.converged) and bool(valid022), "phantom: the LM refit did not converge")
+
+    # B6 against its plain version on the sweep's own systems: the main path's
+    # chunk, the whole sweep, and duplicate-row samples (one observation in
+    # every slot, a rank-1 system whose inverse iteration may overflow; the
+    # fit must reject each of them).
+    planes22, _ = us_fast.build_sampling_planes("plane_phantom", data22_t, gen(), PHANTOM_GROUPS)
+    a22 = us_fast.phantom_systems(planes22)
+    bands22 = phantom_qr.pack_systems(a22)
+    dup_planes22 = planes22[..., :PHANTOM_DUPLICATES].clone()
+    dup_planes22[:] = dup_planes22[0:1]
+    _, dup_valid22 = us_fast._plane_phantom_fit_slots(dup_planes22, ph_est.k)
+    check(not bool(dup_valid22.any()), "a duplicate-row phantom sample passed the gates")
+    phantom_err = 0.0
+    for label, bands in (("chunk", bands22[:chunk22]), ("sweep", bands22),
+                         ("duplicate rows", phantom_qr.pack_systems(
+                             us_fast.phantom_systems(dup_planes22)))):
+        got = phantom_qr.phantom_subspace_cuda(bands)
+        plain = phantom_qr.phantom_subspace_plain(bands)
+        finite = torch.isfinite(got) & torch.isfinite(plain)
+        same = torch.equal(torch.isnan(got), torch.isnan(plain)) and torch.equal(
+            torch.nan_to_num(got), torch.nan_to_num(plain))
+        err = float((got - plain)[finite].abs().max()) if bool(finite.any()) else 0.0
+        print(f"    phantom_qr vs plain, {label} (B={bands.shape[0]}): bit-equal {same} (NaN "
+              f"where NaN), max|d|={err:.3g} on the finite entries, hypotheses with finite "
+              f"output {float(finite.all(dim=0).all(dim=0).float().mean()):.4f}")
+        check(same, f"phantom_qr disagrees with its plain version ({label})")
+        phantom_err = max(phantom_err, err)
+    bands_c = bands22[:chunk22].contiguous()
+    pack_ms = timer.ms(lambda: phantom_qr.pack_systems(a22[..., :chunk22]), reps=20)
+    phantom_ms = timer.ms(lambda: phantom_qr.phantom_subspace_cuda(bands_c), reps=20)
+    phantom_all_ms = timer.ms(lambda: phantom_qr.phantom_subspace_cuda(bands22), reps=10)
+    phantom_plain_ms = timer.ms(lambda: phantom_qr.phantom_subspace_plain(bands_c), reps=2,
+                                warmup=1)
+    systems_c = bands_c[:, :, :31].transpose(1, 2).contiguous()       # [B, 31 rows, 31 cols]
+    phantom_lib_ms = timer.ms(lambda: torch.linalg.svd(systems_c), reps=3, warmup=1)
+
+    def phantom_bound(b):
+        return bound(b * phantom_qr_ops(), b * (31 * 31 + 4 * 31) * 4, rates)
+
+    phantom_bound_ms, phantom_by = phantom_bound(chunk22)
+    phantom_all_bound, phantom_all_by = phantom_bound(h22)
+    print(f"    kernel ms: phantom_qr {phantom_ms:.4f} at {chunk22} (pack {pack_ms:.4f}, counted in "
+          f"the fit), {phantom_all_ms:.4f} at {h22}; plain {phantom_plain_ms:.4f}; library "
+          f"(torch.linalg.svd of the f32 batch) {phantom_lib_ms:.4f}; bound "
+          f"{phantom_bound_ms:.4f} ({phantom_by}) / {phantom_all_bound:.4f} ({phantom_all_by}); "
+          f"{phantom_qr_ops()} operations per hypothesis [{smi}]")
+
+    # The f64 gate of the JAX chip check: the sweep's counts against f64
+    # minimal_fit + agree on the same hypotheses, on that check's data model
+    # (poses on the plane, N(0, 1) pixel noise) and on phase 22's.  Where a
+    # sample's two smallest singular values nearly coincide (sigma_30 /
+    # sigma_31 < PHANTOM_GAP) its null direction is arbitrary to rounding, and
+    # the f32 subspace + Rayleigh-Ritz and the f64 SVD may pick different
+    # planes (the JAX package's own fast path parts from its f64 fit on the
+    # same samples); the gate holds the samples with a unique null direction.
+    def f64_gate(data_t, label):
+        perm = torch.randperm(PHANTOM_N, generator=gen(), device=dev)
+        c_fast, _ = ph_est.structured_sweep(data_t, None, PHANTOM_GATE_GROUPS, perm=perm)
+        samples = structured_samples(None, data_t, ph_est.k, PHANTOM_GATE_GROUPS, perm)
+        p64, v64 = ph_est.minimal_fit(samples)
+        c64 = torch.where(v64, ph_est.agree(p64, data_t).sum(-1), -1)
+        d = (c_fast - c64).abs()
+        planes, _ = us_fast.build_sampling_planes("plane_phantom", data_t, None,
+                                                  PHANTOM_GATE_GROUPS, perm=perm)
+        sv = torch.linalg.svdvals(us_fast.phantom_systems(planes).permute(2, 0, 1))
+        ratio = sv[:, 29] / sv[:, 30]
+        unique = ratio >= PHANTOM_GAP
+        apart = ratio[d > 2]
+        print(f"    f64 gate, {label}, {c_fast.numel()} hypotheses: max|dcount|={int(d.max())}, "
+              f"mean {float(d.float().mean()):.4f}, {apart.numel()} above 2 (largest "
+              f"sigma_30/sigma_31 among them {float(apart.max()) if apart.numel() else 0.0:.3g}); "
+              f"on the {int(unique.sum())} with sigma_30/sigma_31 >= {PHANTOM_GAP:g}: "
+              f"max|dcount|={max_or(d[unique], 0)} (<=2); maxcount fast={int(c_fast.max())} "
+              f"f64={int(c64.max())}, invalid fast={int((c_fast < 0).sum())} "
+              f"f64={int((c64 < 0).sum())}")
+        check(int(c_fast.max()) == int(c64.max()) > 0, f"f64 gate ({label}): maxima differ")
+        check(max_or(d[unique], 0) <= 2, f"the phantom sweep fails the f64 gate ({label})")
+
+    f64_gate(interop.data_to_torch(phantom_data(rng, PHANTOM_N, geometry, sigma=1.0,
+                                                shove=False)[0], device=dev),
+             "the chip check's data")
+    f64_gate(data22_t, "phase 22's data")
+
+    # The gathered driver: the batched f64 31x31 SVD, no kernel.
+    def run22g():
+        return ransac(ph_est, data22, gen(), num_hypotheses=H_PHANTOM_GATHER, device=DEVICE)
+
+    kernels.reset_launch_counts()
+    res22g = run22g()
+    torch.cuda.synchronize()
+    counts22g = kernels.launch_counts()
+    print(f"    ransac gather plane phantom hypotheses={H_PHANTOM_GATHER}: launches {counts22g}")
+    check_phantom(res22g, "gather")
+    check(sum(counts22g.values()) == 0, "the phantom gather path launched a kernel")
+    wall22g = timer.wall_ms(run22g, reps=WALL_REPS)
+    print(f"    wall {wall22g:.3f} ms median of {WALL_REPS}, {H_PHANTOM_GATHER / wall22g * 1e3:.4g} "
+          f"hypotheses/s [{smi}]")
+    breakdown(torch, run22g, "phantom gather")
+    phantom_s = time.perf_counter() - t_phantom
+    print(f"    phase 22 took {phantom_s:.1f} s (budget {PHANTOM_BUDGET_S:.0f} s)")
+    check(phantom_s < PHANTOM_BUDGET_S, "phase 22 overran its budget")
+
+    # 23. kernels line, card line, result line --------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",
@@ -1474,6 +1752,8 @@ def main(argv=None):
         entry("sphere_mega", mega_err, mega_ms, mega_plain_ms, mega_bound, mega_by, None),
         entry("sphere_planar_vote", planar_err, planar_ms, planar_plain_ms, planar_bound,
               planar_by, None),
+        entry("phantom_qr", phantom_err, phantom_ms, phantom_plain_ms, phantom_bound_ms,
+              phantom_by, phantom_lib_ms),
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:

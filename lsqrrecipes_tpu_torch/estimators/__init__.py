@@ -1,6 +1,6 @@
-"""Estimator suite (ported so far: sphere, plane, kD line, 2D line, dense
-linear system, pivot calibration, absolute orientation, ray intersection,
-crosswire and calibrated-pointer ultrasound calibration)."""
+"""Estimator suite: sphere, plane, kD line, 2D line, dense linear system,
+pivot calibration, absolute orientation, ray intersection, and the
+crosswire, calibrated-pointer and plane-phantom ultrasound calibrations."""
 
 from lsqrrecipes_tpu_torch.estimators.absolute_orientation import (
     AbsoluteOrientationEstimator,
@@ -24,6 +24,7 @@ from lsqrrecipes_tpu_torch.estimators.us_calibration import (
     ANALYTIC,
     ITERATIVE,
     CrosswireUSCalibrationEstimator,
+    PlanePhantomUSCalibrationEstimator,
     PointerUSCalibrationEstimator,
 )
 
@@ -39,6 +40,7 @@ __all__ = [
     "LineEstimator",
     "PivotCalibrationEstimator",
     "PlaneEstimator",
+    "PlanePhantomUSCalibrationEstimator",
     "PointerUSCalibrationEstimator",
     "RayIntersectionEstimator",
     "SphereEstimator",

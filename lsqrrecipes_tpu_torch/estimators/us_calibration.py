@@ -1,10 +1,10 @@
-"""Freehand-3D-ultrasound probe calibration: the crosswire-phantom and
-calibrated-pointer estimators (counterpart of
-``lsqrrecipes_tpu/estimators/us_calibration.py``; the plane phantom is not
-ported yet).
+"""Freehand-3D-ultrasound probe calibration: the crosswire-phantom,
+calibrated-pointer and plane-phantom estimators (counterpart of
+``lsqrrecipes_tpu/estimators/us_calibration.py``).
 
-Parity target:
-``parametersEstimators/SinglePointTargetUSCalibrationParametersEstimator.{h,cxx}``.
+Parity targets:
+``parametersEstimators/SinglePointTargetUSCalibrationParametersEstimator.{h,cxx}``
+and ``parametersEstimators/PlanePhantomUSCalibrationParametersEstimator.{h,cxx}``.
 A pixel ``q = [u, v]`` of image i maps to the tracker frame through
 ``T2_i o T3 o scale(m_x, m_y)``, where ``T2_i = (R2_i, t2_i)`` is the tracked
 pose of the probe and ``T3 = (R3(w_z, w_y, w_x), t3)`` with the pixel scales
@@ -15,22 +15,27 @@ is the calibration:
     ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - t1``;
   * **Pointer** (the target ``p_i`` is known per image): 8 minimal
     parameters ``[t3 3, w_z, w_y, w_x, m_x, m_y]``, residual
-    ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - p_i``.
+    ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - p_i``;
+  * **Plane phantom** (every pixel lies on one unknown plane, k = 31): 11
+    minimal parameters ``[w1_y, w1_x, t1_z, t3 3, w3_z, w3_y, w3_x, m_x,
+    m_y]``, scalar residual ``R1_row3 . (R2_i (u m_x r1 + v m_y r2 + t3) +
+    t2_i) + t1_z``.
 
-Both have the reference's two least-squares modes: ANALYTIC (the
-over-parameterised linear system by f64 SVD pseudo-inverse with the
-FLT_EPSILON rank gate, then the closest rotation by SVD and the '+sqrt'
-Euler extraction) and ITERATIVE (that start, then Levenberg-Marquardt on the
-minimal parameters, the Jacobian by ``torch.func.jacfwd`` of the residual).
-Parameter vectors append the derived ``m_x R3(:,1), m_y R3(:,2), R3(:,3)``
-(crosswire 20, pointer 17 entries) for a cheap ``agree``.  Data:
-``(Frame[n], q[n, 2])`` and ``(Frame[n], q[n, 2], p[n, 3])``; ``minimal_fit``
-and ``agree`` broadcast over leading axes.
+All have the reference's two least-squares modes: ANALYTIC (an
+over-parameterised linear system by f64 SVD -- the pseudo-inverse with the
+FLT_EPSILON rank gate, or the plane phantom's homogeneous null vector --
+then the closest rotation by SVD and the '+sqrt' Euler extraction) and
+ITERATIVE (that start, then Levenberg-Marquardt on the minimal parameters,
+the Jacobian by ``torch.func.jacfwd`` of the residual).  Parameter vectors
+append derived entries for a cheap ``agree``: ``m_x R3(:,1), m_y R3(:,2),
+R3(:,3)`` (crosswire 20, pointer 17 entries) or the plane phantom's 30
+(41).  Data: ``(Frame[n], q[n, 2])`` and ``(Frame[n], q[n, 2], p[n, 3])``;
+``minimal_fit`` and ``agree`` broadcast over leading axes.
 """
 
 import torch
 
-from lsqrrecipes_tpu_torch.config import HALF_PI, SMALL_ANGLE
+from lsqrrecipes_tpu_torch.config import EPS, HALF_PI, SMALL_ANGLE
 from lsqrrecipes_tpu_torch.device import full_f32_matmul
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
 from lsqrrecipes_tpu_torch.linalg.lm import LMConfig, levenberg_marquardt
@@ -370,4 +375,170 @@ class PointerUSCalibrationEstimator(Estimator):
         frames, q, p = data
         img = _image_points(q, params[8:11], params[11:14], params[0:3])
         d = torch.sqrt(torch.sum((_mapped(frames, img) - p) ** 2, dim=-1))
+        return d, torch.min(d), torch.max(d), torch.mean(d)
+
+
+# --------------------------------------------------------------------------
+# Plane phantom
+# --------------------------------------------------------------------------
+
+
+def _plane_normal(w1_y, w1_x):
+    """R1's third row ``[-sin w1_y, cos w1_y sin w1_x, cos w1_y cos w1_x]``."""
+    cy1, sy1 = torch.cos(w1_y), torch.sin(w1_y)
+    return torch.stack([-sy1, cy1 * torch.sin(w1_x), cy1 * torch.cos(w1_x)], dim=-1)
+
+
+def _plane_phantom_residual(x, data):
+    """n residuals ``R1_row3 . (R2_i (u m_x r1 + v m_y r2 + t3) + t2_i) +
+    t1_z`` for ``x = [w1_y, w1_x, t1_z, t3 3, w3_z, w3_y, w3_x, m_x, m_y]``
+    (``PlanePhantom...cxx:357-447``)."""
+    frames, q = data
+    r = _euler_zyx_matrix(x[6], x[7], x[8])
+    img = _image_points(q, x[9] * r[:, 0], x[10] * r[:, 1], x[3:6])
+    return _mapped(frames, img) @ _plane_normal(x[0], x[1]) + x[2]
+
+
+_plane_phantom_jacobian = torch.func.jacfwd(_plane_phantom_residual)
+
+
+def _plane_phantom_derived(r1_row3, t3, r3, m_x, m_y):
+    """The 30 derived entries (``PlanePhantom...cxx:319-355``), batched over
+    leading axes: for j over R1's columns, ``m_x R3(k, 0) R1_3j`` (9), then
+    ``m_y R3(k, 1) R1_3j`` (9), ``t3_k R1_3j`` (9), then ``R1_row3`` (3)."""
+    lead = r1_row3.shape[:-1]
+    m1 = m_x[..., None, None] * (r1_row3[..., :, None] * r3[..., None, :, 0])
+    m2 = m_y[..., None, None] * (r1_row3[..., :, None] * r3[..., None, :, 1])
+    m3 = r1_row3[..., :, None] * t3[..., None, :]
+    return torch.cat([m1.reshape(*lead, 9), m2.reshape(*lead, 9), m3.reshape(*lead, 9),
+                      r1_row3], dim=-1)
+
+
+def _pack_phantom(x):
+    """Minimal 11 -> the 41-parameter layout."""
+    r3 = _euler_zyx_matrix(x[6], x[7], x[8])
+    return torch.cat([x, _plane_phantom_derived(_plane_normal(x[0], x[1]), x[3:6], r3,
+                                                x[9], x[10])])
+
+
+@register("us_plane_phantom")
+class PlanePhantomUSCalibrationEstimator(Estimator):
+    """``PlanePhantomUSCalibrationParametersEstimator`` (k = 31).
+
+    Data: ``(Frame[n], q[n, 2])``.  Output layout (41):
+    ``[w1_y, w1_x, t1_z, t3 3, w3_z, w3_y, w3_x, m_x, m_y, 30 derived]``.
+    """
+
+    k = 31
+    nparams = 41
+    nparams_lsq = 41
+
+    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
+        self.delta = float(delta)
+        self.delta_squared = float(delta) ** 2
+        self.ls_type = _check_ls_type(ls_type)
+        self.lm_config = lm_config
+
+    def _analytic(self, data, mask=None):
+        """Homogeneous ``n x 31`` system ``[u vec(R2), v vec(R2), vec(R2), t2,
+        1]``, batched over leading axes: its null vector (the last right
+        singular vector of the f64 SVD) scaled to ``|R1_row3| = 1``, then t3,
+        R3 and the scales from the averages of the three R1-column groups
+        (``PlanePhantom...cxx:137-355``).  Valid where the null space is one
+        dimensional (``s[29] > FLT_EPS max(s[0], 1)``: the reference's
+        literal rank-31 test would reject clean minimal samples, which have
+        an exact null vector), ``|R1_row3| >= EPS`` and at least k
+        observations take part."""
+        frames, q = data
+        r = frames.r
+        u, v = q[..., 0, None, None], q[..., 1, None, None]
+        lead = q.shape[:-1]
+        a = torch.cat([(u * r).reshape(*lead, 9), (v * r).reshape(*lead, 9), r.reshape(*lead, 9),
+                       frames.t, torch.ones(*lead, 1, dtype=q.dtype, device=q.device)], dim=-1)
+        if mask is not None:
+            a = a * mask.to(a.dtype)[..., None]
+        _, s, vt = svd_f64(a, full_matrices=True)
+        x = vt[..., -1, :].to(a.dtype)
+        if s.shape[-1] > 29:
+            rank_ok = s[..., 29] > FLT_EPS * torch.clamp_min(s[..., 0], 1.0)
+        else:                       # fewer than 30 rows: never a unique null space
+            rank_ok = torch.zeros(s.shape[:-1], dtype=torch.bool, device=s.device)
+
+        denom = torch.sqrt(torch.sum(x[..., 27:30] ** 2, dim=-1))
+        nondegenerate = denom >= EPS                       # the EPS gate, cxx:216-218
+        x = x / torch.where(nondegenerate, denom, torch.ones_like(denom))[..., None]
+        r1_row3, t1_z = x[..., 27:30], x[..., 30]
+        wy1 = torch.atan2(-r1_row3[..., 0], torch.sqrt(r1_row3[..., 1] ** 2 + r1_row3[..., 2] ** 2))
+        gimbal = ~(((wy1 - HALF_PI).abs() > SMALL_ANGLE) & ((wy1 + HALF_PI).abs() > SMALL_ANGLE))
+        cy1 = torch.where(gimbal, torch.ones_like(wy1), torch.cos(wy1))
+        wx1 = torch.where(gimbal, torch.zeros_like(wy1),
+                          torch.atan2(r1_row3[..., 1] / cy1, r1_row3[..., 2] / cy1))
+
+        # Average the three R1-column groups (cxx:246-287), each division
+        # guarded.
+        inv = 1.0 / torch.where(r1_row3.abs() > 1e-300, r1_row3, torch.ones_like(r1_row3))
+        c1, c2, t3 = (torch.mean(x[..., b : b + 9].reshape(*x.shape[:-1], 3, 3) * inv[..., :, None],
+                                 dim=-2) for b in (0, 9, 18))
+        m_x, m_y, r3 = _orthonormalize_scaled_columns(c1, c2)
+        angles = torch.stack(_extract_euler_plus(r3), dim=-1)
+        params = torch.cat([wy1[..., None], wx1[..., None], t1_z[..., None], t3, angles,
+                            m_x[..., None], m_y[..., None],
+                            _plane_phantom_derived(r1_row3, t3, r3, m_x, m_y)], dim=-1)
+        n = q.shape[-2]
+        enough = (torch.sum(mask, dim=-1) >= self.k) if mask is not None else \
+            torch.tensor(n >= self.k, device=q.device)
+        return params, rank_ok & nondegenerate & enough
+
+    def minimal_fit(self, samples):
+        return self._analytic(samples)
+
+    def lsq_fit(self, data, mask=None):
+        params, valid = self._analytic(data, mask)
+        if self.ls_type == ANALYTIC:
+            return params, valid
+        x0 = params[:11]
+        result = levenberg_marquardt(_plane_phantom_residual, _plane_phantom_jacobian, x0, data,
+                                     mask=mask, config=self.lm_config)
+        x = torch.where(valid, result.x, x0)
+        return _pack_phantom(x), valid & result.converged
+
+    def agree(self, params, data):
+        """``err^2 < delta^2`` with the plane distance ``err = vec(R2) . (u m1
+        + v m2 + m3) + t2 . R1_row3 + t1_z`` over the derived parameters
+        (``PlanePhantom...cxx:73-117``)."""
+        frames, q = data
+        err = self._plane_distance(params[..., None, :], frames, q)
+        return err * err < self.delta_squared
+
+    @staticmethod
+    def _plane_distance(params, frames, q):
+        r2 = frames.r.reshape(-1, 9)
+        img = q[..., :, 0:1] * params[..., 11:20] + q[..., :, 1:2] * params[..., 20:29] \
+            + params[..., 29:38]
+        return (torch.sum(r2 * img, dim=-1) + torch.sum(frames.t * params[..., 38:41], dim=-1)
+                + params[..., 2])
+
+    def vote_counts(self, params, data):
+        """The plane residual is one affine form over the crosswire features:
+        one ``[n, 31] @ [31, B]`` product in full f32 (or f64) with ``a = [m1,
+        m2, m3, R1_row3, t1_z]``, chunked over hypotheses."""
+        a = torch.cat([params[:, 11:41], params[:, 2:3]], dim=-1)
+        return _matmul_vote([a], _crosswire_features(data), self.delta_squared)
+
+    def fit_and_vote(self, samples, data):
+        """f32/f64 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.fit_and_vote("plane_phantom", self, samples, data)
+
+    def structured_sweep(self, data, generator, groups, perm=None):
+        """The planar-lane structured sweep, the phantom subspace kernel per
+        chunk (see the crosswire estimator)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.structured_sweep("plane_phantom", self, data, generator, groups, perm)
+
+    def distance_statistics(self, params, data):
+        frames, q = data
+        d = self._plane_distance(params, frames, q).abs()
         return d, torch.min(d), torch.max(d), torch.mean(d)

@@ -7,7 +7,7 @@ arrays and plain attributes, so either side can produce them:
   * :func:`estimator_from_attrs` — any object with ``registry_name`` and
     ``delta`` (plus ``dim``, ``ls_type``, ``n``, ``cross_eps`` or
     ``lm_config`` where the estimator has them), such as a JAX package
-    estimator -> the port's estimator of that name;
+    estimator -> the port's estimator of that name (all eleven);
   * :func:`sphere_estimator_from_attrs` — the same for a sphere estimator,
     from ``delta``, ``dim``, ``ls_type`` and ``lm_config``;
   * :func:`to_torch` — a numpy array (data, ``idx[B, k]`` hypothesis
@@ -31,6 +31,7 @@ from lsqrrecipes_tpu_torch.estimators import (
     LineEstimator,
     PivotCalibrationEstimator,
     PlaneEstimator,
+    PlanePhantomUSCalibrationEstimator,
     PointerUSCalibrationEstimator,
     RayIntersectionEstimator,
     SphereEstimator,
@@ -56,14 +57,15 @@ _FROM_ATTRS = {
         float(a.delta), str(a.ls_type), LMConfig(*a.lm_config)),
     "us_pointer": lambda a: PointerUSCalibrationEstimator(
         float(a.delta), str(a.ls_type), LMConfig(*a.lm_config)),
+    "us_plane_phantom": lambda a: PlanePhantomUSCalibrationEstimator(
+        float(a.delta), str(a.ls_type), LMConfig(*a.lm_config)),
 }
 
 
 def estimator_from_attrs(attrs):
     """The port's estimator for ``attrs.registry_name`` with the same
     ``delta`` (and ``dim``, ``ls_type``, ``lm_config``, ``n`` or
-    ``cross_eps``); ``KeyError`` for an estimator the port does not have
-    yet."""
+    ``cross_eps``); ``KeyError`` for an unknown name."""
     return _FROM_ATTRS[attrs.registry_name](attrs)
 
 

@@ -244,9 +244,17 @@ SPHERE_PLANAR_VOTE = Kernel(
     [_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_float, _P, _P, _P],
 )
 
+# The plane phantom's f32 QR + inverse-iteration subspace (one warp per
+# hypothesis).
+PHANTOM_QR = Kernel(
+    "phantom_qr", "phantom_qr.cu", "phantom_qr_launch",
+    # bands, starts, num_hyp, out, stream
+    [_P, _P, ctypes.c_int, _P, _P],
+)
+
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
        FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values(),
-       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE)
+       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE, PHANTOM_QR)
 
 
 def build_all(kernels=ALL) -> None:

@@ -1,9 +1,12 @@
 """Closed-form solvers for tiny systems (counterpart of
 ``lsqrrecipes_tpu/linalg/small.py``: ``solve2``, ``solve3``, the unrolled
-Cholesky solves, ``solve_spd`` and ``qr_solve_lanes``).
+Cholesky solves, ``solve_spd``, ``qr_solve_lanes`` and the planar QR pair
+``qr_r_planar`` / ``solve_rt_r_planar``).
 
 Pure elementwise tensor arithmetic batched over leading axes, with the same
-cofactor arithmetic and operation order as the JAX package.
+cofactor arithmetic and operation order as the JAX package; the planar QR
+pair follows the operation order of the phantom subspace kernel
+(``csrc/phantom_qr.cu``) instead, whose plain version it is built into.
 """
 
 import torch
@@ -217,3 +220,134 @@ def qr_solve_lanes(rows, rhs, eps=1e-5):
         diag = a[i][i]
         x[i] = t / torch.where(diag.abs() > eps, diag, one)
     return [x[c] * inv_scale[c] for c in range(nc)], ok
+
+
+# ---------------------------------------------------------------------------
+# Planar Householder R and the R^{-1} R^{-T} solve, in the phantom kernel's
+# operation order: matrices are [rows, columns, B] with the batch last, rows
+# zero-padded to 32 (one warp's lanes), and every sum over rows is one
+# rows_sum32.
+# ---------------------------------------------------------------------------
+
+_ROWS = 32
+
+
+def rows_sum32(x, dim: int = 0):
+    """Sum over ``dim`` (at most 32 entries, zero-padded to 32) by halving:
+    entry i adds entry i + h for h = 16, 8, 4, 2, 1.  That is the order of a
+    32-lane ``__shfl_xor_sync`` butterfly, and ``a + b == b + a`` bit for bit,
+    so every lane of the kernel ends with these bits.  ``dim`` is kept, with
+    size 1."""
+    size = x.shape[dim]
+    if size > _ROWS:
+        raise ValueError(f"rows_sum32 sums at most {_ROWS} entries, got {size}")
+    if size < _ROWS:
+        pad = list(x.shape)
+        pad[dim] = _ROWS - size
+        x = torch.cat([x, x.new_zeros(pad)], dim=dim)
+    h = _ROWS // 2
+    while h:
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        h //= 2
+    return x
+
+
+def _row_masks(n, like):
+    """``(ri, live)``: the padded row index ``[32]`` and ``ri < n``."""
+    ri = torch.arange(_ROWS, device=like.device)
+    return ri, ri < n
+
+
+def _householder32(m, n: int):
+    """n Householder steps on ``m[32, n, B]`` (rows ``>= n`` zero) in the
+    kernel's order.  Step j reflects rows j.. with ``v`` = column j below the
+    diagonal and ``vk = a_jj - alpha`` in row j; every column c >= j takes
+    ``w = inv_denom * (v . col_c)`` and ``col_c + v w`` (column j too, leaving
+    a spent reflector below the diagonal).  ``alpha = -sign(a_jj) |col_j|``
+    is R's diagonal; ``inv_denom`` is 0 where ``alpha vk`` is 0, so a zero
+    column passes through.  Returns ``(m, d_raw [n, B])``."""
+    m = m.clone()
+    ri, live = _row_masks(n, m)
+    dt = m.dtype
+    one, zero = scalar_like(1.0, m), scalar_like(0.0, m)
+    d_raw = []
+    for j in range(n):
+        ge = ((ri >= j) & live).to(dt)[:, None]
+        gt = ((ri > j) & live).to(dt)[:, None]
+        onehot = (ri == j).to(dt)[:, None]
+        colj = m[:, j]                                     # [32, B]
+        cg = colj * ge
+        norm = torch.sqrt(rows_sum32(cg * cg))             # [1, B]
+        akk = colj[j : j + 1]
+        alpha = torch.where(akk >= 0, -norm, norm)
+        vk = akk - alpha
+        denom = alpha * vk
+        good = denom.abs() > 0
+        inv_denom = torch.where(good, one / torch.where(good, denom, one), zero)
+        v = colj * gt + onehot * vk                        # [32, B]
+        rest = m[:, j:]                                    # [32, n - j, B]
+        w = inv_denom[:, None] * rows_sum32(v[:, None] * rest)
+        m[:, j:] = rest + v[:, None] * w
+        d_raw.append(alpha[0])
+    return m, torch.stack(d_raw)
+
+
+def qr_r_planar(a):
+    """Householder QR, R factor only, of ``a[n, n, B]`` (rows, columns, batch
+    last; n <= 31): R in the same layout, upper triangle valid, strict lower
+    triangle zero.  No column equilibration: the plane phantom's null vector
+    is that of the raw system.  A zero pivot column leaves a zero on the
+    diagonal; callers clamp the diagonal before inverting.
+
+    The JAX package's ``qr_r_planar`` is a ``lax.scan`` over the steps; here
+    each column update is one 32-row reduction (:func:`_householder32`), the
+    arithmetic of the phantom subspace kernel, so the two agree to rounding
+    (sums are taken in another order)."""
+    n = a.shape[0]
+    if a.shape[1] != n or n >= _ROWS:
+        raise ValueError(f"qr_r_planar needs a[n, n, B] with n < {_ROWS}, got {tuple(a.shape)}")
+    m = a.new_zeros((_ROWS,) + tuple(a.shape[1:]))
+    m[:n] = a
+    m, d_raw = _householder32(m, n)
+    idx = torch.arange(n, device=a.device)
+    upper = (idx[:, None] <= idx[None, :])[:, :, None]
+    r = torch.where(upper, m[:n], torch.zeros_like(m[:n]))
+    r[idx, idx] = d_raw
+    return r
+
+
+def solve_rt_r_planar(r_planar, d, v):
+    """``z = R^{-1} R^{-T} v``, one inverse-iteration step with the normal
+    matrix ``A^T A = R^T R``.  ``r_planar [n, n, B]`` from
+    :func:`qr_r_planar` (only its strict upper triangle is read), ``d [n,
+    B]`` the diagonal, clamped by the caller, ``v [q, n, B]``; returns ``[q,
+    n, B]``.
+
+    The phantom kernel's form: the forward solve ``R^T y = v`` takes one
+    masked-column reduction per step, ``y_c = (v_c - sum_{r<c} R_rc y_r) /
+    d_c``; the backward solve ``R z = y`` one axpy per step, ``z_c = (y_c -
+    acc_c) / d_c`` then ``acc += R[:, c] z_c``."""
+    n = d.shape[0]
+    ri, _ = _row_masks(n, d)
+    dt = v.dtype
+    rpad = r_planar.new_zeros((_ROWS,) + tuple(r_planar.shape[1:]))
+    rpad[:n] = r_planar
+    vpad = v.new_zeros((v.shape[0], _ROWS) + tuple(v.shape[2:]))
+    vpad[:, :n] = v
+    rcols, onehots = [], []
+    y = torch.zeros_like(vpad)
+    for c in range(n):
+        rc = rpad[:, c] * (ri < c).to(dt)[:, None]          # R[0:c, c], [32, B]
+        onehot = (ri == c).to(dt)[:, None]
+        rcols.append(rc)
+        onehots.append(onehot)
+        s = rows_sum32(rc[None] * y, dim=1)                 # [q, 1, B]
+        yc = (vpad[:, c : c + 1] - s) / d[c]
+        y = y + onehot * yc
+    z = torch.zeros_like(vpad)
+    acc = torch.zeros_like(vpad)
+    for c in reversed(range(n)):
+        zc = (y[:, c : c + 1] - acc[:, c : c + 1]) / d[c]
+        z = z + onehots[c] * zc
+        acc = acc + rcols[c] * zc
+    return z[:, :n]

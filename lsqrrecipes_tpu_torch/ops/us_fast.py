@@ -1,6 +1,6 @@
-"""Batched hypothesize and vote for the crosswire and calibrated-pointer
-ultrasound calibrations (counterpart of the crosswire/pointer half of
-``lsqrrecipes_tpu/ops/us_fast.py``; the plane phantom is not ported yet).
+"""Batched hypothesize and vote for the ultrasound calibrations: crosswire,
+calibrated pointer and plane phantom (counterpart of
+``lsqrrecipes_tpu/ops/us_fast.py``).
 
 The engine's generic path fits each hypothesis with the estimator's f64 SVD
 pseudo-inverse (a 12x12 SVD per crosswire sample,
@@ -22,8 +22,15 @@ the last axis (lanes form, lists of ``[B]`` tensors):
     ``[u, v, 1, w 3]`` with ``w = R2^T (p - t2)``), three ``torch.matmul``
     products in full f32.
 
+The plane phantom (k = 31) fits the null vector of its homogeneous 31x31
+system in two stages: the f32 subspace of :mod:`lsqrrecipes_tpu_torch.ops.
+phantom_qr` (the kernel B6 on the card) and a float64 Rayleigh-Ritz on it,
+then the reference's reconstruction; its vote is one ``[B, 31] @ [31, n]``
+product.
+
 Counts can differ from the f64 vote by border points, as the fused sweeps'
-do.  No kernel runs here: the JAX package has none on this path either.
+do.  The crosswire and pointer fits run no kernel (the JAX package has none
+on their path either).
 """
 
 import numpy as np
@@ -31,7 +38,13 @@ import torch
 
 from lsqrrecipes_tpu_torch.config import HALF_PI, SMALL_ANGLE
 from lsqrrecipes_tpu_torch.device import as_tensor, full_f32_matmul, generator_device
-from lsqrrecipes_tpu_torch.linalg.small import qr_solve_lanes, rsqrt, scalar_like
+from lsqrrecipes_tpu_torch.linalg.small import (
+    cholesky_solve_lanes,
+    qr_solve_lanes,
+    rsqrt,
+    scalar_like,
+)
+from lsqrrecipes_tpu_torch.ops import phantom_qr
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
 from lsqrrecipes_tpu_torch.tree import tree_leaves, tree_map
 
@@ -179,6 +192,144 @@ def _pointer_fit_slots(slot_pl, k: int):
 
 
 # ---------------------------------------------------------------------------
+# Plane phantom (k = 31): the null vector of the homogeneous 31x31 system
+# (``PlanePhantomUSCalibrationParametersEstimator.cxx:137-355``) in two
+# stages.  The f32 stage (B6, ops/phantom_qr.py) factors A itself and runs
+# two steps of block inverse iteration: at the reference noise sigma_31 ~
+# 2e-7 sigma_0 and sigma_30 ~ 1e-5 sigma_0, and the f32 backward error sits
+# between them, so four vectors capture the null direction without resolving
+# the pair.  The float64 Rayleigh-Ritz projects ``A^T A`` onto that span and
+# resolves it.  The JAX package projects in double-single f32 pairs to avoid
+# the TPU's emulated f64; the H100 has native f64, so here W = A V and
+# S = W^T W are plain float64 (the JAX package's other branch).
+# ---------------------------------------------------------------------------
+
+# The reference's FLT_EPSILON-relative rank gate (``cxx:205-218``): sigma_30
+# must exceed FLT_EPS max(sigma_0, 1).
+_PHANTOM_FLT_EPS = 1.192092896e-07
+
+
+def phantom_systems(slot_pl):
+    """The homogeneous 31x31 systems of planes ``slot_pl[31, 14, B]``: row a
+    is ``[u vec(R2), v vec(R2), vec(R2), t2, 1]`` of slot a
+    (``PlanePhantom...cxx:137-203``), ``[31 rows, 31 columns, B]`` in the
+    planes' dtype, without column equilibration (the reference's SVD runs on
+    the raw system)."""
+    r_feat = slot_pl[:, 0:9]
+    u_feat, v_feat = slot_pl[:, 12:13], slot_pl[:, 13:14]
+    return torch.cat([u_feat * r_feat, v_feat * r_feat, r_feat, slot_pl[:, 9:12],
+                      torch.ones_like(u_feat)], dim=1)
+
+
+def _plane_phantom_fit_slots(slot_pl, k: int):
+    """k = 31 minimal fits of planes ``slot_pl[31, 14, B]`` (the engine's
+    dtype) -> ``(params [B, 41], valid [B])``.  The f32 rounding of
+    :func:`phantom_systems`, packed by :func:`~lsqrrecipes_tpu_torch.ops.
+    phantom_qr.pack_systems`, goes to :func:`~lsqrrecipes_tpu_torch.ops.
+    phantom_qr.phantom_subspace`; ``fac_ok`` is every subspace entry
+    finite."""
+    a_pl = phantom_systems(slot_pl)                               # [31, 31, B]
+    bands = phantom_qr.pack_systems(a_pl)
+    v_pl = phantom_qr.phantom_subspace(bands)
+    fac_ok = torch.isfinite(v_pl).all(dim=1).all(dim=0)
+    return _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok)
+
+
+def _unit_lanes(c, tiny):
+    nrm = torch.sqrt(sum(ci * ci for ci in c))
+    inv = 1.0 / torch.clamp_min(nrm, tiny)
+    return [ci * inv for ci in c]
+
+
+def _phantom_sigma0_sq(bands):
+    """sigma_0^2 of each f32 system by two power-iteration steps on ``A^T A``
+    from the uniform vector and a Rayleigh quotient, in f32 (the rank gate
+    needs ~1e-3): ``bands[B, 31, 32]`` -> ``[B]``."""
+    def gram_apply(p):                                  # p [B, 31]
+        ap = torch.bmm(p[:, None, :], bands)            # [B, 1, 32] = A p
+        return torch.bmm(bands, ap.transpose(1, 2))[..., 0]
+
+    def norm_rows(p):
+        return p * rsqrt(torch.clamp_min(torch.sum(p * p, dim=1, keepdim=True), 1e-30))
+
+    pv = torch.full((bands.shape[0], 31), np.float32(1.0 / np.sqrt(31.0)),
+                    dtype=torch.float32, device=bands.device)
+    with full_f32_matmul():
+        for _ in range(2):
+            pv = norm_rows(gram_apply(pv))
+        return torch.sum(pv * gram_apply(pv), dim=1)
+
+
+def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
+    """The k = 31 fit's tail: the Rayleigh-Ritz null vector in ``a_pl``'s
+    dtype, the rank gate, and the reference's reconstruction
+    (``PlanePhantom...cxx:204-355``) in lanes form.  ``a_pl [31, 31, B]``,
+    ``bands`` its packed f32 rounding, ``v_pl [4, 31, B]`` f32."""
+    dt = a_pl.dtype
+    q = v_pl.shape[0]
+    v64 = v_pl.to(dt)
+    w = torch.einsum("rcb,qcb->qrb", a_pl, v64)         # W = A V, [q, 31, B]
+    s = torch.einsum("irb,jrb->ijb", w, w)              # S = W^T W
+    sg = [[s[i, j] for j in range(q)] for i in range(q)]
+    tiny = torch.finfo(dt).tiny
+    trace = sg[0][0] + sg[1][1] + sg[2][2] + sg[3][3]
+    shift = 100.0 * torch.finfo(dt).eps * trace + tiny
+    s_ll = [[sg[i][j] + shift if i == j else sg[i][j] for j in range(q)] for i in range(q)]
+    zeros_b, ones_b = torch.zeros_like(trace), torch.ones_like(trace)
+
+    # Smallest Ritz vector: the first subspace vector is the f32 null
+    # estimate, so e_0 overlaps it; two shifted inverse-iteration steps
+    # polish it to the working precision.
+    c = [ones_b] + [zeros_b] * (q - 1)
+    for _ in range(2):
+        c, _ = cholesky_solve_lanes(s_ll, c, q)
+        c = _unit_lanes(c, tiny)
+    x_pl = sum(c[j][None, :] * v64[j] for j in range(q))            # [31, B]
+    xn = 1.0 / torch.clamp_min(torch.sqrt(torch.sum(x_pl * x_pl, dim=0)), tiny)
+    xq = [x_pl[i] * xn for i in range(31)]
+
+    # Rank gate s[29] > FLT_EPS max(s[0], 1): sigma_30^2 by the deflated
+    # second Ritz value (an over-estimate, so never laxer than the
+    # reference), sigma_0^2 by power iteration in f32.
+    def deflate(y):
+        dot = sum(ci * yi for ci, yi in zip(c, y))
+        return _unit_lanes([yi - dot * ci for ci, yi in zip(c, y)], tiny)
+
+    y = deflate([zeros_b, ones_b] + [zeros_b] * (q - 2))
+    for _ in range(2):
+        y, _ = cholesky_solve_lanes(s_ll, y, q)
+        y = deflate(y)
+    sy = [sum(sg[i][j] * y[j] for j in range(q)) for i in range(q)]
+    lam1 = sum(y[i] * sy[i] for i in range(q))
+    sig0_sq = _phantom_sigma0_sq(bands).to(dt)
+    rank_ok = lam1 > _PHANTOM_FLT_EPS**2 * torch.clamp_min(sig0_sq, 1.0)
+
+    # Reconstruction on the 31 lanes of the null vector.
+    denom = torch.sqrt(xq[27] ** 2 + xq[28] ** 2 + xq[29] ** 2)
+    nondeg = denom > 1e-30
+    invd = 1.0 / torch.where(nondeg, denom, ones_b)
+    xr = [xi * invd for xi in xq]
+    r1 = [xr[27], xr[28], xr[29]]                       # R1 row 3 (the plane normal)
+    t1_z = xr[30]
+    wy1 = torch.atan2(-r1[0], torch.sqrt(r1[1] ** 2 + r1[2] ** 2))
+    gimbal = ~(((wy1 - HALF_PI).abs() > SMALL_ANGLE) & ((wy1 + HALF_PI).abs() > SMALL_ANGLE))
+    cy1 = torch.where(gimbal, ones_b, torch.cos(wy1))
+    wx1 = torch.where(gimbal, zeros_b, torch.atan2(r1[1] / cy1, r1[2] / cy1))
+
+    inv = [1.0 / torch.where(r1[j].abs() > 1e-30, r1[j], ones_b) for j in range(3)]
+    c1, c2, t3 = ([sum(xr[base + 3 * j + cc] * inv[j] for j in range(3)) / 3.0 for cc in range(3)]
+                  for base in (0, 9, 18))
+    m_x, m_y, r3, ok = orthonormalize_lanes(c1, c2)
+    wz3, wy3, wx3 = euler_zyx_plus_lanes(r3)
+    m1 = [m_x * r1[j] * r3[cc][0] for j in range(3) for cc in range(3)]
+    m2 = [m_y * r1[j] * r3[cc][1] for j in range(3) for cc in range(3)]
+    m3 = [r1[j] * t3[cc] for j in range(3) for cc in range(3)]
+    cols = [wy1, wx1, t1_z, *t3, wz3, wy3, wx3, m_x, m_y, *m1, *m2, *m3, *r1]
+    valid = fac_ok & rank_ok & nondeg & ok
+    return torch.stack(cols, dim=-1), valid
+
+
+# ---------------------------------------------------------------------------
 # Compact votes (R2-orthogonality form) and slot features, all f32
 # ---------------------------------------------------------------------------
 
@@ -246,6 +397,27 @@ def _slot_features_pointer(data):
                       _to_f32(p)], dim=-1)
 
 
+def _features_phantom(data):
+    """``[n, 31]`` = ``[u vec(R2) 9, v vec(R2) 9, vec(R2) 9, t2 3, 1]`` (f32)."""
+    frames, q = data
+    r2, q32 = _to_f32(frames.r).reshape(-1, 9), _to_f32(q)
+    ones = torch.ones((q32.shape[0], 1), dtype=torch.float32, device=q32.device)
+    return torch.cat([q32[:, 0:1] * r2, q32[:, 1:2] * r2, r2, _to_f32(frames.t), ones], dim=-1)
+
+
+def _vote_rows_phantom(params):
+    """The single residual ``a [B, 31] = [m1, m2, m3, r1_row3, t1_z]``
+    (``PlanePhantom...cxx:73-117``)."""
+    return [torch.cat([params[:, 11:41], params[:, 2:3]], dim=-1)]
+
+
+def _slot_features_phantom(data):
+    """The crosswire slot layout ``[vec(R2) 9, t2 3, u, v]`` in the data's
+    own dtype: the k = 31 fit runs in the engine's f64."""
+    frames, q = data
+    return torch.cat([frames.r.reshape(-1, 9), frames.t, q], dim=-1)
+
+
 def _samples_to_slot_features(kind, samples):
     """Engine samples (a tree with leading ``[B, k]``) -> ``[B, k, F]``."""
     flat = tree_map(lambda a: a.reshape(-1, *a.shape[2:]), samples)
@@ -260,6 +432,8 @@ _KINDS = {
                   _features_crosswire, _slot_features_crosswire, 20),
     "pointer": (_pointer_fit_slots, 3, _vote_rows_pointer,
                 _features_pointer, _slot_features_pointer, 17),
+    "plane_phantom": (_plane_phantom_fit_slots, 31, _vote_rows_phantom,
+                      _features_phantom, _slot_features_phantom, 41),
 }
 
 

@@ -10,6 +10,8 @@ drivers with the port's own generator pass the checks of the JAX package's
 
 import ast
 import pathlib
+import subprocess
+import sys
 
 import jax
 import jax.numpy as jnp
@@ -671,8 +673,15 @@ def _imported_modules(path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "lsqrrecipes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    assert len(files) > 10 and ROOT / "lsqrrecipes_tpu_torch" / "ops" / "phantom_qr.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "lsqrrecipes_tpu"), f"{path}: imports {mod}"
+    # Importing the phantom slice in a fresh interpreter loads neither either.
+    code = ("import sys\n"
+            "import lsqrrecipes_tpu_torch.ops.phantom_qr, lsqrrecipes_tpu_torch.ops.us_fast\n"
+            "import lsqrrecipes_tpu_torch.estimators, lsqrrecipes_tpu_torch.interop\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsqrrecipes_tpu')]\n"
+            "assert not bad, bad\n")
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)

@@ -16,7 +16,7 @@ from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor
 from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
-from lsqrrecipes_tpu_torch.ops import sphere_lm, sphere_ransac, vote
+from lsqrrecipes_tpu_torch.ops import phantom_qr, sphere_lm, sphere_ransac, us_fast, vote
 
 torch.set_num_threads(2)
 
@@ -102,7 +102,7 @@ def test_point_sweeps_share_one_source_and_build():
     assert kernels.FUSED_SWEEPS["sphere3d"] is kernels.FUSED_SWEEP_SPHERE3D
     assert set(kernels.ALL) == set(kernels.FUSED_SWEEPS.values()) | {
         kernels.SPHERE_VOTE, kernels.PLANE_VOTE, kernels.SPHERE_LM, kernels.SPHERE_MEGA,
-        kernels.SPHERE_PLANAR_VOTE}
+        kernels.SPHERE_PLANAR_VOTE, kernels.PHANTOM_QR}
 
 
 def test_rigid_sweeps_share_one_source_and_build():
@@ -120,7 +120,7 @@ def test_us_sweeps_share_one_source_and_build():
     assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.US_FAMILIES]
     assert all(k.argtypes == kernels.FUSED_SWEEPS["pivot"].argtypes for k in sweeps)
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
-    assert len(kernels.ALL) == 15 and len({k.source for k in kernels.ALL}) == 8
+    assert len(kernels.ALL) == 16 and len({k.source for k in kernels.ALL}) == 9
 
 
 def test_sphere_step_kernels_share_one_source_and_build():
@@ -132,6 +132,13 @@ def test_sphere_step_kernels_share_one_source_and_build():
     # Every sphere kernel with a fit shares the circumsphere header.
     for name in ("fused_sweep_sphere3d.cu", "sphere_ransac.cu"):
         assert '#include "sphere_fit.cuh"' in (kernels.CSRC_DIR / name).read_text()
+
+
+def test_phantom_kernel_has_its_own_source_and_launch_symbol():
+    k = kernels.PHANTOM_QR
+    assert k.source.name == "phantom_qr.cu" and k.symbol == "phantom_qr_launch"
+    assert "Replaces lsqrrecipes_tpu/ops/phantom_qr.py::_make_kernel" in k.source.read_text()
+    assert k.library_path() not in {o.library_path() for o in kernels.ALL if o is not k}
 
 
 def test_nvcc_path_raises_when_missing(monkeypatch):
@@ -175,7 +182,7 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     # fused_sweep_us.cu and the two per-step sphere kernels sphere_ransac.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
                         "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire",
-                        "sphere_lm", "sphere_mega"]
+                        "sphere_lm", "sphere_mega", "phantom_qr"]
 
 
 # ------------------------------------------------------- on the card only
@@ -503,3 +510,70 @@ def test_fast_sweep_launches_once_per_step_on_card(cuda_device):
     assert kernels.SPHERE_MEGA.launches == before + 5
     assert int(count) > 700
     assert float((params.cpu() - torch.tensor([5.0, -2.0, 11.0, 25.0])).abs().max()) < 0.5
+
+
+def _phantom_systems(seed, b, n=64):
+    """``bands [b, 31, 32]`` of plane-phantom minimal systems: 31 random
+    observations each of the phantom model (m_x = 0.143, m_y = 0.139, a random
+    plane and calibration, pose angles in [0, pi), pixels in 640 x 480 with
+    0.5 px noise), built from the f64 slot features as the fit builds them."""
+    rng = np.random.default_rng(seed)
+    r3 = _euler(rng.uniform(0, np.pi, 3))
+    t3 = rng.uniform(-100, 100, 3)
+    wy, wx = rng.uniform(-1, 1, 2)
+    normal = np.array([-np.sin(wy), np.cos(wy) * np.sin(wx), np.cos(wy) * np.cos(wx)])
+    q = rng.uniform(size=(n, 2)) * np.array([640.0, 480.0])
+    r2 = _euler(rng.uniform(0, np.pi, (n, 3)))
+    mapped = np.einsum("nij,nj->ni", r2, q[:, 0:1] * (0.143 * r3[:, 0])
+                       + q[:, 1:2] * (0.139 * r3[:, 1]) + t3)
+    free = rng.uniform(-100, 100, (n, 3))
+    t2 = free - ((mapped + free) @ normal + rng.uniform(-100, 100))[:, None] * normal
+    q = q + 0.5 * rng.normal(size=q.shape)
+    data = (Frame(torch.as_tensor(r2), torch.as_tensor(t2)), torch.as_tensor(q))
+    feats = us_fast._slot_features_phantom(data)                      # [n, 14] f64
+    idx = np.stack([rng.permutation(n)[:31] for _ in range(b)])
+    planes = feats[torch.as_tensor(idx)].permute(1, 2, 0)              # [31, 14, b]
+    return phantom_qr.pack_systems(us_fast.phantom_systems(planes))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [4352, 1000])
+def test_phantom_qr_kernel_equals_plain_on_card(cuda_device, b):
+    bands = _phantom_systems(100 + b, b).to(cuda_device)
+    before = kernels.PHANTOM_QR.launches
+    got = phantom_qr.phantom_subspace(bands)
+    plain = phantom_qr.phantom_subspace_plain(bands)
+    assert kernels.PHANTOM_QR.launches == before + 1
+    assert got.shape == (4, 31, b) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, plain)
+    assert float((torch.sum(got.double() ** 2, dim=1) - 1.0).abs().max()) < 1e-5
+
+
+@pytest.mark.cuda
+def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
+    # Rank-deficient systems: one observation in all 31 rows, the u R2 block
+    # of one pose, half the rows duplicated.  A rank-1 system's inverse
+    # iteration may overflow; the kernel then gives the plain version's
+    # non-finite entries, where the plain version has them.
+    bands = _phantom_systems(7, 24)
+    a = bands[:, :, :31]
+    a[:8] = a[:8, :, :1].clone()
+    a[8:16, 0:9] = a[8:16, 0:9, :1].clone()
+    a[16:24, :, 16:] = a[16:24, :, 15:16].clone()
+    bands = bands.to(cuda_device)
+    got = phantom_qr.phantom_subspace(bands)
+    plain = phantom_qr.phantom_subspace_plain(bands)
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(plain))
+    assert bool(torch.isfinite(got[:, :, 8:]).all())
+
+
+@pytest.mark.cuda
+def test_phantom_fit_rejects_duplicate_samples_on_card(cuda_device):
+    rng = np.random.default_rng(8)
+    planes = torch.as_tensor(rng.normal(size=(31, 14, 64)) * 50.0, device=cuda_device)
+    planes[:] = planes[0:1].clone()                      # one observation in every slot
+    before = kernels.PHANTOM_QR.launches
+    _, valid = us_fast._plane_phantom_fit_slots(planes, 31)
+    assert kernels.PHANTOM_QR.launches == before + 1
+    assert not bool(valid.any())
