@@ -64,8 +64,12 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      bench's scan shape (n = 1,024, 128 groups, 100 steps: 13.1M
      hypotheses) on phase 5's cloud, the ground truth recovered by the
      GEOMETRIC refit of the winner's consensus, then the kernel against its
-     plain version on one step at that shape, and a 256-point, 4-group step
-     against ``minimal_fit`` + ``agree`` on its hypothesis set;
+     plain version on one step at that shape (counts and params bit-equal;
+     the plain version emulates the kernel's FMAs exactly), that step's
+     counts on every 32nd hypothesis against f64 ``minimal_fit`` + ``agree``
+     (within 2 where both fit, equal maxima), its registers, blocks per SM
+     and waves, and a 256-point, 4-group step against ``minimal_fit`` +
+     ``agree`` on its hypothesis set;
  20. kernel ``sphere_planar_vote`` through ``planar_sphere_samples`` +
      ``sphere_fit_and_vote_planar`` at B = 131,072 (128 groups x n =
      1,024) against its plain version and ``minimal_fit`` + ``vote_counts``;
@@ -83,7 +87,9 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      LM iterations and time, a profile with B6's share;
      ``ransac_fused_sweep``, which falls back to the same sweep; B6 against
      its plain version, bit for bit, at the chunk, at the whole sweep and on
-     duplicate-row samples (which the fit must reject); the JAX chip check's
+     duplicate-row samples (which the fit must reject), its registers, blocks
+     per SM and waves at both shapes, and the plain version's and one f32
+     ``torch.linalg.svd``'s times at both; the JAX chip check's
      f64 gate on 4,096 hypotheses of its data model (poses on the plane,
      1 px noise) and of phase 22's: equal maxima, and the sweep's counts
      within 2 of f64 ``minimal_fit`` + ``agree`` on every sample with a
@@ -247,9 +253,10 @@ GENERIC_GROUPS = 8
 SPHERE_PHASES_BUDGET_S = 60.0    # phases 18-21 together
 # f32 operations counted from the kernels: sphere_lm 38 per observation in
 # the pass that forms the 13 sums and 12 in the trial cost, 12 in the start
-# cost; sphere_mega 4 multiplies + 4 adds + compare + count per cell and the
-# fit and band rows (SWEEP_OPS_PER_HYP) per hypothesis; sphere_planar_vote 3
-# multiplies + 6 adds + 2 compares + and + count per cell, ~111 per fit.
+# cost; sphere_mega 4 multiply-adds (2 each) + abs + compare + count per cell
+# and the fit and band rows (SWEEP_OPS_PER_HYP) per hypothesis;
+# sphere_planar_vote 3 multiplies + 6 adds + 2 compares + and + count per
+# cell, ~111 per fit.
 LM_OPS_PER_OBS_ITER, LM_OPS_PER_OBS_START = 50, 12
 MEGA_OPS_PER_CELL = 11
 PLANAR_OPS = (13, 111)
@@ -543,6 +550,15 @@ def phantom_qr_ops():
     solve = sum(2 * c + 2 for c in range(31)) + sum(2 * c + 4 for c in range(31))
     norm = 2 * 31 + 3
     return ops + 2 * (4 * solve + 4 * norm + 6 * 4 * 31 + 4 * norm)
+
+
+def launch_shape(kernel, num_hyp):
+    """A redesigned kernel's registers, spills, block shape, blocks per SM
+    and waves at ``num_hyp`` hypotheses, as text."""
+    s = kernel.shape(num_hyp)
+    return (f"{s['registers']} registers, {s['spill_bytes']} spill bytes, {s['blocks']} blocks "
+            f"of {s['threads']} threads ({s['hyp_per_block']} hypotheses each), "
+            f"{s['blocks_per_sm']} blocks per SM, {s['waves']:.3f} waves")
 
 
 def max_or(t, default):
@@ -1399,15 +1415,32 @@ def main(argv=None):
           f"{bool(torch.equal(kc19, pc19))}, params_t bit-equal {bool(torch.equal(kp19, pp19))}")
     check(torch.equal(kc19, pc19) and torch.equal(kp19, pp19),
           "sphere_mega disagrees with its plain version")
-    mega_ms = timer.ms(lambda: sr._mega_launch(shifts19, coords19, pt19, valid19, DELTA), reps=20)
+    # The same step's counts against f64 minimal_fit + agree, which shares no
+    # arithmetic with the kernel, on every 32nd hypothesis.  Where the f64
+    # rank gate rejects a fit that f32 accepts, f64 counts 0; on the
+    # hypotheses both accept only border points may flip.
+    hyp_step = SCAN_GROUPS * N_MAIN
+    sub19 = torch.arange(0, hyp_step, 32, device=dev)
+    samples19 = sr.reference_mega_samples(pts5, None, SCAN_GROUPS, coords2=coords19)[sub19]
+    p64_19, v64_19 = est.minimal_fit(samples19.double())
+    c64_19 = torch.where(v64_19, est.agree(p64_19, pts5.double()).sum(-1), 0)
+    both19 = v64_19 & (kp19[4, sub19] == 0)
+    d19 = (kc19[sub19].long() - c64_19.long()).abs()
+    print(f"    sphere_mega vs f64 minimal_fit + agree on {len(sub19)} hypotheses of the step: "
+          f"on the {int(both19.sum())} both fit, max|d|={max_or(d19[both19], 0)} (<=2), "
+          f"{int((d19[both19] > 0).sum())} differ; {int((~v64_19).sum())} rejected by f64, "
+          f"{int((kp19[4, sub19] != 0).sum())} degenerate in the kernel; max "
+          f"{int(kc19[sub19].max())} vs {int(c64_19.max())}")
+    check(max_or(d19[both19], 0) <= 2 and int(kc19[sub19].max()) == int(c64_19.max()),
+          "sphere_mega disagrees with f64 minimal_fit + agree")
+    mega_ms =timer.ms(lambda: sr._mega_launch(shifts19, coords19, pt19, valid19, DELTA), reps=20)
     mega_plain_ms = timer.ms(lambda: sr.megakernel_call_plain(shifts19, coords19, pt19, valid19,
                                                               DELTA), reps=2, warmup=1)
-    hyp_step = SCAN_GROUPS * N_MAIN
     mega_bound, mega_by = bound(
         hyp_step * (N_MAIN * MEGA_OPS_PER_CELL + SWEEP_OPS_PER_HYP),
         (coords19.numel() + 4 * pt19.shape[1] + shifts19.numel() + 9 * hyp_step) * 4, rates)
     print(f"    kernel ms: sphere_mega {mega_ms:.4f}, plain {mega_plain_ms:.4f}, bound "
-          f"{mega_bound:.4f} ({mega_by}) [{smi}]")
+          f"{mega_bound:.4f} ({mega_by}); {launch_shape(kernels.SPHERE_MEGA, hyp_step)} [{smi}]")
 
     n_small, g_small = MEGA_SMALL
     pts_small = torch.as_tensor(bench_cloud(rng, n_small), device=dev)
@@ -1659,6 +1692,10 @@ def main(argv=None):
                                 warmup=1)
     systems_c = bands_c[:, :, :31].transpose(1, 2).contiguous()       # [B, 31 rows, 31 cols]
     phantom_lib_ms = timer.ms(lambda: torch.linalg.svd(systems_c), reps=3, warmup=1)
+    phantom_all_plain_ms = timer.ms(lambda: phantom_qr.phantom_subspace_plain(bands22), reps=1,
+                                    warmup=1)
+    systems_all = bands22[:, :, :31].transpose(1, 2).contiguous()
+    phantom_all_lib_ms = timer.ms(lambda: torch.linalg.svd(systems_all), reps=1, warmup=1)
 
     def phantom_bound(b):
         return bound(b * phantom_qr_ops(), b * (31 * 31 + 4 * 31) * 4, rates)
@@ -1666,10 +1703,13 @@ def main(argv=None):
     phantom_bound_ms, phantom_by = phantom_bound(chunk22)
     phantom_all_bound, phantom_all_by = phantom_bound(h22)
     print(f"    kernel ms: phantom_qr {phantom_ms:.4f} at {chunk22} (pack {pack_ms:.4f}, counted in "
-          f"the fit), {phantom_all_ms:.4f} at {h22}; plain {phantom_plain_ms:.4f}; library "
-          f"(torch.linalg.svd of the f32 batch) {phantom_lib_ms:.4f}; bound "
-          f"{phantom_bound_ms:.4f} ({phantom_by}) / {phantom_all_bound:.4f} ({phantom_all_by}); "
-          f"{phantom_qr_ops()} operations per hypothesis [{smi}]")
+          f"the fit), {phantom_all_ms:.4f} at {h22}; plain {phantom_plain_ms:.4f} / "
+          f"{phantom_all_plain_ms:.4f}; library (torch.linalg.svd of the f32 batch) "
+          f"{phantom_lib_ms:.4f} / {phantom_all_lib_ms:.4f}; bound {phantom_bound_ms:.4f} "
+          f"({phantom_by}) / {phantom_all_bound:.4f} ({phantom_all_by}); {phantom_qr_ops()} "
+          f"operations per hypothesis [{smi}]")
+    for b in (chunk22, h22):
+        print(f"    phantom_qr at {b}: {launch_shape(kernels.PHANTOM_QR, b)}")
 
     # The f64 gate of the JAX chip check: the sweep's counts against f64
     # minimal_fit + agree on the same hypotheses, on that check's data model

@@ -1,6 +1,6 @@
-// Per-step sphere RANSAC kernels, hand-written for Hopper (sm_90a): one
-// thread per hypothesis fits a circumsphere and votes it against every point;
-// the argmax over the hypotheses stays outside, as in the TPU package.
+// Per-step sphere RANSAC kernels, hand-written for Hopper (sm_90a): each
+// thread fits the circumspheres of its hypotheses and votes them against every
+// point; the argmax over the hypotheses stays outside, as in the TPU package.
 //
 // Replaces lsqrrecipes_tpu/ops/sphere_ransac.py::_make_megakernel (the
 // pallas_call in _megakernel_call) by sphere_mega_launch, the per-step sweep:
@@ -11,8 +11,9 @@
 //     (sphere_fit.cuh), so params_t is bit-equal to the plain version's;
 //   * the K = 5 affine band vote |e| < 1, e = w |p - c|^2 + o expanded as
 //     e = a0 x + a1 y + a2 z + a3 + a4 |p|^2 with A = [w(-2c), w|c|^2 + o, w]
-//     (w = 0, o = 2 on degenerate lanes), summed left to right from separate
-//     multiplies and adds, on the valid columns of points_t.
+//     (w = 0, o = 2 on degenerate lanes), as four fused multiply-adds,
+//     e = fma(a4, |p|^2, fma(a2, z, fma(a1, y, fma(a0, x, a3)))), on the valid
+//     columns of points_t (the TPU kernel's one K = 5 dot_general).
 //
 // Replaces lsqrrecipes_tpu/ops/sphere_ransac.py::_fused_kernel (the
 // pallas_call in sphere_fit_and_vote_planar) by sphere_planar_vote_launch,
@@ -28,17 +29,25 @@
 // degenerate, 0, 0, 0].  Invalid columns (valid == 0) are staged as NaN, so
 // no predicate holds there: the plain versions' "agree and valid".
 //
-// What bounds them on an H100: arithmetic.  A cell is four multiplies, four
-// adds, a compare and an add (B7; 3 + 6 + 2 compares + and + add for B8), a
-// fit ~115 operations; one step at 131,072 hypotheses x 1,024 columns is
-// ~1.5e9 operations against ~6 MB of input and output.  So:
+// What bounds them on an H100: arithmetic.  A cell is four FMAs, an abs, a
+// compare and an add (B7; 3 multiplies + 6 adds + 2 compares + and + add for
+// B8), a fit ~115 operations; one step at 131,072 hypotheses x 1,024 columns
+// is ~1.5e9 operations against ~6 MB of input and output.  So:
 //   * the point columns are staged in 1,024-column shared-memory tiles as
 //     float4 (x, y, z, |p|^2) and read as warp-wide broadcasts;
-//   * each thread keeps the band of two hypotheses in registers, so each
-//     staged column feeds two hypotheses, and 131,072 hypotheses make 256
-//     blocks of 256 threads (about two per SM);
-//   * the multiplies and adds stay separate (__f*_rn), which costs the FMA
-//     rate but keeps the counts equal to the plain versions'.
+//   * B7 keeps the band of four hypotheses per thread in registers, so one
+//     LDS.128 of a staged column feeds four cells of ~6 issue slots each
+//     (4 FFMA, FSETP with |e|, the count's add), and 131,072 hypotheses make
+//     128 blocks of 256 threads, one per SM (four SMs idle); its plain
+//     version emulates each fmaf exactly (linalg.small.fma_f32), so the
+//     counts stay equal.  On an H100 80GB HBM3 at 700 W a step took
+//     0.048-0.052 ms of device time (0.049-0.074 ms by CUDA events around
+//     back-to-back launches), against 0.065-0.066 ms with separate
+//     multiplies and adds and two hypotheses per thread, and 0.053-0.056 ms
+//     in 256 blocks of 128 threads;
+//   * B8 keeps two hypotheses per thread (256 threads) and separate
+//     multiplies and adds (__f*_rn), which costs the FMA rate but keeps its
+//     counts equal to its plain version's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -54,9 +63,13 @@ using lsq_sphere::circumsphere;
 using lsq_sphere::Hypothesis;
 using lsq_sphere::nan_max;
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // both kernels
+// B8: two hypotheses per thread.
 constexpr int kHypPerThread = 2;
 constexpr int kHypPerBlock = kThreads * kHypPerThread;
+// B7: four hypotheses per thread.
+constexpr int kMegaHypPerThread = 4;
+constexpr int kMegaHypPerBlock = kThreads * kMegaHypPerThread;
 constexpr int kTile = 1024;  // point columns per shared-memory tile
 
 // Columns t0 .. t0 + len of points_t as (x, y, z, |p|^2); invalid ones NaN.
@@ -89,12 +102,12 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
                    int n, int n_pad, unsigned num_hyp, float delta,
                    int* __restrict__ counts, float* __restrict__ params_t) {
   __shared__ float4 tile[kTile];
-  const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
+  const unsigned base = blockIdx.x * kMegaHypPerBlock + threadIdx.x;
   const size_t stride = 2 * static_cast<size_t>(n);
-  float a[kHypPerThread][5];
-  int count[kHypPerThread];
+  float a[kMegaHypPerThread][5];
+  int count[kMegaHypPerThread];
 #pragma unroll
-  for (int k = 0; k < kHypPerThread; ++k) {
+  for (int k = 0; k < kMegaHypPerThread; ++k) {
     const unsigned h = base + k * kThreads;
     count[k] = 0;
 #pragma unroll
@@ -123,18 +136,15 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
     for (int i = 0; i < len; ++i) {
       const float4 q = tile[i];
 #pragma unroll
-      for (int k = 0; k < kHypPerThread; ++k) {
-        float e = __fmul_rn(a[k][0], q.x);
-        e = __fadd_rn(e, __fmul_rn(a[k][1], q.y));
-        e = __fadd_rn(e, __fmul_rn(a[k][2], q.z));
-        e = __fadd_rn(e, a[k][3]);
-        e = __fadd_rn(e, __fmul_rn(a[k][4], q.w));
+      for (int k = 0; k < kMegaHypPerThread; ++k) {
+        const float e = __fmaf_rn(a[k][4], q.w, __fmaf_rn(a[k][2], q.z,
+                        __fmaf_rn(a[k][1], q.y, __fmaf_rn(a[k][0], q.x, a[k][3]))));
         count[k] += fabsf(e) < 1.f;
       }
     }
   }
 #pragma unroll
-  for (int k = 0; k < kHypPerThread; ++k) {
+  for (int k = 0; k < kMegaHypPerThread; ++k) {
     const unsigned h = base + k * kThreads;
     if (h < num_hyp) counts[h] = count[k];
   }
@@ -205,8 +215,8 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
   }
 }
 
-unsigned blocks_for(unsigned long long num_hyp) {
-  return static_cast<unsigned>((num_hyp + kHypPerBlock - 1) / kHypPerBlock);
+unsigned blocks_for(unsigned long long num_hyp, int per_block) {
+  return static_cast<unsigned>((num_hyp + per_block - 1) / per_block);
 }
 
 }  // namespace
@@ -227,10 +237,32 @@ extern "C" int sphere_mega_launch(const int* shifts, const float* coords2,
   if (n <= 0 || num_groups <= 0 || n_pad <= 0 || num_hyp >= (1ull << 31)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  sphere_mega_kernel<<<blocks_for(num_hyp), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sphere_mega_kernel<<<blocks_for(num_hyp, kMegaHypPerBlock), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
       shifts, coords2, points_t, valid, n, n_pad, static_cast<unsigned>(num_hyp), delta,
       counts, params_t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The per-step sweep's launch shape at num_hyp hypotheses on the current
+// device: out[0..5] = registers per thread, local (spill) bytes per thread,
+// threads per block, hypotheses per block, blocks, resident blocks per SM.
+// Returns the CUDA error of the queries.
+extern "C" int sphere_mega_shape(int num_hyp, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, sphere_mega_kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sphere_mega_kernel,
+                                                        kThreads, 0);
+  }
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = kThreads;
+  out[3] = kMegaHypPerBlock;
+  out[4] = static_cast<int>(blocks_for(static_cast<unsigned>(num_hyp), kMegaHypPerBlock));
+  out[5] = per_sm;
+  return static_cast<int>(err);
 }
 
 // sxyz f32[12, num_hyp] (rows x0..x3, y0..y3, z0..z3), points_t f32[3, n_pad],
@@ -242,7 +274,7 @@ extern "C" int sphere_planar_vote_launch(const float* sxyz, const float* points_
                                          float delta, int* counts, float* params_t,
                                          void* stream) {
   if (num_hyp <= 0 || n_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  sphere_planar_vote_kernel<<<blocks_for(num_hyp), kThreads, 0,
+  sphere_planar_vote_kernel<<<blocks_for(num_hyp, kHypPerBlock), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       sxyz, points_t, valid, static_cast<unsigned>(num_hyp), n_pad, delta, counts, params_t);
   return static_cast<int>(cudaGetLastError());

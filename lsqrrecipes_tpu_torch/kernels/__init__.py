@@ -137,6 +137,27 @@ class Kernel:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {code} ({msg})")
         self.launches += 1
 
+    def shape(self, num_hyp: int) -> dict:
+        """The launch shape at ``num_hyp`` hypotheses on the current device,
+        from the source's ``<name>_shape`` query (the redesigned kernels
+        have one): registers and spill bytes per thread, threads and
+        hypotheses per block, blocks, resident blocks per SM, and waves =
+        blocks / (blocks per SM x SMs)."""
+        self.load()
+        query = getattr(self._lib, self.symbol.replace("_launch", "_shape"))
+        query.argtypes = [ctypes.c_int, _P]
+        query.restype = ctypes.c_int
+        out = (ctypes.c_int * 6)()
+        code = query(int(num_hyp), ctypes.cast(out, _P))
+        if code != 0:
+            msg = self._lib.lsq_cuda_error_string(code).decode()
+            raise RuntimeError(f"{self.name} shape query failed: CUDA error {code} ({msg})")
+        keys = ("registers", "spill_bytes", "threads", "hyp_per_block", "blocks", "blocks_per_sm")
+        shape = dict(zip(keys, out))
+        sms = torch.cuda.get_device_properties(torch.cuda.current_device()).multi_processor_count
+        shape["waves"] = shape["blocks"] / (max(1, shape["blocks_per_sm"]) * sms)
+        return shape
+
 
 SPHERE_VOTE = Kernel(
     "sphere_vote", "sphere_vote.cu", "sphere_vote_launch",

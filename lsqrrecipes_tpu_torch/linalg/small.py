@@ -7,6 +7,8 @@ Pure elementwise tensor arithmetic batched over leading axes, with the same
 cofactor arithmetic and operation order as the JAX package; the planar QR
 pair follows the operation order of the phantom subspace kernel
 (``csrc/phantom_qr.cu``) instead, whose plain version it is built into.
+:func:`fma_f32` is CUDA's float32 fused multiply-add, exactly, for the plain
+versions of kernels that vote with one.
 """
 
 import torch
@@ -139,6 +141,28 @@ def scalar_like(value, like):
     the plain versions of the CUDA kernels divide this way to round as
     ``__fdiv_rn`` does."""
     return torch.tensor(value, dtype=like.dtype, device=like.device)
+
+
+def fma_f32(a, b, c):
+    """``a * b + c`` rounded once to float32, as CUDA's ``__fmaf_rn``:
+    float32 tensors (broadcast together) -> float32.
+
+    The product of two float32 values is exact in float64.  The sum ``s = p
+    + c`` is rounded in float64 and TwoSum gives its exact error; where the
+    error is nonzero and ``s``'s last mantissa bit is even, ``s`` moves one
+    ulp toward the error.  That is ``a b + c`` rounded to odd at 53 bits, and
+    rounding it to float32 gives the correctly rounded FMA (Boldo and
+    Melquiond, 2008: round to odd at p + 2 bits or more, then to nearest).
+    Infinities and NaN come out as the FMA's."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    back = s - p
+    err = (p - (s - back)) + (c - back)
+    even = (s.view(torch.int64) & 1) == 0
+    fix = (err != 0) & even & torch.isfinite(s)
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    return torch.where(fix, torch.nextafter(s, toward), s).to(torch.float32)
 
 
 def rsqrt(x):

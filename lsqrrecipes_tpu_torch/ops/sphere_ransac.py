@@ -14,15 +14,17 @@ Two fit-and-vote kernels with their host side:
     of the doubled slot planes ``coords2[12, 2n]`` (four permutations, one per
     slot, each written twice), fits it and counts ``|e| < 1`` for the K = 5
     affine band ``e = w |p - c|^2 + o`` (``w = 0, o = 2`` on degenerate
-    lanes).  :func:`fast_sphere_ransac_sweep` launches it once per step on a
-    distinct slice of one ``steps * groups`` table of 128-aligned shift
-    quadruples (:func:`mega_group_shifts`) and keeps the running best on the
-    device.
+    lanes), evaluated as four fused multiply-adds.
+    :func:`fast_sphere_ransac_sweep` launches it once per step on a distinct
+    slice of one ``steps * groups`` table of 128-aligned shift quadruples
+    (:func:`mega_group_shifts`) and keeps the running best on the device.
 
 Both return ``counts int32[B]`` and ``params_t f32[8, B]`` (``[cx, cy, cz,
 r, degenerate, 0, 0, 0]``).  On CUDA tensors they launch the hand-written
 kernels (``csrc/sphere_ransac.cu``); on CPU tensors they run the plain
-versions, which repeat the kernels' arithmetic operation by operation.
+versions, which repeat the kernels' arithmetic operation by operation (the
+per-step sweep's FMAs through :func:`~lsqrrecipes_tpu_torch.linalg.small.
+fma_f32`, the exact float32 FMA).
 """
 
 import ctypes
@@ -33,7 +35,7 @@ import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
-from lsqrrecipes_tpu_torch.linalg.small import scalar_like
+from lsqrrecipes_tpu_torch.linalg.small import fma_f32, scalar_like
 from lsqrrecipes_tpu_torch.ops.fused_sweep import circumsphere, sphere3d_fit
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
@@ -238,8 +240,9 @@ def _check_mega_args(shifts, coords2, points_t, valid):
 def megakernel_call_plain(shifts, coords2, points_t, valid, delta):
     """Plain PyTorch version of the per-step sweep kernel: ``(counts
     int32[G n], params_t f32[8, G n])`` for the hypotheses ``h = g n + i``,
-    the kernel's arithmetic operation by operation (``e = a0 x + a1 y + a2 z
-    + a3 + a4 |p|^2`` left to right, valid columns only)."""
+    the kernel's arithmetic operation by operation (``e = fma(a4, |p|^2,
+    fma(a2, z, fma(a1, y, fma(a0, x, a3))))``, each FMA rounded once as on
+    the card, valid columns only)."""
     n = _check_mega_args(shifts, coords2, points_t, valid)
     coords2 = coords2.to(torch.float32)
     x, y, z, pp, live = _plain_points(points_t, valid)
@@ -254,10 +257,10 @@ def megakernel_call_plain(shifts, coords2, points_t, valid, delta):
             cols = (sh[:, j : j + 1] + lanes[None, :]).reshape(-1)
             pts.append([coords2[3 * j + c][cols] for c in range(3)])
         center, r, degenerate, a = sphere3d_fit(pts, delta)
-        e = a[0][:, None] * x + a[1][:, None] * y
-        e = e + a[2][:, None] * z
-        e = e + a[3][:, None]
-        e = e + a[4][:, None] * pp
+        e = fma_f32(a[0][:, None], x, a[3][:, None])
+        e = fma_f32(a[1][:, None], y, e)
+        e = fma_f32(a[2][:, None], z, e)
+        e = fma_f32(a[4][:, None], pp, e)
         counts.append(((e.abs() < 1.0) & live).sum(dim=1, dtype=torch.int32))
         params.append(_params_rows(center, r, degenerate))
     params_t = torch.cat(params, dim=1) if params else coords2.new_zeros((8, 0))

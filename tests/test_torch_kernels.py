@@ -141,6 +141,17 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
     assert k.library_path() not in {o.library_path() for o in kernels.ALL if o is not k}
 
 
+def test_redesigned_kernels_declare_a_shape_query():
+    # Kernel.shape reads registers, block shape and blocks per SM through
+    # <name>_shape beside <name>_launch; the layouts are fixed constants.
+    for k in (kernels.PHANTOM_QR, kernels.SPHERE_MEGA):
+        text = k.source.read_text()
+        assert f'extern "C" int {k.symbol.replace("_launch", "_shape")}(int num_hyp' in text
+        assert "#ifndef" not in text
+    assert "constexpr int kGroup = 16;" in kernels.PHANTOM_QR.source.read_text()
+    assert "constexpr int kMegaHypPerThread = 4;" in kernels.SPHERE_MEGA.source.read_text()
+
+
 def test_nvcc_path_raises_when_missing(monkeypatch):
     monkeypatch.setattr(kernels.os, "access", lambda *a: False)
     with pytest.raises(FileNotFoundError, match="nvcc"):
@@ -474,8 +485,9 @@ def _step_inputs(device, n, seed):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,groups", [(1024, 128), (256, 4)])
+@pytest.mark.parametrize("n,groups", [(1024, 128), (256, 4), (128, 5), (1024, 127)])
 def test_sphere_mega_kernel_equals_plain_on_card(cuda_device, n, groups):
+    # 128 x 5 and 1,024 x 127 leave a partial last block.
     pts, points_t, valid = _step_inputs(cuda_device, n, 90 + groups)
     gen = torch.Generator(device=cuda_device).manual_seed(groups)
     coords2 = sphere_ransac._slot_planes(pts, gen, n)
@@ -537,8 +549,10 @@ def _phantom_systems(seed, b, n=64):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b", [4352, 1000])
+@pytest.mark.parametrize("b", [4352, 1000, 1, 3, 4351, 65536])
 def test_phantom_qr_kernel_equals_plain_on_card(cuda_device, b):
+    # B = 1, 3 and 4,351 leave lane groups without a hypothesis, which still
+    # take part in every shuffle.
     bands = _phantom_systems(100 + b, b).to(cuda_device)
     before = kernels.PHANTOM_QR.launches
     got = phantom_qr.phantom_subspace(bands)
@@ -566,6 +580,17 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
     assert torch.equal(torch.isnan(got), torch.isnan(plain))
     assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(plain))
     assert bool(torch.isfinite(got[:, :, 8:]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,num_hyp", [("PHANTOM_QR", 4352), ("PHANTOM_QR", 65536),
+                                            ("SPHERE_MEGA", 131072)])
+def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
+    shape = getattr(kernels, kernel).shape(num_hyp)
+    assert shape["spill_bytes"] == 0 and 0 < shape["registers"] <= 255
+    assert shape["blocks_per_sm"] >= 1 and shape["threads"] % 32 == 0
+    assert (shape["blocks"] - 1) * shape["hyp_per_block"] < num_hyp
+    assert shape["blocks"] * shape["hyp_per_block"] >= num_hyp and shape["waves"] > 0
 
 
 @pytest.mark.cuda

@@ -69,6 +69,50 @@ def test_rows_sum32_is_the_butterfly_order():
         small.rows_sum32(torch.zeros(33, 2))
 
 
+def _group_split_sum(x, group):
+    """The phantom kernel's 32-row sum with ``group`` lanes per hypothesis,
+    in numpy float32: lane l holds rows ``l + group m``, adds them in-lane by
+    halving (m + per / 2, ..., m + 1), then takes the xor butterfly over the
+    group's lanes (h = group / 2, ..., 1).  ``x[32, B]`` -> ``[group, B]``,
+    one row per lane."""
+    per = 32 // group
+    t = [x[np.arange(group) + group * m] for m in range(per)]          # each [group, B]
+    h = per // 2
+    while h:
+        t = [(t[m] + t[m + h]).astype(np.float32) for m in range(h)]
+        h //= 2
+    s = t[0]
+    h = group // 2
+    while h:
+        s = (s + s[np.arange(group) ^ h]).astype(np.float32)
+        h //= 2
+    return s
+
+
+@pytest.mark.parametrize("group", [16, 8])
+def test_rows_sum32_is_the_grouped_kernel_order(group):
+    # Random f32 with signed zeros, infinities and NaN: every lane of the
+    # group ends with rows_sum32's bits (NaN where NaN).
+    rng = np.random.default_rng(group)
+    x = (rng.standard_normal((32, 4000)) * 2.0 ** rng.integers(-20, 20, (32, 4000)))
+    x = x.astype(np.float32)
+    special = rng.uniform(size=x.shape)
+    x[special < 0.05] = 0.0
+    x[(special >= 0.05) & (special < 0.1)] = -0.0
+    x[(special >= 0.1) & (special < 0.11)] = np.inf
+    x[(special >= 0.11) & (special < 0.12)] = -np.inf
+    x[(special >= 0.12) & (special < 0.125)] = np.nan
+    x[:, :50] = rng.choice(np.float32([0.0, -0.0]), size=(32, 50))      # all-zero sums
+    x[:, :10] = -0.0
+    want = small.rows_sum32(torch.as_tensor(x)).numpy()[0]
+    lanes = _group_split_sum(x, group)
+    for lane in lanes:
+        np.testing.assert_array_equal(np.isnan(lane), np.isnan(want))
+        live = ~np.isnan(want)
+        np.testing.assert_array_equal(lane[live].view(np.uint32), want[live].view(np.uint32))
+    assert np.isnan(want).any() and np.isinf(want).any() and np.signbit(want[:50]).any()
+
+
 @pytest.mark.parametrize("n", [31, 12])
 def test_qr_r_planar_matches_jax(n):
     a = _well_conditioned(n, n)

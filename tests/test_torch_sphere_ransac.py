@@ -5,15 +5,18 @@ fit-and-vote kernels, run in Pallas interpret mode).
 Both packages get the same points and JAX's own slot planes, permutations
 and sample planes (the generators differ).  Tolerances: counts within 1 per
 hypothesis (the interpreted kernels sum the band products in XLA's order
-and may contract into FMAs; the plain versions keep every multiply and add
-apart, as the CUDA kernels do) and the best count equal; the winner's rows
-within 1e-6 relative.  The per-step sweep's independent slot permutations
+and may contract into FMAs; the plain versions round as the CUDA kernels do:
+the per-step sweep's vote as four exact FMAs, the planar vote's multiplies
+and adds apart) and the best count equal; the winner's rows within 1e-6
+relative.  ``linalg.small.fma_f32``, the per-step sweep's FMA, is held
+against an exact rational oracle.  The per-step sweep's independent slot permutations
 can put one point into two slots: such a sample's system is exactly
 singular, its rounding residue decides the fit in each package alike
 arbitrarily, and those lanes are left out of the per-lane comparisons.
 """
 
 import functools
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -25,6 +28,7 @@ from jax.experimental import pallas as pl
 from lsqrrecipes_tpu.ops import sphere_ransac as jsr
 from lsqrrecipes_tpu.ops.vote import pack_points as jpack_points
 from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+from lsqrrecipes_tpu_torch.linalg.small import fma_f32
 from lsqrrecipes_tpu_torch.ops import sphere_ransac as sr
 from lsqrrecipes_tpu_torch.ops import vote
 
@@ -111,6 +115,80 @@ def test_planar_samples_identical():
     got = sr.planar_sphere_samples(None, pts, GROUPS, perm=perm, device="cpu")
     assert got.dtype == torch.float32 and got.shape == (12, GROUPS * N)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ------------------------------------------------ the exact f32 FMA (B7)
+
+
+def _f32_round(exact):
+    """``exact`` (a Fraction) rounded to the nearest float32, ties to even,
+    by comparing its two float32 neighbours exactly (finite range only)."""
+    lo = np.float32(float(exact))
+    while Fraction(float(lo)) > exact:
+        lo = np.nextafter(lo, np.float32(-np.inf))
+    while Fraction(float(np.nextafter(lo, np.float32(np.inf)))) <= exact:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    if Fraction(float(lo)) == exact:
+        return lo
+    hi = np.nextafter(lo, np.float32(np.inf))
+    below, above = exact - Fraction(float(lo)), Fraction(float(hi)) - exact
+    if below != above:
+        return lo if below < above else hi
+    return lo if lo.view(np.uint32) % 2 == 0 else hi
+
+
+def _fma_cases():
+    """``(a, b, c)`` float32: products on an exact float32 halfway point,
+    with c = 0 (a true tie) or a tiny c on either side (where rounding the
+    float64 sum first would land on the tie and round the wrong way),
+    cancellations, subnormal results, and random triples over a wide range
+    of exponents."""
+    rng = np.random.default_rng(0)
+    cases = []
+    for k in (1, 3, 5, 7, 11):
+        a = np.float32(1 + 2.0**-12)
+        b = np.float32(1 + k * 2.0**-12)
+        for c in (0.0, 2.0**-80, -(2.0**-80), 2.0**-60, -(2.0**-60), 2.0**-149, -(2.0**-149)):
+            cases.append((a, b, np.float32(c)))
+            cases.append((-a, b, np.float32(-c)))
+    a = rng.standard_normal(3000) * 2.0 ** rng.integers(-30, 30, 3000)
+    b = rng.standard_normal(3000) * 2.0 ** rng.integers(-30, 30, 3000)
+    c = rng.standard_normal(3000) * 2.0 ** rng.integers(-60, 60, 3000)
+    a, b, c = a.astype(np.float32), b.astype(np.float32), c.astype(np.float32)
+    near = -(a[:1000].astype(np.float64) * b[:1000]).astype(np.float32)   # cancellation
+    c[:1000] = near * (1 + rng.integers(-3, 4, 1000) * np.float32(2.0**-23))
+    tiny = (rng.standard_normal(200) * 2.0**-70).astype(np.float32)       # subnormal results
+    cases += list(zip(a, b, c)) + [(t, np.float32(2.0**-70), np.float32(t * 2.0**-100))
+                                   for t in tiny]
+    return [tuple(np.float32(v) for v in t) for t in cases]
+
+
+def test_fma_f32_is_the_correctly_rounded_fma():
+    cases = _fma_cases()
+    a, b, c = (torch.tensor([t[i] for t in cases]) for i in range(3))
+    got = fma_f32(a, b, c).numpy()
+    want = np.array([_f32_round(Fraction(float(x)) * Fraction(float(y)) + Fraction(float(z)))
+                     for x, y, z in cases], np.float32)
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+    # The tiny addends decide the rounding: rounding the float64 sum first
+    # would miss some of them.
+    naive = (a.double() * b.double() + c.double()).float().numpy()
+    assert (naive.view(np.uint32) != want.view(np.uint32)).sum() >= 10
+
+
+def test_fma_f32_special_values_and_broadcast():
+    inf, nan = float("inf"), float("nan")
+    a = torch.tensor([inf, inf, inf, nan, -0.0, -0.0, 1.0, 3e38])
+    b = torch.tensor([0.0, 1.0, 1.0, 1.0, 1.0, 1.0, -1.0, 10.0])
+    c = torch.tensor([1.0, 1.0, -inf, 1.0, 0.0, -0.0, 1.0, 0.0])
+    got = fma_f32(a, b, c)
+    assert torch.isnan(got[[0, 2, 3]]).all()
+    assert got[1] == inf and got[7] == inf
+    assert np.signbit(got[4:7].numpy()).tolist() == [False, True, False]
+    assert bool((got[4:7] == 0).all())
+    grid = fma_f32(torch.ones(3, 1), torch.arange(4.0), torch.tensor(0.5))
+    assert grid.shape == (3, 4) and torch.equal(grid[2], torch.arange(4.0) + 0.5)
 
 
 # -------------------------------------------------- the per-step sweep (B7)
