@@ -136,17 +136,15 @@ class SphereEstimator(Estimator):
         sqrt-free band ``(max(r-delta,0))^2 < |p|^2 - 2 c.p + |c|^2 <
         (r+delta)^2``.
 
-        Where the JAX package dispatches to its Pallas kernel — f32 data,
-        dim 3, ``B % 512 == 0`` — this goes to
-        :func:`lsqrrecipes_tpu_torch.ops.vote.sphere_vote_counts`, which
-        launches the CUDA kernel on CUDA tensors; elsewhere the plain
-        formula below runs.
+        f32 data in 3D goes to
+        :func:`lsqrrecipes_tpu_torch.ops.vote.sphere_vote_counts` whatever
+        B is (the JAX package's Pallas kernel needs ``B % 512 == 0``; the
+        CUDA kernel does not), so the counts do not depend on the batch
+        size at band edges: it launches the kernel on CUDA tensors and runs
+        its plain version on CPU tensors.  f64 data and other dims take the
+        formula below.
         """
-        if (
-            self.dim == 3
-            and data.dtype == torch.float32
-            and params.shape[0] % 512 == 0
-        ):
+        if self.dim == 3 and data.dtype == torch.float32:
             from lsqrrecipes_tpu_torch.ops import vote as _vote
 
             points_t, valid, _ = _vote.pack_points(data)

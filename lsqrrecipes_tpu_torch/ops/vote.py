@@ -14,6 +14,7 @@ import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor
+from lsqrrecipes_tpu_torch.linalg.small import fma_f32
 
 # Rows of one plain-version chunk: bounds its [chunk, n_pad] temporaries.
 _PLAIN_CELLS = 1 << 24
@@ -59,9 +60,11 @@ def sphere_vote_counts_plain(params, points_t, valid, delta):
     """Plain PyTorch version of the kernel: ``int32[B]`` counts of valid
     columns with ``lo2 < |p|^2 - 2 c.p + |c|^2 < (r + delta)^2``.
 
-    It repeats the kernel's f32 arithmetic operation by operation (``c.p``
-    summed elementwise in coordinate order, no matrix product), so the two
-    give equal counts.
+    It repeats the kernel's f32 arithmetic operation by operation, so the
+    two give equal counts: ``|p|^2 - 2 c.p`` as three fused multiply-adds
+    ``fma(-2cz, z, fma(-2cy, y, fma(-2cx, x, |p|^2)))``, each rounded once
+    as CUDA's ``__fmaf_rn`` (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`),
+    then ``+ |c|^2``; no matrix product.
     """
     _check_vote_args(params, points_t, valid)
     params = params.to(torch.float32)
@@ -75,9 +78,11 @@ def sphere_vote_counts_plain(params, points_t, valid, delta):
         prm = params[b0 : b0 + chunk]
         c = prm[:, 0:3]
         r = prm[:, 3]
-        cp = c[:, 0:1] * pts[0] + c[:, 1:2] * pts[1] + c[:, 2:3] * pts[2]
-        cc = _sum_sq_rows(c.T)[:, None]
-        d2 = pp - 2.0 * cp + cc
+        m = -2.0 * c                            # exact
+        t = fma_f32(m[:, 0:1], pts[0], pp)
+        t = fma_f32(m[:, 1:2], pts[1], t)
+        t = fma_f32(m[:, 2:3], pts[2], t)
+        d2 = t + _sum_sq_rows(c.T)[:, None]
         rp = r + delta
         rm = r - delta
         hi2 = (rp * rp)[:, None]

@@ -245,8 +245,8 @@ def ransac_batched(est, data, generators=None, num_hypotheses: int = 4096, *, pe
     ``inlier_fraction`` is ``max(count, 0) / n``.  Returns a
     :class:`RansacResult` whose fields carry the leading ``[D]`` axis.  A
     loop over the datasets stands in for the JAX package's ``vmap``; on a
-    sphere at float32 with ``groups * n % 512 == 0`` each dataset's vote
-    launches the sphere vote kernel once.  ``perms`` (``[D, n]``) fixes
+    sphere at float32 each dataset's vote launches the sphere vote kernel
+    once.  ``perms`` (``[D, n]``) fixes
     each dataset's sampling permutation."""
     data = as_tensor(data, device)
     num = tree_leaves(data)[0].shape[0]

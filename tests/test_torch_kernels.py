@@ -14,6 +14,7 @@ import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor
+from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
 from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ops import phantom_qr, sphere_lm, sphere_ransac, us_fast, vote
@@ -144,12 +145,18 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
 def test_redesigned_kernels_declare_a_shape_query():
     # Kernel.shape reads registers, block shape and blocks per SM through
     # <name>_shape beside <name>_launch; the layouts are fixed constants.
-    for k in (kernels.PHANTOM_QR, kernels.SPHERE_MEGA):
+    for k in (kernels.PHANTOM_QR, kernels.SPHERE_MEGA, kernels.SPHERE_VOTE, kernels.PLANE_VOTE):
         text = k.source.read_text()
         assert f'extern "C" int {k.symbol.replace("_launch", "_shape")}(int num_hyp' in text
         assert "#ifndef" not in text
     assert "constexpr int kGroup = 16;" in kernels.PHANTOM_QR.source.read_text()
     assert "constexpr int kMegaHypPerThread = 4;" in kernels.SPHERE_MEGA.source.read_text()
+    for k in (kernels.SPHERE_VOTE, kernels.PLANE_VOTE):
+        assert "constexpr int kHypPerThread = 4;" in k.source.read_text()
+    # B2 fuses |p|^2 - 2 c.p into FMAs (its plain version rounds each one as
+    # CUDA does); B4 keeps separate multiplies and adds, as JAX's counts.
+    assert "__fmaf_rn" in kernels.SPHERE_VOTE.source.read_text()
+    assert "__fmaf_rn" not in kernels.PLANE_VOTE.source.read_text()
 
 
 def test_nvcc_path_raises_when_missing(monkeypatch):
@@ -279,6 +286,115 @@ def test_plane_vote_kernel_equals_plain_on_card(cuda_device, d):
     plain = vote.plane_vote_counts_plain(params, tt, vt, 1.0)
     assert kernels.PLANE_VOTE.launches == before + 1
     assert torch.equal(got, plain)
+
+
+# Ragged shapes for the two vote kernels: 128 hypotheses per block, 2,048
+# points per shared-memory tile (n = 2,049 pads to 2,176: two tiles).
+VOTE_RAGGED_B = (1, 3, 127, 129, 65537)
+VOTE_RAGGED_N = (1000, 2049, 8192)
+
+
+def _sphere_params(seed, b, device):
+    """``[b, 4]`` f32: the even rows near the cloud's sphere, the odd ones wide."""
+    rng = np.random.default_rng(seed)
+    near = np.concatenate([[5.0, -2.0, 11.0] + rng.normal(0, 0.1, (b, 3)),
+                           25.0 + rng.normal(0, 0.1, (b, 1))], 1)
+    wide = np.concatenate([rng.uniform(-20, 30, (b, 3)), rng.uniform(0.2, 45, (b, 1))], 1)
+    params = np.where((np.arange(b) % 2 == 0)[:, None], near, wide)
+    return torch.as_tensor(params.astype(np.float32), device=device)
+
+
+def _plane_params(seed, b, d, device):
+    """``[b, d + 1]`` f32 rows [unit normal, offset], the even ones near the
+    data's plane (line) n.p = 2 of :func:`_flat_cloud`."""
+    rng = np.random.default_rng(seed)
+    true_n = np.array([0.3, -0.5, 0.81][:d]) / np.linalg.norm([0.3, -0.5, 0.81][:d])
+    normals = np.where((np.arange(b) % 2 == 0)[:, None], true_n + rng.normal(0, 0.002, (b, d)),
+                       rng.normal(size=(b, d)))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    off = np.where(np.arange(b) % 2 == 0, 2.0 + rng.normal(0, 0.1, b), rng.uniform(-20, 20, b))
+    return torch.as_tensor(np.concatenate([normals, off[:, None]], 1).astype(np.float32),
+                           device=device)
+
+
+def _flat_cloud(seed, n, d):
+    """80% of the points within N(0, 0.3) of the plane (line) n.p = 2, 20%
+    uniform in [-40, 40]^d, f32."""
+    rng = np.random.default_rng(seed)
+    true_n = np.array([0.3, -0.5, 0.81][:d]) / np.linalg.norm([0.3, -0.5, 0.81][:d])
+    n_in = n * 4 // 5
+    raw = rng.uniform(-30, 30, (n_in, d))
+    inl = raw - (raw @ true_n - 2.0)[:, None] * true_n + 0.3 * rng.normal(size=(n_in, d))
+    return np.concatenate([inl, rng.uniform(-40, 40, (n - n_in, d))]).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", VOTE_RAGGED_N)
+@pytest.mark.parametrize("b", VOTE_RAGGED_B)
+def test_vote_kernel_ragged_shapes_equal_plain_on_card(cuda_device, b, n):
+    pts = torch.as_tensor(_cloud(15 + n, n), device=cuda_device)
+    params = _sphere_params(16 + b, b, cuda_device)
+    tt, vt, _ = vote.pack_points(pts)
+    before = kernels.SPHERE_VOTE.launches
+    got = vote.sphere_vote_counts(params, tt, vt, 1.0)
+    plain = vote.sphere_vote_counts_plain(params, tt, vt, 1.0)
+    assert kernels.SPHERE_VOTE.launches == before + 1
+    assert torch.equal(got, plain) and int(plain.max()) > n // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", VOTE_RAGGED_N)
+@pytest.mark.parametrize("b", VOTE_RAGGED_B)
+@pytest.mark.parametrize("d", [2, 3])
+def test_plane_vote_kernel_ragged_shapes_equal_plain_on_card(cuda_device, d, b, n):
+    pts = torch.as_tensor(_flat_cloud(17 + n, n, d), device=cuda_device)
+    params = _plane_params(18 + b, b, d, cuda_device)
+    tt, vt, _ = vote.pack_points(pts)
+    before = kernels.PLANE_VOTE.launches
+    got = vote.plane_vote_counts(params, tt, vt, 1.0)
+    plain = vote.plane_vote_counts_plain(params, tt, vt, 1.0)
+    assert kernels.PLANE_VOTE.launches == before + 1
+    assert torch.equal(got, plain) and int(plain.max()) > n // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [None, 2, 3])
+def test_vote_kernels_pad_columns_never_vote_on_card(cuda_device, d):
+    # 100 points, then 4,000 padding columns (one whole tile and more) that
+    # hold copies of the points: none of them may vote.
+    n, n_pad = 100, 4096
+    cloud = _cloud(19, n) if d is None else _flat_cloud(19, n, d)
+    rows = cloud.shape[1]
+    points_t = torch.as_tensor(np.tile(cloud.T, (1, n_pad // n + 1))[:, :n_pad].copy(),
+                               device=cuda_device)
+    valid = torch.zeros((1, n_pad), dtype=torch.float32, device=cuda_device)
+    valid[0, :n] = 1.0
+    if d is None:
+        params = _sphere_params(20, 129, cuda_device)
+        got = vote.sphere_vote_counts(params, points_t, valid, 1.0)
+        plain = vote.sphere_vote_counts_plain(params, points_t, valid, 1.0)
+        alone = vote.sphere_vote_counts(params, points_t[:, :n].contiguous(),
+                                        valid[:, :n].contiguous(), 1.0)
+    else:
+        params = _plane_params(20, 129, rows, cuda_device)
+        got = vote.plane_vote_counts(params, points_t, valid, 1.0)
+        plain = vote.plane_vote_counts_plain(params, points_t, valid, 1.0)
+        alone = vote.plane_vote_counts(params, points_t[:, :n].contiguous(),
+                                       valid[:, :n].contiguous(), 1.0)
+    assert torch.equal(got, plain) and torch.equal(got, alone) and int(got.max()) > n // 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [500, 512])
+def test_estimator_vote_counts_launch_the_kernel_at_any_b_on_card(cuda_device, b):
+    est = SphereEstimator(1.0, 3, ALGEBRAIC)
+    pts = torch.as_tensor(_cloud(21, 1000), device=cuda_device)
+    params = _sphere_params(22, b, cuda_device)
+    before = kernels.SPHERE_VOTE.launches
+    got = est.vote_counts(params, pts)
+    assert kernels.SPHERE_VOTE.launches == before + 1
+    tt, vt, _ = vote.pack_points(pts)
+    assert torch.equal(got, vote.sphere_vote_counts_plain(params, tt, vt, 1.0))
 
 
 RIGID_SIZES = {"pivot": (512, 480)}   # (n, a size that is not 128 * 2^k)
@@ -584,7 +700,9 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,num_hyp", [("PHANTOM_QR", 4352), ("PHANTOM_QR", 65536),
-                                            ("SPHERE_MEGA", 131072)])
+                                            ("SPHERE_MEGA", 131072),
+                                            ("SPHERE_VOTE", 65536), ("SPHERE_VOTE", 1 << 20),
+                                            ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20)])
 def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
     shape = getattr(kernels, kernel).shape(num_hyp)
     assert shape["spill_bytes"] == 0 and 0 < shape["registers"] <= 255

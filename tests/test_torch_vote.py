@@ -3,12 +3,14 @@
 The JAX Pallas kernels run in interpret mode on the CPU (as the JAX
 package's own tests run them); the port's CPU path is the plain version of
 each CUDA kernel.  Sphere f32 counts may differ by one at a band edge,
-because the two sum ``c.p`` in different orders: |delta| <= 1 per
-hypothesis and >= 99.9% exactly equal.  Plane counts are equal.  float64
+because the two round ``|p|^2 - 2 c.p`` differently (the port in three
+FMAs, JAX through a dot product): |delta| <= 1 per hypothesis and >= 99.9%
+exactly equal.  Plane counts are equal.  float64
 votes (the estimator's plain path) are exact.
 """
 
 import functools
+from fractions import Fraction
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,13 +88,106 @@ def test_estimator_vote_counts_f64_exact():
 
 @pytest.mark.parametrize("b", [512, 500])
 def test_estimator_vote_counts_f32_dispatch(b):
-    # b % 512 == 0 takes the kernel wrapper (plain version on the CPU),
-    # otherwise the estimator's own formula: both within one of JAX's.
+    # f32 in 3D takes the kernel wrapper at any b (its plain version on the
+    # CPU); JAX takes its Pallas kernel at b % 512 == 0 and its own formula
+    # otherwise: within one of JAX's either way.
     pts = _points(5, 256)
     params = _params(6, b)
     cj = np.asarray(JSphere(1.0, 3, J_ALGEBRAIC).vote_counts(jnp.asarray(params), jnp.asarray(pts)))
     ct = SphereEstimator(1.0, 3, ALGEBRAIC).vote_counts(torch.as_tensor(params), torch.as_tensor(pts))
     assert np.abs(ct.numpy().astype(np.int64) - cj).max() <= 1
+
+
+@pytest.mark.parametrize("b", [1, 500, 513])
+def test_estimator_f32_vote_goes_through_the_kernel_wrapper_at_any_b(monkeypatch, b):
+    # One f32 3D formula at every batch size: the wrapper (B2 on CUDA, its
+    # plain version here), so band-edge counts do not depend on b.
+    pts = _points(13, 300)
+    params = torch.as_tensor(_params(14, b))
+    wrapper, calls = vote.sphere_vote_counts, []
+    monkeypatch.setattr(vote, "sphere_vote_counts",
+                        lambda p, *a, **k: calls.append(p.shape[0]) or wrapper(p, *a, **k))
+    got = SphereEstimator(1.0, 3, ALGEBRAIC).vote_counts(params, torch.as_tensor(pts))
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    assert calls == [b]
+    assert torch.equal(got, vote.sphere_vote_counts_plain(params, tt, vt, 1.0))
+
+
+@pytest.mark.parametrize("d", [None, 2, 3])
+def test_plain_votes_never_count_padding_columns(d):
+    # 100 points, then padding columns that hold copies of them.
+    n, n_pad = 100, 640
+    pts = _points(15, n) if d is None else _flat_points(15, n, d)
+    points_t = torch.as_tensor(np.tile(pts.T, (1, n_pad // n + 1))[:, :n_pad].copy())
+    valid = torch.zeros((1, n_pad), dtype=torch.float32)
+    valid[0, :n] = 1.0
+    alone_t, alone_v = points_t[:, :n].contiguous(), valid[:, :n].contiguous()
+    if d is None:
+        params = torch.as_tensor(_params(16, 256))
+        got = vote.sphere_vote_counts_plain(params, points_t, valid, 1.0)
+        alone = vote.sphere_vote_counts_plain(params, alone_t, alone_v, 1.0)
+    else:
+        params = torch.as_tensor(_plane_params(16, 256, d))
+        got = vote.plane_vote_counts_plain(params, points_t, valid, 1.0)
+        alone = vote.plane_vote_counts_plain(params, alone_t, alone_v, 1.0)
+    assert torch.equal(got, alone) and int(got.max()) > n // 2
+
+
+def _f32_round(exact):
+    """``exact`` (a Fraction) rounded to the nearest float32, ties to even,
+    by comparing its two float32 neighbours exactly (finite range only)."""
+    lo = np.float32(float(exact))
+    while Fraction(float(lo)) > exact:
+        lo = np.nextafter(lo, np.float32(-np.inf))
+    while Fraction(float(np.nextafter(lo, np.float32(np.inf)))) <= exact:
+        lo = np.nextafter(lo, np.float32(np.inf))
+    if Fraction(float(lo)) == exact:
+        return lo
+    hi = np.nextafter(lo, np.float32(np.inf))
+    below, above = exact - Fraction(float(lo)), Fraction(float(hi)) - exact
+    if below != above:
+        return lo if below < above else hi
+    return lo if lo.view(np.uint32) % 2 == 0 else hi
+
+
+def test_plain_vote_rounds_each_fma_once_on_band_edge_points():
+    # B2 and its plain version take d2 = fma(-2cz, z, fma(-2cy, y, fma(-2cx,
+    # x, |p|^2))) + |c|^2 in float32.  Held here against that chain with each
+    # FMA rounded once from its exact rational value, on points placed on the
+    # band edges r +- delta of every hypothesis, where one rounding decides
+    # the count.
+    rng = np.random.default_rng(25)
+    f32 = np.float32
+    delta = f32(1.0)
+    params = _params(26, 24)
+    edge = []
+    for c0, c1, c2, r in params.astype(np.float64):
+        u = rng.normal(size=(6, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        rad = np.array([r + 1.0, r - 1.0] * 3)[:, None]
+        edge.append((np.array([c0, c1, c2]) + rad * u)[rad[:, 0] > 0])
+    pts = np.concatenate(edge).astype(np.float32)
+    tt, vt, _ = vote.pack_points(torch.as_tensor(pts))
+    got = vote.sphere_vote_counts_plain(torch.as_tensor(params), tt, vt, float(delta)).numpy()
+
+    want, near_edge = [], 0
+    pp = [(x * x + y * y) + z * z for x, y, z in pts]           # float32 throughout
+    for c0, c1, c2, r in params:
+        m = [f32(-2.0) * c0, f32(-2.0) * c1, f32(-2.0) * c2]
+        cc = (c0 * c0 + c1 * c1) + c2 * c2
+        rp, rm = r + delta, r - delta
+        hi2, lo2 = rp * rp, (rm * rm if rm >= 0 else f32(-np.inf))
+        count = 0
+        for (x, y, z), p2 in zip(pts, pp):
+            t = p2
+            for mk, v in zip(m, (x, y, z)):
+                t = _f32_round(Fraction(float(mk)) * Fraction(float(v)) + Fraction(float(t)))
+            d2 = t + cc
+            count += bool(lo2 < d2 < hi2)
+            near_edge += bool(min(abs(d2 - hi2), abs(d2 - lo2)) <= 16 * np.spacing(hi2))
+        want.append(count)
+    np.testing.assert_array_equal(got, np.array(want, np.int32))
+    assert near_edge >= len(params)           # the edges are really probed
 
 
 def test_plain_vote_equals_literal_agree_away_from_edges():
