@@ -16,7 +16,9 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
 ``numpy.random.default_rng(seed)``, delta 1.0:
 
   1. device: card name and power limit;
-  2. build: every kernel, one ``nvcc`` per source, all in parallel;
+  2. build: every kernel, one ``nvcc`` per source, all in parallel; the
+     line3d kernel's and the crosswire vote and fit kernels' registers,
+     spills, blocks per SM and waves at the main path's shapes;
   3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024;
      equal counts) and vs an f64 literal ``agree`` oracle, its registers,
      blocks per SM and waves;
@@ -30,10 +32,13 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      vs its plain version at B = 2^20 x n = 8,192 (equal counts), with its
      launch shape and the SM clock and power while it runs;
   8. kernels ``fused_sweep_plane3d``, ``fused_sweep_line3d`` and
-     ``fused_sweep_line2d`` vs their plain versions on phase 4's cases;
+     ``fused_sweep_line2d`` vs their plain versions on phase 4's cases
+     (line3d: equal counts and winner indices, bit-equal params), and line3d
+     on a cloud 1e4 from the origin, its best count within 1 of the float64
+     ``agree`` maximum;
   9. per family, ``ransac_fused_sweep`` at n = 1,024 with 2^22 hypotheses
      (one launch), the ground truth recovered, then the kernel vs its plain
-     version at that shape;
+     version at that shape (line3d as in phase 8, with its launch shape);
  10. ``ransac`` with a plane at 65,536 gathered hypotheses (the engine's
      ``agree`` vote, no kernel) and ``ransac_adaptive`` with a 2D line (fused
      line2d rounds);
@@ -55,7 +60,9 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
  16. per ultrasound family, ``ransac_fused_sweep`` (delta 3.0, ITERATIVE
      Levenberg-Marquardt refit) at the JAX family record's width, n = 1,024
      and 1,024 groups (one launch), the ground truth recovered, the refit's
-     iterations and time, then the kernel vs its plain version at that shape;
+     iterations and time, then the kernel vs its plain version at that shape
+     (crosswire: its fit and vote kernels' device ms by the profiler and
+     their launch shapes);
  17. ``ransac_structured`` on both ultrasound estimators through the
      ``us_fast`` hook at 16,384 hypotheses, and ``ransac`` on crosswire at
      16,384 gathered hypotheses (the batched f64 12x12 SVD minimal fit); no
@@ -171,9 +178,13 @@ SWEEP_OPS_PER_HYP = 115      # Cramer fit and band rows, once per hypothesis
 VOTE_OPS_PER_CELL = 10
 # The point sweeps (csrc/fused_sweep_points.cu), (per cell, per hypothesis):
 # plane3d 1 multiply + 4 FMA + compare + add, line2d 1 multiply + 3 FMA +
-# compare + add, line3d 3 subtracts + 7 multiplies + 5 adds/subtracts +
-# compare + add; the fits and band rows once per hypothesis.
-POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (17, 13), "line2d": (9, 15)}
+# compare + add, line3d 7 FMA + compare + add; the fits and band rows once
+# per hypothesis (line3d: the fit's 13 and the vote rows' 18, a - c, -2a,
+# -u.a and delta^2 - |a|^2; its 8 per point of centring are negligible).
+POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (16, 31), "line2d": (9, 15)}
+# The sweeps whose plain versions round FMAs through fma_f32 in float64 take
+# seconds a call at the main path's shapes: their plain time is one call.
+PLAIN_ONCE = ("line3d", "crosswire")
 # plane_vote: d multiplies + d - 1 adds, subtract, multiply, compare, add.
 PLANE_VOTE_OPS_PER_CELL = {2: 7, 3: 9}
 
@@ -205,6 +216,12 @@ FAMILIES = {
     "line2d": ("line2d", np.array([-2.0, 5.0]), np.array([-0.6, 0.8])),
 }
 MAX_ANGLE, MAX_ANCHOR = 0.01, 0.1   # radians; data units
+# Point sweeps held to equal counts and winner indices against their plain
+# versions (phases 8, 9); the others within one count, as before.
+EXACT_POINT_SWEEPS = ("line3d",)
+# Phase 8 also sweeps a line3d cloud this far from the origin on every axis,
+# where the vote's |p|^2 - 2a.p expansion would cancel badly about the origin.
+FAR_OFFSET = 1e4
 
 # The rigid families (csrc/fused_sweep_rigid.cu): estimator registry name,
 # data size n and groups of the main path (the JAX family record,
@@ -235,7 +252,8 @@ RIGID_LIMITS = {"pivot": (0.1, 0.1), "absolute_orientation": (0.01, 0.2),
 # The ultrasound families (csrc/fused_sweep_us.cu): estimator registry name,
 # n and groups of the main path (the JAX family record,
 # docs/FAMILY_PERF.json), and f32 operations per vote cell: crosswire
-# 3 x (5 mul + 5 add/sub + sub) + 3 mul + 2 add + compare + count, pointer
+# 3 x (5 mul + 5 add/sub + sub) + 3 mul + 2 add + compare + count (the
+# kernel's 3 x (add + 5 FMA) + multiply + 2 FMA count the same), pointer
 # 3 x (2 mul + 3 add/sub) + 3 mul + 2 add + compare + count.  The fits'
 # operations come from us_fit_ops.
 US = {"crosswire": ("us_crosswire", 1024, 1024, 40),
@@ -558,10 +576,11 @@ def phantom_qr_ops():
     return ops + 2 * (4 * solve + 4 * norm + 6 * 4 * 31 + 4 * norm)
 
 
-def launch_shape(kernel, num_hyp):
+def launch_shape(kernel, num_hyp, query="shape"):
     """A redesigned kernel's registers, spills, block shape, blocks per SM
-    and waves at ``num_hyp`` hypotheses, as text."""
-    s = kernel.shape(num_hyp)
+    and waves at ``num_hyp`` hypotheses, as text (``query``: see
+    ``Kernel.shape``)."""
+    s = kernel.shape(num_hyp, query)
     return (f"{s['registers']} registers, {s['spill_bytes']} spill bytes, {s['blocks']} blocks "
             f"of {s['threads']} threads ({s['hyp_per_block']} hypotheses each), "
             f"{s['blocks_per_sm']} blocks per SM, {s['waves']:.3f} waves")
@@ -570,6 +589,11 @@ def launch_shape(kernel, num_hyp):
 def max_or(t, default):
     """``int(t.max())``, or ``default`` for an empty tensor."""
     return int(t.max()) if t.numel() else default
+
+
+def plain_reps(family):
+    """``(reps, warmup)`` for timing a sweep's plain version."""
+    return (1, 0) if family in PLAIN_ONCE else (2, 1)
 
 
 def check(cond, msg):
@@ -724,6 +748,29 @@ def breakdown(torch, fn, label, top=6):
     return busy, rows
 
 
+def device_ms(torch, fn, names, reps=10):
+    """Mean device ms per launch of the kernels whose names contain each of
+    ``names``, from one ``torch.profiler`` window of ``reps`` calls of ``fn``
+    queued behind a spin kernel.  Each mean is over the launches the
+    profiler recorded, which can be fewer than ``reps``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(HOLD_CYCLES)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for name in names:
+        evts = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
+        launches = sum(e.count for e in evts)
+        out[name] = sum(e.self_device_time_total for e in evts) / 1e3 / max(1, launches)
+    return out
+
+
 def library_plane_vote(torch, params, points_t, valid, delta_sq, chunk=8192):
     """One-library-call yardstick for the plane vote: ``addmm`` with the
     offset as bias, then square, compare and sum, chunked over hypotheses.
@@ -798,6 +845,12 @@ def main(argv=None):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {k.name}: {line.strip()}")
+    cw_kernel = kernels.FUSED_SWEEPS["crosswire"]
+    hyp_cw = US["crosswire"][1] * US["crosswire"][2]
+    print(f"    fused_sweep_line3d at {H_FUSED}: "
+          f"{launch_shape(kernels.FUSED_SWEEP_LINE3D, H_FUSED)}")
+    print(f"    fused_sweep_crosswire at {hyp_cw}: vote {launch_shape(cw_kernel, hyp_cw)}; "
+          f"fit {launch_shape(cw_kernel, hyp_cw, 'fit_shape')}")
 
     # 3. sphere_vote vs plain -----------------------------------------------
     n, b = N_VOTE, B_VOTE
@@ -1002,7 +1055,25 @@ def main(argv=None):
             family_err[family] = max(family_err[family], compare_sweep(
                 fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
                 f"[8] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
-                f"subsample={subsample}"))
+                f"subsample={subsample}", exact=family in EXACT_POINT_SWEEPS))
+    far = family_cloud(np.random.default_rng([args.seed, 8]), "line3d", N_MAIN)  # rng's stream as before
+    far = torch.as_tensor(far + np.float32(FAR_OFFSET), device=dev)
+    perms8 = fs.draw_slot_perms(N_MAIN, 2, torch.Generator(device=dev).manual_seed(args.seed),
+                                device=dev)
+    coords, p, n_fit, vote_cols = fs.sweep_inputs("line3d", far, None, perms=perms8)
+    groups8 = SWEEP_CASES[0][1]
+    family_err["line3d"] = max(family_err["line3d"], compare_sweep(
+        fs, "line3d", make_est("line3d"), coords, p, n_fit, groups8, vote_cols, far,
+        f"[8] fused_sweep_line3d n={N_MAIN} groups={groups8}, the cloud {FAR_OFFSET:g} from "
+        f"the origin", exact=True))
+    far_count = int(fs.sweep_cuda("line3d", coords, p, n_fit, groups8, vote_cols, DELTA)[0])
+    params8, valid8 = make_est("line3d").minimal_fit(
+        fs.reference_samples("line3d", far, perms8, groups8).double())
+    far_max = int(torch.where(valid8, make_est("line3d").agree(params8, far.double()).sum(-1),
+                              0).max())
+    print(f"    best count {far_count}, float64 agree maximum {far_max}")
+    check(abs(far_count - far_max) <= 1, "[8] line3d far from the origin: the best count is "
+          "not within 1 of the float64 maximum")
 
     # 9. main path per family: ransac_fused_sweep, one launch ---------------
     clouds9 = {}
@@ -1033,7 +1104,7 @@ def main(argv=None):
         ms9 = timer.ms(lambda: fs.sweep_cuda(family, coords9, p9, nfit9, groups9, cols9, DELTA),
                        reps=20)
         plain_ms9 = timer.ms(lambda: fs.sweep_plain(family, coords9, p9, nfit9, groups9, cols9,
-                                                    DELTA), reps=2, warmup=1)
+                                                    DELTA), *plain_reps(family))
         per_cell, per_hyp = POINT_SWEEP_OPS[family]
         hyp9 = groups9 * nfit9
         bound9, by9 = bound(hyp9 * (cols9 * per_cell + per_hyp),
@@ -1042,9 +1113,12 @@ def main(argv=None):
         family_times[family] = (ms9, plain_ms9, bound9, by9)
         print(f"    kernel ms: {name_f} {ms9:.4f}, plain {plain_ms9:.4f}, "
               f"bound {bound9:.4f} ({by9}) [{smi}]")
+        if family == "line3d":
+            print(f"    {name_f} at {hyp9}: {launch_shape(kernels.FUSED_SWEEP_LINE3D, hyp9)}")
         family_err[family] = max(family_err[family], compare_sweep(
             fs, family, est_f, coords9, p9, nfit9, groups9, cols9, pts9,
-            f"    fused_sweep_{family} at this shape ({groups9} groups)"))
+            f"    fused_sweep_{family} at this shape ({groups9} groups)",
+            exact=family in EXACT_POINT_SWEEPS))
 
     # 10. gathered planes (agree vote, no kernel) and adaptive 2D lines ------
     plane_est = make_est("plane3d")
@@ -1332,7 +1406,7 @@ def main(argv=None):
         ms16 = timer.ms(lambda: fs.sweep_cuda(family, coords16, p16, nfit16, groups16, cols16,
                                               US_DELTA), reps=20)
         plain_ms16 = timer.ms(lambda: fs.sweep_plain(family, coords16, p16, nfit16, groups16,
-                                                     cols16, US_DELTA), reps=2, warmup=1)
+                                                     cols16, US_DELTA), *plain_reps(family))
         # The least work: every evaluated hypothesis fitted once and voted on
         # the n observations.
         bound16, by16 = bound(hyp16 * (n16 * per_cell + us_fit_ops(family)),
@@ -1342,6 +1416,16 @@ def main(argv=None):
         print(f"    kernel ms: {name_f} {ms16:.4f}, plain {plain_ms16:.4f}, "
               f"bound {bound16:.4f} ({by16}; {us_fit_ops(family)} fit operations per "
               f"hypothesis) [{smi}]")
+        if family == "crosswire":
+            parts = device_ms(torch, lambda: fs.sweep_cuda(family, coords16, p16, nfit16,
+                                                           groups16, cols16, US_DELTA),
+                              ("crosswire_fit_kernel", "crosswire_vote_kernel"))
+            print(f"    {name_f} device ms by kernel (profiler, mean per launch): fit "
+                  f"{parts['crosswire_fit_kernel']:.4f}, vote {parts['crosswire_vote_kernel']:.4f}; "
+                  f"vote {launch_shape(cw_kernel, hyp16)}; "
+                  f"fit {launch_shape(cw_kernel, hyp16, 'fit_shape')} [{smi}]")
+            check(parts["crosswire_fit_kernel"] > 0 and parts["crosswire_vote_kernel"] > 0,
+                  "the profiler saw no crosswire fit or vote kernel")
         family_err[family] = max(family_err[family], compare_sweep(
             fs, family, est_f, coords16, p16, nfit16, groups16, cols16, data16_t,
             f"    {name_f} at this shape ({groups16} groups)", US_DELTA, exact=True))

@@ -3,8 +3,9 @@
 //
 // Replaces lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel with the
 // plane3d_fit_vote, line3d_fit_vote and line2d_fit_vote closures (the
-// pallas_call in _sweep_call): one __global__ template (sweep_common.cuh)
-// instantiated per family, with one C launch symbol each.  Each family
+// pallas_call in _sweep_call), with one C launch symbol each: plane3d and
+// line2d instantiate the __global__ template of sweep_common.cuh, line3d has
+// a kernel of its own in the header's split-vote layout.  Each family
 // computes what its closure computes:
 //   * plane3d: cross-product normal of (s1 - s0) x (s2 - s0), degenerate when
 //     its squared norm is below 1e-20; n normalised by 1/sqrt; vote
@@ -14,8 +15,8 @@
 //     delta^2; vote |P^T A| < 1 on rows [x, y, 1, guard], A = [w n, o, w];
 //     params [nx, ny, x0, y0];
 //   * line3d: u = (a - p1)/|a - p1| through a = p0, degenerate when
-//     |a - p1|^2 < delta^2; vote |v|^2 - (u.v)^2 < delta^2 with v = p - a;
-//     params [u, a].
+//     |a - p1|^2 < delta^2; vote |p - a|^2 - (u.(p - a))^2 < delta^2 on
+//     rows [x, y, z, 1] relative to column 0; params [u, a].
 // The fits use __f*_rn intrinsics in the closures' operation order (nothing
 // is contracted into an FMA) and compute lax.rsqrt as 1/sqrt in two
 // correctly rounded steps, so the winner's parameters are bit for bit those
@@ -24,27 +25,33 @@
 // The line3d vote.  The TPU closure forms e1 = u.p - u.a and e2 = |p|^2 -
 // 2 a.p + |a|^2 as two K = 5 products on the matrix unit (a 3-pass bf16
 // split, because the MXU multiplies in bf16) and counts e2 - e1^2 < delta^2.
-// Here both are formed from v = p - a per cell on the FP32 pipes: the
-// |p|^2 and |a|^2 terms of 1e3-1e4 that cancel in e2 never appear, so e2
-// is exact to f32 rounding of |v|^2 itself, and it takes fewer operations
-// (17 against 20 per cell).  Its multiplies and adds are kept apart, so the
-// plain version repeats it exactly; padding columns (row 3 of P is 0) are
-// staged as NaN and never count.
+// Here the same expansion is seven FMAs per cell on the FP32 pipes (see
+// line3d_kernel), |a|^2 moved to the threshold, about the centre c = P's
+// column 0 instead of the origin.  Expanded about the origin, the |p|^2 and
+// |a|^2 terms cancel and dist^2 carries an absolute error of about
+// ulp(|p|^2): against delta^2 = 1 that miscounted three quarters of the
+// hypotheses of a cloud 1e3 from the origin, by up to 111 points.  About c the terms scale
+// with the cloud's extent (~5e3 at the test clouds' 80 units, an error of
+// ~1e-3), wherever the cloud lies.  On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py, uncentred) it took 1.57-1.58 ms at 4,096 groups x 1,024
+// lanes x 1,024 columns, where v = p - a with five FMAs (timed from an edited
+// copy of this source) took 1.97 ms and the earlier sweep_kernel layout
+// without FMAs 2.72 ms.  The plain version
+// centres and rounds each FMA as CUDA does, so the two count alike.
 //
 // What bounds it on an H100: arithmetic.  Per (hypothesis, column) cell the
-// vote is, counted from the loops below, plane3d one multiply + four FMAs +
-// compare + add (11 f32 operations, an FMA counting 2), line2d one multiply
-// + three FMAs + compare + add (9), line3d 3 subtracts, 7 multiplies, 5
-// adds/subtracts, compare and add (17); the fit is a few dozen operations per
-// hypothesis.  At 4,096 groups x 1,024 lanes x 1,024 columns that is
-// 3.8e10-7.3e10 operations against < 1 MB of input, so the bound is
-// 0.6-1.1 ms at 67 TFLOP/s and the bytes (at 3.35 TB/s) are negligible.
+// vote is plane3d one multiply + four FMAs + compare + add (11 f32
+// operations, an FMA counting 2), line2d one multiply + three FMAs +
+// compare + add (9), line3d seven FMAs + compare + add (16); the fit and
+// vote rows are a few dozen operations per hypothesis.  At 4,096 groups x
+// 1,024 lanes x 1,024 columns that is 3.8e10-6.9e10 operations against < 1 MB
+// of input, so the bound is 0.6-1.03 ms at 67 TFLOP/s and the bytes (at
+// 3.35 TB/s) are negligible.
 // The design keeps every cell on the FP32 pipes (the depth-4/5 band product
 // has no use for tensor cores, and TF32 would move the band edges), keeps
-// four hypotheses' band rows per thread in registers so that one staged
-// column feeds four hypotheses, stages P in 1,024-column tiles in shared
-// memory read as broadcasts, and writes nothing per hypothesis to device
-// memory.
+// four hypotheses' vote rows per thread in registers so that one staged
+// column feeds four hypotheses, stages P in tiles in shared memory read as
+// broadcasts, and writes nothing per hypothesis to device memory.
 
 #include "sweep_common.cuh"
 
@@ -187,13 +194,10 @@ struct Line2D {
 };
 
 struct Line3D {
-  static constexpr int kSlots = 2, kDim = 3, kParams = 6, kTileRows = 3;
+  static constexpr int kSlots = 2, kDim = 3, kParams = 6;
   struct Fit {
     float u[3], a[3];
     bool degenerate;
-  };
-  struct Band {
-    float u[3], a[3], delta_sq;
   };
 
   static __device__ __forceinline__ Fit fit(const float s[2][3], const Consts& k) {
@@ -212,36 +216,6 @@ struct Line3D {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      b.u[c] = f.u[c];
-      b.a[c] = f.a[c];
-    }
-    b.delta_sq = k.delta_sq;
-    return b;
-  }
-
-  // Rows x, y, z; a padding column (row 3, the ones row, is 0) is staged
-  // with x = NaN, so every cell of it compares false.
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTile], int i) {
-    const bool live = p[3 * stride + col] != 0.f;
-    tile[0][i] = live ? p[col] : __int_as_float(0x7fffffff);
-    tile[1][i] = p[stride + col];
-    tile[2][i] = p[2 * stride + col];
-  }
-
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTile], int i) {
-    const float v0 = __fsub_rn(tile[0][i], b.a[0]);
-    const float v1 = __fsub_rn(tile[1][i], b.a[1]);
-    const float v2 = __fsub_rn(tile[2][i], b.a[2]);
-    const float e1 = add3(mul(b.u[0], v0), mul(b.u[1], v1), mul(b.u[2], v2));
-    const float e2 = add3(mul(v0, v0), mul(v1, v1), mul(v2, v2));
-    return __fsub_rn(e2, mul(e1, e1)) < b.delta_sq;
-  }
-
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
@@ -250,6 +224,109 @@ struct Line3D {
     }
   }
 };
+
+// The line3d sweep in the split-vote layout (sweep_common.cuh).  Points and
+// anchors are taken relative to the centre c = P's column 0 (a live point),
+// so the expansion's terms scale with the cloud's extent and not with its
+// distance from the origin.  The first kSplitHypPerBlock threads fit one
+// hypothesis each and leave its vote rows in shared memory; every thread then
+// takes the rows of its four hypotheses.  With a' = a - c and p' = p - c,
+// per cell: t = fma(m2, z', fma(m1, y', fma(m0, x', |p'|^2))) with m = -2a',
+// e1 = fma(u2, z', fma(u1, y', fma(u0, x', -u.a'))), and the count where
+// fma(-e1, e1, t) < delta^2 - |a'|^2: seven FMAs, a compare and a predicated
+// add.  Points are staged 2,048 at a time as float4 [x', y', z', |p'|^2],
+// |p'|^2 = (x' x' + y' y') + z' z'; a padding column (row 3, the ones row,
+// is 0) is staged with x' = NaN, so every cell of it compares false.
+constexpr int kLineRows = 8;     // m 3, u 3, -u.a', delta^2 - |a'|^2
+constexpr int kLineTile = 2048;  // points per shared-memory tile: 32 KB
+static_assert(lsq_sweep::kSplitWarps * lsq_sweep::kSplitHypPerBlock * sizeof(int) <=
+                  kLineTile * sizeof(float4),
+              "the partial counts reuse the tile");
+
+__global__ void __launch_bounds__(lsq_sweep::kSplitThreads)
+line3d_kernel(const float* __restrict__ coords, long long coords_stride,
+              const float* __restrict__ p, long long p_stride, int vote_cols,
+              unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
+              unsigned long long* __restrict__ best_key) {
+  using namespace lsq_sweep;
+  __shared__ float4 tile[kLineTile];
+  __shared__ float rows[kLineRows][kSplitHypPerBlock];
+  __shared__ bool counts_zero[kSplitHypPerBlock];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned h_first = blockIdx.x * kSplitHypPerBlock;
+  const float cx = p[0], cy = p[p_stride], cz = p[2 * p_stride];
+  if (threadIdx.x < kSplitHypPerBlock) {
+    const unsigned h = h_first + threadIdx.x;
+    float r[kLineRows] = {};  // a slot past the last hypothesis votes on zeros, unpublished
+    bool zero = true;
+    if (h < num_hyp) {
+      const Line3D::Fit f =
+          fit_hypothesis<Line3D>(coords, coords_stride, h, n_fit, b, m, mask, k);
+      const float a[3] = {__fsub_rn(f.a[0], cx), __fsub_rn(f.a[1], cy), __fsub_rn(f.a[2], cz)};
+      const float* u = f.u;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        r[c] = -2.f * a[c];  // exact
+        r[3 + c] = u[c];
+      }
+      r[6] = -add3(mul(u[0], a[0]), mul(u[1], a[1]), mul(u[2], a[2]));
+      r[7] = __fsub_rn(k.delta_sq, add3(mul(a[0], a[0]), mul(a[1], a[1]), mul(a[2], a[2])));
+      zero = f.degenerate;
+    }
+#pragma unroll
+    for (int i = 0; i < kLineRows; ++i) rows[i][threadIdx.x] = r[i];
+    counts_zero[threadIdx.x] = zero;
+  }
+  __syncthreads();
+  float mx[kSplitHypPerThread], my[kSplitHypPerThread], mz[kSplitHypPerThread];
+  float ux[kSplitHypPerThread], uy[kSplitHypPerThread], uz[kSplitHypPerThread];
+  float nua[kSplitHypPerThread], thr[kSplitHypPerThread];
+  int count[kSplitHypPerThread];
+#pragma unroll
+  for (int q = 0; q < kSplitHypPerThread; ++q) {
+    const int i = 32 * q + lane;
+    mx[q] = rows[0][i];
+    my[q] = rows[1][i];
+    mz[q] = rows[2][i];
+    ux[q] = rows[3][i];
+    uy[q] = rows[4][i];
+    uz[q] = rows[5][i];
+    nua[q] = rows[6][i];
+    thr[q] = rows[7][i];
+    count[q] = 0;
+  }
+
+  for (int t0 = 0; t0 < vote_cols; t0 += kLineTile) {
+    const int len = min(kLineTile, vote_cols - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < len; i += kSplitThreads) {
+      const int col = t0 + i;
+      const float x = __fsub_rn(p[col], cx);
+      const float y = __fsub_rn(p[p_stride + col], cy);
+      const float z = __fsub_rn(p[2 * p_stride + col], cz);
+      const bool live = p[3 * p_stride + col] != 0.f;
+      tile[i] = make_float4(live ? x : __int_as_float(0x7fffffff), y, z,
+                            add3(mul(x, x), mul(y, y), mul(z, z)));
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int i = warp; i < len; i += kSplitWarps) {
+      const float4 pt = tile[i];
+#pragma unroll
+      for (int q = 0; q < kSplitHypPerThread; ++q) {
+        const float t =
+            __fmaf_rn(mz[q], pt.z, __fmaf_rn(my[q], pt.y, __fmaf_rn(mx[q], pt.x, pt.w)));
+        const float e1 =
+            __fmaf_rn(uz[q], pt.z, __fmaf_rn(uy[q], pt.y, __fmaf_rn(ux[q], pt.x, nua[q])));
+        count_below(count[q], __fmaf_rn(-e1, e1, t), thr[q]);
+      }
+    }
+  }
+
+  split_publish(count, reinterpret_cast<int*>(tile), counts_zero, h_first,
+                num_hyp - h_first, best_key);
+}
 
 }  // namespace
 
@@ -277,9 +354,24 @@ extern "C" int fused_sweep_line3d_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask,
     float inv_delta, float delta_sq, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return lsq_sweep::launch_sweep<Line3D>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
-                                         num_groups, b, m, mask, Consts{inv_delta, delta_sq},
-                                         best_key, best_out, best_index, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Consts k{inv_delta, delta_sq};
+  return lsq_sweep::launch_with<Line3D>(
+      coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k, best_key, best_out,
+      best_index, s, [&](unsigned num_hyp) {
+        line3d_kernel<<<lsq_sweep::ceil_div(num_hyp, lsq_sweep::kSplitHypPerBlock),
+                        lsq_sweep::kSplitThreads, 0, s>>>(
+            coords, coords_stride, p, p_stride, vote_cols, static_cast<unsigned>(n_fit), num_hyp,
+            b, m, mask, k, best_key);
+        return cudaGetLastError();
+      });
+}
+
+// The line3d kernel's launch shape at num_hyp hypotheses on the current
+// device, as lsq_sweep::kernel_shape gives it.
+extern "C" int fused_sweep_line3d_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(line3d_kernel, lsq_sweep::kSplitThreads,
+                                 lsq_sweep::kSplitHypPerBlock, num_hyp, out);
 }
 
 extern "C" int fused_sweep_line2d_launch(

@@ -3,10 +3,11 @@
 //
 // Replaces lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel with the
 // crosswire_fit_vote and pointer_fit_vote closures (the pallas_call in
-// _sweep_call): one __global__ template (sweep_common.cuh) instantiated per
-// family, with one C launch symbol each.  Each family computes what its
-// closure computes, in the operation order of the plain versions
-// (ops/fused_sweep.py crosswire_fit / pointer_fit, which call
+// _sweep_call), with one C launch symbol each: pointer instantiates the
+// __global__ template of sweep_common.cuh, crosswire runs a fit kernel and
+// a vote kernel per chunk of hypotheses (see crosswire_vote_kernel).  Each
+// family computes what its closure computes, in the operation order of the
+// plain versions (ops/fused_sweep.py crosswire_fit / pointer_fit, which call
 // linalg/small.py qr_solve_lanes and ops/us_fast.py orthonormalize_lanes):
 //   * crosswire (k = 4 tracked images, slot features [vec(R2) 9, t2 3, u, v]):
 //     the 12 x 12 system [u R2 | v R2 | R2 | -I] x = -t2 by Householder QR
@@ -21,37 +22,44 @@
 //     [u R2 | v R2 | R2] x = p - t2, the same QR and polar steps; params
 //     [t3, m_x R3(:,0), m_y R3(:,1), R3(:,2)].
 // A lane is degenerate (counts 0) where a QR pivot, a column norm or a polar
-// determinant fails its gate.  Every product, sum, square root and division
-// is its own __f*_rn operation (nothing is contracted into an FMA), so the
-// winner's parameters are bit for bit those of the plain versions.
+// determinant fails its gate.  In the fits every product, sum, square root
+// and division is its own __f*_rn operation (nothing is contracted into an
+// FMA), so the winner's parameters are bit for bit those of the plain
+// versions.
 //
 // The votes.  The TPU closures vote through _dot_f32x3: three bf16 passes of
 // K = 16 (crosswire) and K = 8 (pointer) products on the matrix unit, in
 // 512-column chunks to stay inside VMEM.  On the FP32 pipes neither reason
-// holds, so every cell is computed in plain, unfused f32 from staged rows,
-// using R2's orthogonality, |R2 img + t2 - t1|^2 = |img + R2^T t2 - R2^T t1|^2:
-//   * crosswire: e_j = (((u c1_j + v c2_j) + t3_j) + (R2^T t2)_j)
-//     - (R2 col j).t1, |e|^2 < delta^2 over the staged rows
-//     [u, v, R2^T t2 3, vec(R2) 9] (3 x (5 mul + 5 add/sub) + 3 mul + 2 add
-//     + compare + count = 37 f32 operations, about 40 with the indexing);
+// holds, so every cell is computed in f32 from staged rows, using R2's
+// orthogonality, |R2 img + t2 - t1|^2 = |img + R2^T t2 - R2^T t1|^2:
+//   * crosswire: e_j = u c1_j + v c2_j + t3_j + (R2^T t2)_j - (R2 col j).t1,
+//     |e|^2 < delta^2, as five FMAs and an add per component and a multiply
+//     and two FMAs for |e|^2 (40 f32 operations per cell, an FMA counting
+//     2); the plain version rounds each FMA as CUDA does;
 //   * pointer: e_j = ((u c1_j + v c2_j) + t3_j) - w_j with w = R2^T (p - t2),
-//     over [u, v, w 3] (3 x (2 mul + 3 add/sub) + 5 + 2 = 22 operations).
+//     over [u, v, w 3], separate multiplies and adds (3 x (2 mul + 3
+//     add/sub) + 5 + 2 = 22 operations).
 // Padding columns (the ones row of P is 0) are staged with a NaN in u, so
 // every comparison of theirs is false; the plain versions mask them.
 //
 // What bounds it on an H100: arithmetic.  At the JAX family record's width
-// (1,024 groups x 1,024 lanes x 1,024 observations) the votes are 4.2e10
+// (1,024 groups x 1,024 lanes x 1,024 observations) the votes are 4.3e10
 // (crosswire) and 2.3e10 (pointer) f32 operations and the fits about
 // 3,900 and 2,100 operations per hypothesis (4.1e9 and 2.2e9), against
-// < 2 MB of input: 0.70 and 0.38 ms at 67 TFLOP/s.  The design is the other
-// sweeps': every cell on the FP32 pipes, several hypotheses' vote rows per
-// thread in registers so that one staged column feeds them all, P staged in
-// shared memory and read as broadcasts, nothing per hypothesis written to
-// device memory.  The fits are unrolled into registers (the 12 x 12 QR
-// holds about 170 floats), so crosswire fits two hypotheses per thread, not
-// four, and its 14 staged rows take 512-column tiles (28 KB) to stay under
-// the 48 KB static shared-memory limit; pointer fits four and stages 5 rows
-// in 1,024-column tiles.
+// < 2 MB of input: 0.70 and 0.38 ms at 67 TFLOP/s.  Every cell runs on the
+// FP32 pipes, several hypotheses' vote rows per thread in registers so that
+// one staged column feeds them all, P staged in shared memory and read as
+// broadcasts.  The fits are unrolled into registers (the 12 x 12 QR holds
+// about 170 floats), which is why crosswire fits in a kernel of its own:
+// fused with the vote, the fit held the whole kernel at 255 registers and
+// two hypotheses per thread.  Split, the vote runs at 96 registers, two
+// blocks of 256 threads per SM, and the fit's rows pass through a workspace
+// of 54.5 MB per 2^20 hypotheses.  On an H100 80GB HBM3 at 700 W
+// (chip_smoke.py) the crosswire sweep took 1.26-1.27 ms at that width (fit
+// 0.23, vote 1.01-1.02), where the vote with separate multiplies and adds
+// took 1.78-1.79 ms in all (timed from an edited copy of this source) and
+// the fused kernel 2.18-2.19 ms.  The pointer
+// fits four hypotheses per thread and stages 5 rows in 1,024-column tiles.
 
 #include "sweep_common.cuh"
 
@@ -195,14 +203,10 @@ __device__ __forceinline__ bool orthonormalize(const float (&x)[N], float (&c1)[
 }
 
 struct Crosswire {
-  static constexpr int kSlots = 4, kDim = 14, kParams = 15, kTileRows = 14, kTileCols = 512,
-                       kHypPerThread = 2;
+  static constexpr int kSlots = 4, kDim = 14, kParams = 15;
   struct Fit {
     float t1[3], t3[3], c1[3], c2[3], c3[3];
     bool degenerate;
-  };
-  struct Band {
-    float t1[3], t3[3], c1[3], c2[3], delta_sq;
   };
 
   static __device__ __forceinline__ Fit fit(const float s[4][14], const Consts&) {
@@ -236,43 +240,6 @@ struct Crosswire {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      b.t1[i] = f.t1[i];
-      b.t3[i] = f.t3[i];
-      b.c1[i] = f.c1[i];
-      b.c2[i] = f.c2[i];
-    }
-    b.delta_sq = k.delta_sq;
-    return b;
-  }
-
-  // P rows: u 0, v 1, ones 2, R2^T t2 3-5, vec(R2) 6-14, guard 15.  Tile
-  // rows: u 0 (NaN on padding columns), v 1, R2^T t2 2-4, vec(R2) 5-13.
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTileCols], int i) {
-    tile[0][i] = live_or_nan(p, stride, col, 0, 2);
-    tile[1][i] = p[stride + col];
-#pragma unroll
-    for (int r = 2; r < kTileRows; ++r) tile[r][i] = p[(r + 1) * stride + col];
-  }
-
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTileCols], int i) {
-    const float u = tile[0][i], v = tile[1][i];
-    float e[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const float img = add(add(add(mul(u, b.c1[j]), mul(v, b.c2[j])), b.t3[j]), tile[2 + j][i]);
-      // R2 col j . t1, with R2[k][j] at tile row 5 + 3k + j.
-      const float rt1 = add3(mul(tile[5 + j][i], b.t1[0]), mul(tile[8 + j][i], b.t1[1]),
-                             mul(tile[11 + j][i], b.t1[2]));
-      e[j] = sub(img, rt1);
-    }
-    return add3(mul(e[0], e[0]), mul(e[1], e[1]), mul(e[2], e[2])) < b.delta_sq;
-  }
-
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -284,6 +251,123 @@ struct Crosswire {
     }
   }
 };
+
+// The crosswire sweep: a fit kernel and a vote kernel per chunk of at most
+// `chunk` hypotheses, through a workspace ws f32[kCwRows, chunk] in
+// structure-of-arrays order (row r of hypothesis i at ws[r * chunk + i]).
+//   * crosswire_fit_kernel: one hypothesis per thread runs Crosswire::fit and
+//     writes t1 (rows 0-2), t3 (3-5), c1 (6-8), c2 (9-11) and the degenerate
+//     flag (row 12, 1 or 0).  The 12 x 12 QR keeps ~170 floats live, so the
+//     fit alone sets this kernel's registers;
+//   * crosswire_vote_kernel: the split-vote layout (sweep_common.cuh), four
+//     hypotheses' 12 rows per thread.  A point is staged as four float4
+//     [u, v, q0, q1], [q2, R00, R01, R02], [R10, R11, R12, R20],
+//     [R21, R22, 0, 0] with q = R2^T t2 (P's rows 3-5) and R2[k][j] P's row
+//     6 + 3k + j, u NaN on a padding column (P's row 2, the ones row, is 0),
+//     512 points per 32 KB tile.  Per cell, e_j = fma(R2[2][j], -t1_2,
+//     fma(R2[1][j], -t1_1, fma(R2[0][j], -t1_0, fma(v, c2_j, fma(u, c1_j,
+//     t3_j + q_j))))) and the count where fma(e2, e2, fma(e1, e1, e0 e0)) <
+//     delta^2: 21 FMAs and adds, one multiply, a compare and a predicated add
+//     per cell, and one 16-byte broadcast load.
+constexpr int kCwRows = 13;
+constexpr int kCwFitThreads = 128;
+constexpr int kCwTile = 512;
+static_assert(lsq_sweep::kSplitWarps * lsq_sweep::kSplitHypPerBlock * sizeof(int) <=
+                  4 * kCwTile * sizeof(float4),
+              "the partial counts reuse the tile");
+
+__global__ void __launch_bounds__(kCwFitThreads)
+crosswire_fit_kernel(const float* __restrict__ coords, long long coords_stride, unsigned n_fit,
+                     unsigned h_first, unsigned n_valid, int b, int m, unsigned mask, Consts k,
+                     float* __restrict__ ws, unsigned chunk) {
+  const unsigned i = blockIdx.x * kCwFitThreads + threadIdx.x;
+  if (i >= n_valid) return;
+  const Crosswire::Fit f = lsq_sweep::fit_hypothesis<Crosswire>(coords, coords_stride,
+                                                                h_first + i, n_fit, b, m, mask, k);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    ws[c * chunk + i] = f.t1[c];
+    ws[(3 + c) * chunk + i] = f.t3[c];
+    ws[(6 + c) * chunk + i] = f.c1[c];
+    ws[(9 + c) * chunk + i] = f.c2[c];
+  }
+  ws[12 * chunk + i] = f.degenerate ? 1.f : 0.f;
+}
+
+__global__ void __launch_bounds__(lsq_sweep::kSplitThreads, 2)
+crosswire_vote_kernel(const float* __restrict__ p, long long p_stride, int vote_cols,
+                      unsigned h_first, unsigned n_valid, const float* __restrict__ ws,
+                      unsigned chunk, float delta_sq, unsigned long long* __restrict__ best_key) {
+  using namespace lsq_sweep;
+  constexpr int kHyp = kSplitHypPerThread;
+  __shared__ float4 tile[4][kCwTile];
+  __shared__ bool counts_zero[kSplitHypPerBlock];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned i_first = blockIdx.x * kSplitHypPerBlock;
+  float t3[kHyp][3], c1[kHyp][3], c2[kHyp][3], nt1[kHyp][3];
+  int count[kHyp];
+#pragma unroll
+  for (int q = 0; q < kHyp; ++q) {
+    const unsigned i = i_first + 32 * q + lane;
+    const bool in = i < n_valid;  // a slot past the chunk votes on zeros, unpublished
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      nt1[q][c] = in ? -ws[c * chunk + i] : 0.f;
+      t3[q][c] = in ? ws[(3 + c) * chunk + i] : 0.f;
+      c1[q][c] = in ? ws[(6 + c) * chunk + i] : 0.f;
+      c2[q][c] = in ? ws[(9 + c) * chunk + i] : 0.f;
+    }
+    count[q] = 0;
+  }
+  if (threadIdx.x < kSplitHypPerBlock) {
+    const unsigned i = i_first + threadIdx.x;
+    counts_zero[threadIdx.x] = i >= n_valid || ws[12 * chunk + i] != 0.f;
+  }
+
+  for (int t0 = 0; t0 < vote_cols; t0 += kCwTile) {
+    const int len = min(kCwTile, vote_cols - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < len; i += kSplitThreads) {
+      const int col = t0 + i;
+      const float* r = p + col;
+      tile[0][i] = make_float4(live_or_nan(p, p_stride, col, 0, 2), r[p_stride],
+                               r[3 * p_stride], r[4 * p_stride]);
+      tile[1][i] = make_float4(r[5 * p_stride], r[6 * p_stride], r[7 * p_stride],
+                               r[8 * p_stride]);
+      tile[2][i] = make_float4(r[9 * p_stride], r[10 * p_stride], r[11 * p_stride],
+                               r[12 * p_stride]);
+      tile[3][i] = make_float4(r[13 * p_stride], r[14 * p_stride], 0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int i = warp; i < len; i += kSplitWarps) {
+      const float4 s0 = tile[0][i], s1 = tile[1][i], s2 = tile[2][i], s3 = tile[3][i];
+      const float u = s0.x, v = s0.y;
+      const float qv[3] = {s0.z, s0.w, s1.x};
+      // R2[k][j] for k, j < 3.
+      const float r2[3][3] = {{s1.y, s1.z, s1.w}, {s2.x, s2.y, s2.z}, {s2.w, s3.x, s3.y}};
+#pragma unroll
+      for (int q = 0; q < kHyp; ++q) {
+        float e[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          float acc = __fadd_rn(t3[q][j], qv[j]);
+          acc = __fmaf_rn(u, c1[q][j], acc);
+          acc = __fmaf_rn(v, c2[q][j], acc);
+          acc = __fmaf_rn(r2[0][j], nt1[q][0], acc);
+          acc = __fmaf_rn(r2[1][j], nt1[q][1], acc);
+          e[j] = __fmaf_rn(r2[2][j], nt1[q][2], acc);
+        }
+        const float d2 = __fmaf_rn(e[2], e[2], __fmaf_rn(e[1], e[1], __fmul_rn(e[0], e[0])));
+        count_below(count[q], d2, delta_sq);
+      }
+    }
+  }
+
+  split_publish(count, reinterpret_cast<int*>(tile), counts_zero, h_first + i_first,
+                n_valid - i_first, best_key);
+}
 
 struct Pointer {
   static constexpr int kSlots = 3, kDim = 17, kParams = 12, kTileRows = 5;
@@ -394,10 +478,44 @@ extern "C" int fused_sweep_crosswire_launch(
     const float* coords, long long coords_stride, const float* p, long long p_stride,
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
-    long long* best_index, void* stream) {
-  return launch<Crosswire>(coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b,
-                           m, mask, delta, delta_sq, cross_eps, best_key, best_out, best_index,
-                           stream);
+    long long* best_index, float* workspace, int chunk, void* stream) {
+  using lsq_sweep::ceil_div;
+  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Consts k{0.f, delta_sq, delta, cross_eps};
+  const unsigned step = static_cast<unsigned>(chunk);
+  return lsq_sweep::launch_with<Crosswire>(
+      coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k, best_key, best_out,
+      best_index, s, [&](unsigned num_hyp) {
+        for (unsigned long long h0 = 0; h0 < num_hyp; h0 += step) {
+          const unsigned len = static_cast<unsigned>(num_hyp - h0 < step ? num_hyp - h0 : step);
+          crosswire_fit_kernel<<<ceil_div(len, kCwFitThreads), kCwFitThreads, 0, s>>>(
+              coords, coords_stride, static_cast<unsigned>(n_fit), static_cast<unsigned>(h0),
+              len, b, m, mask, k, workspace, step);
+          cudaError_t err = cudaGetLastError();
+          if (err != cudaSuccess) return err;
+          crosswire_vote_kernel<<<ceil_div(len, lsq_sweep::kSplitHypPerBlock),
+                                  lsq_sweep::kSplitThreads, 0, s>>>(
+              p, p_stride, vote_cols, static_cast<unsigned>(h0), len, workspace, step, delta_sq,
+              best_key);
+          err = cudaGetLastError();
+          if (err != cudaSuccess) return err;
+        }
+        return cudaSuccess;
+      });
+}
+
+// The launch shapes at num_hyp hypotheses (one chunk) on the current device,
+// of the vote kernel (fused_sweep_crosswire_shape) and of the fit kernel
+// (fused_sweep_crosswire_fit_shape), as lsq_sweep::kernel_shape gives them.
+extern "C" int fused_sweep_crosswire_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(crosswire_vote_kernel, lsq_sweep::kSplitThreads,
+                                 lsq_sweep::kSplitHypPerBlock, num_hyp, out);
+}
+
+extern "C" int fused_sweep_crosswire_fit_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(crosswire_fit_kernel, kCwFitThreads, kCwFitThreads, num_hyp,
+                                 out);
 }
 
 extern "C" int fused_sweep_pointer_launch(

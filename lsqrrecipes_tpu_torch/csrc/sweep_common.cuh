@@ -3,7 +3,9 @@
 // A family F supplies its minimal fit and its per-cell vote; this header
 // supplies what every family does alike, as the TPU kernel
 // lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel does for every fit_vote
-// closure:
+// closure (line3d and crosswire use the shift hash, the finalize kernel and
+// the split-vote layout below with kernels of their own; the other families
+// instantiate sweep_kernel):
 //   * the shift hash: hypothesis h = g * n_fit + lane takes, for slot j, the
 //     point at column shift_units(g, j) * 128 + lane of rows
 //     F::kDim * j .. F::kDim * j + kDim - 1 of the four-permutation
@@ -26,9 +28,6 @@
 //   optionally kTileCols              — columns per shared-memory tile where
 //                                       kTileRows x kTile floats would pass
 //                                       the 48 KB static limit (else kTile);
-//   optionally kHypPerThread          — hypotheses per thread where four
-//                                       fits' registers would spill (else
-//                                       kHypPerThread below);
 //   struct Fit { bool degenerate; ... };  struct Band { ... };
 //   static Fit fit(const float s[kSlots][kDim], const Consts&);
 //   static Band band(const Fit&, const Consts&);
@@ -74,21 +73,7 @@ struct TileCols<F, std::void_t<decltype(F::kTileCols)>> {
   static constexpr int value = F::kTileCols;
 };
 
-// Hypotheses per thread for family F: F::kHypPerThread if the family
-// declares it, else kHypPerThread.
-template <class F, class = void>
-struct HypPerThread {
-  static constexpr int value = kHypPerThread;
-};
-template <class F>
-struct HypPerThread<F, std::void_t<decltype(F::kHypPerThread)>> {
-  static constexpr int value = F::kHypPerThread;
-};
-
-template <class F>
-struct HypPerBlock {
-  static constexpr int value = kThreads * HypPerThread<F>::value;
-};
+constexpr int kHypPerBlock = kThreads * kHypPerThread;
 
 // The kSlots x kDim coordinates of hypothesis (g, lane).
 template <int kSlots, int kDim>
@@ -127,11 +112,11 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
              unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
              unsigned long long* __restrict__ best_key) {
   constexpr int kCols = TileCols<F>::value;
-  constexpr int kHyp = HypPerThread<F>::value;
+  constexpr int kHyp = kHypPerThread;
   __shared__ float tile[F::kTileRows][kCols];
   __shared__ unsigned long long warp_best[kThreads / 32];
 
-  const unsigned base = blockIdx.x * HypPerBlock<F>::value + threadIdx.x;
+  const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
   typename F::Band band[kHyp];
   int count[kHyp];
   bool counts_zero[kHyp];
@@ -204,31 +189,136 @@ __global__ void finalize_kernel(const float* __restrict__ coords, long long coor
   *best_index = h;
 }
 
-// Enqueue the whole sweep on `stream`: clear the key, sweep, finalize.
-// Returns the first CUDA error, 0 on success.
-template <class F>
-int launch_sweep(const float* coords, long long coords_stride, const float* p,
-                 long long p_stride, int vote_cols, int n_fit, long long num_groups, int b,
-                 int m, unsigned mask, Consts k, unsigned long long* best_key,
-                 float* best_out, long long* best_index, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+// ---------------------------------------------------------------------------
+// The split-vote layout (line3d and crosswire; the other families keep
+// sweep_kernel above).  A block of kSplitThreads threads owns
+// kSplitHypPerBlock consecutive hypotheses: lane l of every warp holds the
+// vote rows of hypotheses l + 32 q (q < kSplitHypPerThread) in registers, and
+// warp w votes on points w, w + kSplitWarps, ..., read from shared memory as
+// warp-wide broadcasts, so one staged point feeds four cells per thread.  The
+// warps' partial counts are then added in shared memory (integer sums, exact
+// in any order) and the block publishes one key.  4,096 groups x 1,024 lanes
+// make 32,768 blocks; the count is one predicated add per cell.
+// ---------------------------------------------------------------------------
+
+constexpr int kSplitThreads = 256;
+constexpr int kSplitWarps = kSplitThreads / 32;
+constexpr int kSplitHypPerThread = 4;
+constexpr int kSplitHypPerBlock = 32 * kSplitHypPerThread;
+
+// count + 1 where x < lim: one compare and one predicated add.  The C++ form
+// count += x < lim compiles to an add and a predicated move, one issue slot
+// more per cell.  PTX's lt is ordered, so a NaN never counts.
+__device__ __forceinline__ void count_below(int& count, float x, float lim) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.lt.f32 p, %1, %2;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(count)
+      : "f"(x), "f"(lim));
+}
+
+// The block's end: add the warps' partial counts of its hypotheses h_first +
+// i (i < n_valid; counts_zero[i] marks a degenerate one, which counts 0),
+// reduce them to the best key (count << 32) | (0xFFFFFFFF - h) and
+// atomicMax it into best_key.  `partial` holds kSplitWarps x kSplitHypPerBlock
+// ints of shared memory that no thread reads any more (it may alias the
+// caller's point tile).  Every thread of the block calls it.
+__device__ __forceinline__ void split_publish(const int (&count)[kSplitHypPerThread],
+                                              int* partial, const bool* counts_zero,
+                                              unsigned h_first, unsigned n_valid,
+                                              unsigned long long* __restrict__ best_key) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the caller's tile is no longer read
+#pragma unroll
+  for (int q = 0; q < kSplitHypPerThread; ++q) {
+    partial[warp * kSplitHypPerBlock + 32 * q + lane] = count[q];
+  }
+  __syncthreads();
+  if (threadIdx.x >= kSplitHypPerBlock) return;  // whole warps: no shuffle below diverges
+  unsigned long long key = 0;
+  if (threadIdx.x < n_valid) {
+    int total = 0;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) total += partial[w * kSplitHypPerBlock + threadIdx.x];
+    const unsigned long long c =
+        counts_zero[threadIdx.x] ? 0ull : static_cast<unsigned long long>(total);
+    key = (c << 32) | (0xFFFFFFFFull - (h_first + threadIdx.x));
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const unsigned long long other = __shfl_down_sync(0xFFFFFFFFu, key, off);
+    key = other > key ? other : key;
+  }
+  // One atomic per warp, skipped where the published key is already higher
+  // (a stale read only costs an atomic: atomicMax is monotone).
+  if (lane == 0 && key > *reinterpret_cast<volatile unsigned long long*>(best_key)) {
+    atomicMax(best_key, key);
+  }
+}
+
+inline unsigned ceil_div(unsigned long long a, unsigned b) {
+  return static_cast<unsigned>((a + b - 1) / b);
+}
+
+// What every launch symbol does around its family's kernels: check the sizes
+// (num_groups * n_fit hypotheses, < 2^32), clear the key, let `sweep`
+// enqueue the kernels that vote (it takes num_hyp and returns the first CUDA
+// error), then the one-thread finalize.  Returns the first CUDA error, 0 on
+// success.
+template <class F, class Sweep>
+int launch_with(const float* coords, long long coords_stride, int vote_cols, int n_fit,
+                long long num_groups, int b, int m, unsigned mask, Consts k,
+                unsigned long long* best_key, float* best_out, long long* best_index,
+                cudaStream_t s, Sweep sweep) {
   const unsigned long long num_hyp = static_cast<unsigned long long>(num_groups) * n_fit;
   if (num_hyp == 0 || num_hyp > 0xFFFFFFFFull || vote_cols <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaMemsetAsync(best_key, 0, sizeof(unsigned long long), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned blocks =
-      static_cast<unsigned>((num_hyp + HypPerBlock<F>::value - 1) / HypPerBlock<F>::value);
-  sweep_kernel<F><<<blocks, kThreads, 0, s>>>(coords, coords_stride, p, p_stride, vote_cols,
-                                              static_cast<unsigned>(n_fit),
-                                              static_cast<unsigned>(num_hyp), b, m, mask, k,
-                                              best_key);
-  err = cudaGetLastError();
+  err = sweep(static_cast<unsigned>(num_hyp));
   if (err != cudaSuccess) return static_cast<int>(err);
   finalize_kernel<F><<<1, 1, 0, s>>>(coords, coords_stride, static_cast<unsigned>(n_fit), b,
                                      m, mask, k, best_key, best_out, best_index);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Enqueue the whole sweep of a sweep_kernel family on `stream`: clear the
+// key, sweep, finalize.  Returns the first CUDA error, 0 on success.
+template <class F>
+int launch_sweep(const float* coords, long long coords_stride, const float* p,
+                 long long p_stride, int vote_cols, int n_fit, long long num_groups, int b,
+                 int m, unsigned mask, Consts k, unsigned long long* best_key,
+                 float* best_out, long long* best_index, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch_with<F>(coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k,
+                        best_key, best_out, best_index, s, [&](unsigned num_hyp) {
+                          sweep_kernel<F><<<ceil_div(num_hyp, kHypPerBlock), kThreads, 0, s>>>(
+                              coords, coords_stride, p, p_stride, vote_cols,
+                              static_cast<unsigned>(n_fit), num_hyp, b, m, mask, k, best_key);
+                          return cudaGetLastError();
+                        });
+}
+
+// A kernel's launch shape at num_hyp hypotheses on the current device, for
+// the <name>_shape queries: out[0..5] = registers per thread, local (spill)
+// bytes per thread, threads per block, hypotheses per block, blocks,
+// resident blocks per SM.  Returns the CUDA error of the queries.
+template <class Kernel>
+int kernel_shape(Kernel kernel, int threads, int hyp_per_block, int num_hyp, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int per_sm = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
+  }
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.localSizeBytes);
+  out[2] = threads;
+  out[3] = hyp_per_block;
+  out[4] = static_cast<int>(ceil_div(static_cast<unsigned>(num_hyp), hyp_per_block));
+  out[5] = per_sm;
+  return static_cast<int>(err);
 }
 
 }  // namespace lsq_sweep

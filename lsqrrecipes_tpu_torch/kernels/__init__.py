@@ -137,14 +137,15 @@ class Kernel:
             raise RuntimeError(f"{self.name} launch failed: CUDA error {code} ({msg})")
         self.launches += 1
 
-    def shape(self, num_hyp: int) -> dict:
+    def shape(self, num_hyp: int, query: str = "shape") -> dict:
         """The launch shape at ``num_hyp`` hypotheses on the current device,
-        from the source's ``<name>_shape`` query (the redesigned kernels
-        have one): registers and spill bytes per thread, threads and
-        hypotheses per block, blocks, resident blocks per SM, and waves =
+        from the source's ``<name>_<query>`` query (the redesigned kernels
+        have ``<name>_shape``; the crosswire sweep's fit kernel
+        ``<name>_fit_shape``): registers and spill bytes per thread, threads
+        and hypotheses per block, blocks, resident blocks per SM, and waves =
         blocks / (blocks per SM x SMs)."""
         self.load()
-        query = getattr(self._lib, self.symbol.replace("_launch", "_shape"))
+        query = getattr(self._lib, self.symbol.replace("_launch", f"_{query}"))
         query.argtypes = [ctypes.c_int, _P]
         query.restype = ctypes.c_int
         out = (ctypes.c_int * 6)()
@@ -224,13 +225,17 @@ _RIGID_SWEEPS = {
 }
 
 # The crosswire and calibrated-pointer ultrasound sweeps of
-# csrc/fused_sweep_us.cu: one library, the rigid families' signature.
+# csrc/fused_sweep_us.cu: one library, the rigid families' signature; the
+# crosswire sweep (a fit and a vote kernel per chunk of hypotheses) also takes
+# its workspace f32[13, chunk] and chunk before the stream.
 US_FAMILIES = ("crosswire", "pointer")
 
 _US_SWEEPS = {
-    family: Kernel(f"fused_sweep_{family}", "fused_sweep_us.cu",
-                   f"fused_sweep_{family}_launch", _RIGID_SWEEP_ARGS)
-    for family in US_FAMILIES
+    "crosswire": Kernel("fused_sweep_crosswire", "fused_sweep_us.cu",
+                        "fused_sweep_crosswire_launch",
+                        _RIGID_SWEEP_ARGS[:-1] + [_P, ctypes.c_int, _P]),
+    "pointer": Kernel("fused_sweep_pointer", "fused_sweep_us.cu",
+                      "fused_sweep_pointer_launch", _RIGID_SWEEP_ARGS),
 }
 
 FUSED_SWEEPS = {

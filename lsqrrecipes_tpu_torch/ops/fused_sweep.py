@@ -20,7 +20,10 @@ that fall in the family's band:
     ``A = [w n, o, w]`` on ``P = [x, y, z, 1, guard]``;
   * line2d: two-point normal, the same band on ``P = [x, y, 1, guard]``;
   * line3d: two-point direction ``u`` through ``a``, ``|p-a|^2 -
-    (u.(p-a))^2 < delta^2`` computed from ``p - a`` per cell on live columns;
+    (u.(p-a))^2 < delta^2`` on live columns of ``P = [x, y, z, 1, guard]``,
+    expanded as the TPU closure does into ``|p|^2 - 2a.p`` and ``u.p - u.a``
+    but about P's column 0, not the origin (seven FMAs per cell in the
+    kernel);
   * dense_linear6: 6x6 normal-equation Cholesky over six rows ``[a | b]``,
     ``|a.x - b| < delta`` per cell on ``P = [a(6), b, 1, guard]``;
   * pivot: 3x3 Schur/Cramer solve over three frames (slot features
@@ -49,7 +52,8 @@ Degenerate lanes count 0 outright.  On CUDA tensors :func:`sweep` launches
 the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
 ``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``,
 ``csrc/fused_sweep_us.cu``); on CPU tensors it runs :func:`sweep_plain`,
-which repeats the kernels' fits and votes operation by operation.
+which repeats the kernels' fits and votes operation by operation (the line3d
+and crosswire votes' FMAs through ``linalg.small.fma_f32``).
 """
 
 import ctypes
@@ -61,7 +65,7 @@ from lsqrrecipes_tpu_torch.config import SPHERE_EPS
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
 from lsqrrecipes_tpu_torch.estimators.us_calibration import _extract_euler_plus
 from lsqrrecipes_tpu_torch.geometry import rotations
-from lsqrrecipes_tpu_torch.linalg.small import qr_solve_lanes, scalar_like
+from lsqrrecipes_tpu_torch.linalg.small import fma_f32, qr_solve_lanes, scalar_like
 from lsqrrecipes_tpu_torch.linalg.small import rsqrt as _rsqrt
 from lsqrrecipes_tpu_torch.ops import us_fast
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
@@ -90,8 +94,14 @@ _FAMILIES = {
     "pointer": (3, 17, 12, False, None),
 }
 
-# Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries.
+# Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries
+# (float64 ones in the families whose votes round FMAs through fma_f32).
 _PLAIN_CELLS = 1 << 25
+_PLAIN_CELLS_FMA = {"line3d": 1 << 22, "crosswire": 1 << 22}
+
+# Hypotheses per fit-and-vote chunk of the crosswire kernel: its workspace
+# f32[13, chunk] holds 54.5 MB at 2^20.
+CROSSWIRE_CHUNK = 1 << 20
 
 
 def sweep_static(n: int, k_slots: int):
@@ -650,16 +660,29 @@ def _band_vote(p_vote, rows, delta):
 
 
 def _line3d_vote(p_vote, rows, delta):
-    """``#{live columns: |v|^2 - (u.v)^2 < delta^2}``, ``v = p - a``, in
-    the kernel's per-cell order (no product, no fused multiply-add)."""
-    u0, u1, u2, a0, a1, a2 = rows
-    x, y, z = (p_vote[c][:, None] for c in range(3))
-    v0, v1, v2 = x - a0, y - a1, z - a2
-    e1 = u0 * v0 + u1 * v1 + u2 * v2
-    e2 = v0 * v0 + v1 * v1 + v2 * v2
-    dist2 = e2 - e1 * e1
-    live = (p_vote[3] != 0)[:, None]
-    inside = (dist2 < scalar_like(float(delta) * float(delta), dist2)) & live
+    """``#{live columns: |p - a|^2 - (u.(p - a))^2 < delta^2}`` in the
+    kernel's per-cell arithmetic, each FMA rounded once as CUDA's
+    ``__fmaf_rn`` (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`).
+    Points and anchor are first taken relative to the centre ``c`` = P's
+    column 0 (``p' = p - c``, ``a' = a - c``), so that the expansion's terms
+    scale with the cloud's extent and not with its offset: ``t =
+    fma(-2a'_z, z', fma(-2a'_y, y', fma(-2a'_x, x', |p'|^2)))`` with
+    ``|p'|^2 = (x'^2 + y'^2) + z'^2``, ``e1 = fma(u_z, z', fma(u_y, y',
+    fma(u_x, x', -u.a')))``, and the count where ``fma(-e1, e1, t) < delta^2
+    - |a'|^2``."""
+    u0, u1, u2, *a = rows
+    c = p_vote[0:3, 0]
+    x, y, z = ((p_vote[k] - c[k])[:, None] for k in range(3))
+    pp = _sum3(x * x, y * y, z * z)
+    a0, a1, a2 = (a[k] - c[k] for k in range(3))
+    t = fma_f32(-2.0 * a0, x, pp)                       # -2a' is exact
+    t = fma_f32(-2.0 * a1, y, t)
+    t = fma_f32(-2.0 * a2, z, t)
+    e1 = fma_f32(u0, x, -_sum3(u0 * a0, u1 * a1, u2 * a2))
+    e1 = fma_f32(u1, y, e1)
+    e1 = fma_f32(u2, z, e1)
+    thr = scalar_like(float(delta) * float(delta), a0) - _sum3(a0 * a0, a1 * a1, a2 * a2)
+    inside = (fma_f32(-e1, e1, t) < thr) & _live(p_vote, 3)
     return inside.sum(dim=0)
 
 
@@ -719,15 +742,24 @@ def _dense6_vote(p_vote, rows, delta):
 
 
 def _crosswire_vote(p_vote, rows, delta):
-    """``|e|^2 < delta^2``, ``e_j = (((u c1_j + v c2_j) + t3_j) + (R2^T t2)_j)
-    - (R2 col j).t1`` per cell (rows of P: u 0, v 1, ones 2, R2^T t2 3-5,
+    """``|e|^2 < delta^2`` per cell in the kernel's arithmetic, each FMA
+    rounded once as CUDA's ``__fmaf_rn`` (``fma_f32``): ``e_j =
+    fma(R2[2][j], -t1_2, fma(R2[1][j], -t1_1, fma(R2[0][j], -t1_0, fma(v,
+    c2_j, fma(u, c1_j, t3_j + (R2^T t2)_j)))))``, ``|e|^2 = fma(e_2, e_2,
+    fma(e_1, e_1, e_0 e_0))`` (rows of P: u 0, v 1, ones 2, R2^T t2 3-5,
     vec(R2) 6-14, so ``R2[k][j]`` is row ``6 + 3k + j``)."""
     t1, t3, c1, c2 = rows[0:3], rows[3:6], rows[6:9], rows[9:12]
     col = [p_vote[r][:, None] for r in range(15)]
-    e = [col[0] * c1[j] + col[1] * c2[j] + t3[j] + col[3 + j]
-         - _sum3(col[6 + j] * t1[0], col[9 + j] * t1[1], col[12 + j] * t1[2]) for j in range(3)]
+    e = []
+    for j in range(3):
+        acc = fma_f32(col[0], c1[j], t3[j] + col[3 + j])
+        acc = fma_f32(col[1], c2[j], acc)
+        for k in range(3):
+            acc = fma_f32(col[6 + 3 * k + j], -t1[k], acc)
+        e.append(acc)
+    dist2 = fma_f32(e[2], e[2], fma_f32(e[1], e[1], e[0] * e[0]))
     d = float(delta)
-    return _component_vote(p_vote, e, d * d, 2)
+    return ((dist2 < scalar_like(d * d, dist2)) & _live(p_vote, 2)).sum(dim=0)
 
 
 def _pointer_vote(p_vote, rows, delta):
@@ -817,7 +849,7 @@ def sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta):
     coords = coords.to(torch.float32)
     p_vote = p[:, :vote_cols].to(torch.float32)
     lanes = torch.arange(n_fit, device=dev)
-    gchunk = max(1, _PLAIN_CELLS // (n_fit * vote_cols))
+    gchunk = max(1, _PLAIN_CELLS_FMA.get(family, _PLAIN_CELLS) // (n_fit * vote_cols))
     best = None   # (count, index, params)
     for g0 in range(0, num_groups, gchunk):
         g = torch.arange(g0, min(num_groups, g0 + gchunk), device=dev, dtype=torch.int64)
@@ -853,6 +885,10 @@ def sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta):
     head = (coords.data_ptr(), coords.shape[1], p.data_ptr(), p.shape[1],
             vote_cols, n_fit, num_groups, b, m, mask)
     tail = (best_key.data_ptr(), best_out.data_ptr(), best_index.data_ptr())
+    if family == "crosswire":
+        chunk = min(num_groups * n_fit, CROSSWIRE_CHUNK)
+        workspace = torch.empty((13, chunk), dtype=torch.float32, device=dev)
+        tail += (workspace.data_ptr(), chunk)
     delta, cross_eps = _split_delta(delta)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream

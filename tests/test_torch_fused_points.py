@@ -6,13 +6,16 @@ The port is fed JAX's own permutations, rebuilt from the key exactly as
 set.  Host-side planes, packed rows and samples are bitwise equal.  The best
 count agrees within one for plane3d and line2d (the f32 band product sums
 in another order) and within two for line3d, whose JAX product is a bf16
-split that drops the lo*lo term while the port computes ``|p-a|^2 -
-(u.(p-a))^2`` in plain f32; each side is within one of the float64 ``agree``
-maximum over the same hypotheses.  JAX's winner is among the evaluated
+split that drops the lo*lo term while the port expands ``|p-a|^2 -
+(u.(p-a))^2`` the same way in f32 FMAs, about P's first point instead of
+the origin; each side is within one of the float64 ``agree`` maximum over
+the same hypotheses.  JAX's winner is among the evaluated
 hypotheses and, where the winners match, the params agree to rtol 1e-5.
 The JAX kernel runs in interpret mode on the CPU; the port's CPU path is the
 plain version of the CUDA kernels.
 """
+
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +26,7 @@ import torch
 from lsqrrecipes_tpu.ops import fused_sweep as jfs
 from lsqrrecipes_tpu_torch.estimators import Line2DEstimator, LineEstimator, PlaneEstimator
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+from test_torch_vote import _f32_round
 
 torch.set_num_threads(2)
 
@@ -258,3 +262,79 @@ def test_rsqrt_is_correctly_rounded_reciprocal_sqrt():
     got = fs._rsqrt(x).numpy()
     # Two correctly rounded steps: within one ulp of the exact value.
     assert np.abs(got.view(np.int32) - want.view(np.int32)).max() <= 1
+
+
+def test_plain_line3d_vote_rounds_each_fma_once_on_band_edge_points():
+    # The line3d kernel and its plain version count a cell where
+    # fma(-e1, e1, t) < delta^2 - |a'|^2, with t = fma(-2a'_z, z', fma(-2a'_y,
+    # y', fma(-2a'_x, x', |p'|^2))) and e1 = fma(u_z, z', fma(u_y, y',
+    # fma(u_x, x', -u.a'))) in float32, p' = p - c and a' = a - c about the
+    # centre c = P's column 0.  Held here against that chain with each FMA
+    # rounded once from its exact rational value, on points placed at
+    # distance delta from each line (the band edge, where one rounding
+    # decides the count) and on padding columns, which never count.
+    rng = np.random.default_rng(31)
+    f32 = np.float32
+    delta = f32(1.0)
+    pts = torch.as_tensor(cloud("line3d", 32, 256))
+    perms = fs.draw_slot_perms(256, 2, torch.Generator().manual_seed(3))
+    samples = fs.reference_samples("line3d", pts, perms, 1)[:16]
+    params, degenerate, _ = fs.line3d_fit([[samples[:, j, c] for c in range(3)]
+                                           for j in range(2)], 1.0)
+    rows = [r[~degenerate][:12] for r in params]             # the vote rows are [u, a]
+    params = rows
+    u_all = torch.stack(params[:3], 1).numpy()
+    a_all = torch.stack(params[3:], 1).numpy()
+    edge = []
+    for u, a in zip(u_all.astype(np.float64), a_all.astype(np.float64)):
+        w = np.cross(u, rng.normal(size=(6, 3)))
+        w /= np.linalg.norm(w, axis=1, keepdims=True)
+        edge.append(a + rng.uniform(-40, 40, (6, 1)) * u + w)
+    edge = np.concatenate(edge).astype(np.float32)            # 72 points, 56 padding columns
+    p = fs.pack_feature_rows(torch.as_tensor(edge), True)
+    assert p.shape == (5, 128)
+    got = fs._line3d_vote(p, rows, 1.0).numpy()
+
+    want, near_edge = [], 0
+    centre = edge[0]
+    rel = edge - centre                                       # float32 throughout
+    pp = (rel[:, 0] * rel[:, 0] + rel[:, 1] * rel[:, 1]) + rel[:, 2] * rel[:, 2]
+    for u, a in zip(u_all, a_all - centre):
+        m = [f32(-2.0) * c for c in a]
+        nua = -((u[0] * a[0] + u[1] * a[1]) + u[2] * a[2])
+        thr = delta * delta - ((a[0] * a[0] + a[1] * a[1]) + a[2] * a[2])
+        count = 0
+        for (x, y, z), p2 in zip(rel, pp):
+            t, e1 = p2, nua
+            for mk, uk, v in zip(m, u, (x, y, z)):
+                t = _f32_round(Fraction(float(mk)) * Fraction(float(v)) + Fraction(float(t)))
+                e1 = _f32_round(Fraction(float(uk)) * Fraction(float(v)) + Fraction(float(e1)))
+            d = _f32_round(-Fraction(float(e1)) ** 2 + Fraction(float(t)))
+            count += bool(d < thr)
+            near_edge += bool(abs(float(d) - float(thr)) <= 64 * np.spacing(f32(abs(t))))
+        want.append(count)
+    np.testing.assert_array_equal(got, np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge points really sit on the edge
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e3, 1e4, 1e5])
+def test_plain_line3d_vote_holds_far_from_the_origin(offset):
+    # The line3d vote expands |p - a|^2 into |p|^2 - 2a.p + |a|^2, whose terms
+    # cancel.  Taken about the origin, a cloud 1e3 away miscounts most
+    # hypotheses; about P's column 0 every hypothesis's count stays within 2
+    # of the float64 `agree` count and the sweep's best within 1 of the f64
+    # maximum, wherever the cloud lies.
+    pts = torch.as_tensor(cloud("line3d", 41, 1024) + np.float32(offset))
+    perms = fs.draw_slot_perms(1024, 2, torch.Generator().manual_seed(1))
+    samples = fs.reference_samples("line3d", pts, perms, 2)
+    params, degenerate, _ = fs.line3d_fit([[samples[:, j, c] for c in range(3)]
+                                           for j in range(2)], 1.0)
+    rows = [r[~degenerate] for r in params]
+    got = fs._line3d_vote(fs.pack_feature_rows(pts, True), rows, 1.0)
+    want = LineEstimator(1.0, 3).agree(torch.stack(rows, 1).double(), pts.double()).sum(-1)
+    assert len(rows[0]) > 2000
+    assert int((got - want).abs().max()) <= 2
+
+    coords, p, nf, cols = fs.sweep_inputs("line3d", pts, None, perms=perms)
+    count, _, _ = fs.sweep_plain("line3d", coords, p, nf, 2, cols, 1.0)
+    assert abs(int(count) - _f64_agree_max("line3d", LineEstimator(1.0, 3), samples, pts)) <= 1

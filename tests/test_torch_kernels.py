@@ -8,13 +8,15 @@ card and no JAX it runs alone:
     python -m pytest --noconftest tests/test_torch_kernels.py -m cuda
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor
-from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
+from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, LineEstimator, SphereEstimator
 from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ops import phantom_qr, sphere_lm, sphere_ransac, us_fast, vote
@@ -119,7 +121,12 @@ def test_us_sweeps_share_one_source_and_build():
     assert {k.source.name for k in sweeps} == {"fused_sweep_us.cu"}
     assert len({k.library_path() for k in sweeps}) == 1
     assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.US_FAMILIES]
-    assert all(k.argtypes == kernels.FUSED_SWEEPS["pivot"].argtypes for k in sweeps)
+    # pointer takes the rigid families' arguments; crosswire also its
+    # workspace and chunk (a fit and a vote kernel per chunk) before the stream.
+    rigid = kernels.FUSED_SWEEPS["pivot"].argtypes
+    assert kernels.FUSED_SWEEPS["pointer"].argtypes == rigid
+    assert kernels.FUSED_SWEEPS["crosswire"].argtypes == rigid[:-1] + [
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
     assert len(kernels.ALL) == 16 and len({k.source for k in kernels.ALL}) == 9
 
@@ -142,21 +149,38 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
     assert k.library_path() not in {o.library_path() for o in kernels.ALL if o is not k}
 
 
-def test_redesigned_kernels_declare_a_shape_query():
+_SPLIT_LAYOUT = "constexpr int kSplitHypPerThread = 4;"   # sweep_common.cuh
+
+# kernel: (the layout constant, whether its source holds FMAs).  B2, line3d
+# and crosswire fuse their votes into FMAs (their plain versions round each
+# one as CUDA does); B4 keeps separate multiplies and adds, as JAX's counts.
+_REDESIGNED = {
+    "phantom_qr": ("constexpr int kGroup = 16;", None),
+    "sphere_mega": ("constexpr int kMegaHypPerThread = 4;", None),
+    "sphere_vote": ("constexpr int kHypPerThread = 4;", True),
+    "plane_vote": ("constexpr int kHypPerThread = 4;", False),
+    "fused_sweep_line3d": (_SPLIT_LAYOUT, True),
+    "fused_sweep_crosswire": (_SPLIT_LAYOUT, True),
+}
+
+
+@pytest.mark.parametrize("name", list(_REDESIGNED))
+def test_redesigned_kernels_declare_a_shape_query(name):
     # Kernel.shape reads registers, block shape and blocks per SM through
     # <name>_shape beside <name>_launch; the layouts are fixed constants.
-    for k in (kernels.PHANTOM_QR, kernels.SPHERE_MEGA, kernels.SPHERE_VOTE, kernels.PLANE_VOTE):
-        text = k.source.read_text()
-        assert f'extern "C" int {k.symbol.replace("_launch", "_shape")}(int num_hyp' in text
-        assert "#ifndef" not in text
-    assert "constexpr int kGroup = 16;" in kernels.PHANTOM_QR.source.read_text()
-    assert "constexpr int kMegaHypPerThread = 4;" in kernels.SPHERE_MEGA.source.read_text()
-    for k in (kernels.SPHERE_VOTE, kernels.PLANE_VOTE):
-        assert "constexpr int kHypPerThread = 4;" in k.source.read_text()
-    # B2 fuses |p|^2 - 2 c.p into FMAs (its plain version rounds each one as
-    # CUDA does); B4 keeps separate multiplies and adds, as JAX's counts.
-    assert "__fmaf_rn" in kernels.SPHERE_VOTE.source.read_text()
-    assert "__fmaf_rn" not in kernels.PLANE_VOTE.source.read_text()
+    k = {k.name: k for k in kernels.ALL}[name]
+    text = k.source.read_text()
+    assert f'extern "C" int {k.symbol.replace("_launch", "_shape")}(int num_hyp' in text
+    assert "#ifndef" not in text
+    layout, fused = _REDESIGNED[name]
+    if layout == _SPLIT_LAYOUT:
+        assert "lsq_sweep::kSplitHypPerBlock" in text
+        text = (kernels.CSRC_DIR / "sweep_common.cuh").read_text() + text
+    assert layout in text
+    if fused is not None:
+        assert ("__fmaf_rn" in text) == fused
+    if name == "fused_sweep_crosswire":     # its fit kernel has a query of its own
+        assert 'extern "C" int fused_sweep_crosswire_fit_shape(int num_hyp' in text
 
 
 def test_nvcc_path_raises_when_missing(monkeypatch):
@@ -568,6 +592,74 @@ def test_us_kernel_pad_columns_never_vote_on_card(cuda_device, family):
     assert int(ki) == int(pi) and torch.equal(kp, pp)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups,vote_cols", [(1024, 63, 1), (1000, 5, 300), (1000, 3, 1000),
+                                                (2049, 2, 2049), (200, 7, 256)])
+def test_line3d_kernel_ragged_shapes_equal_plain_on_card(cuda_device, n, groups, vote_cols):
+    # vote_cols 1, 300, 1,000 and past one 2,048-point tile; n = 200 votes
+    # on its 56 padding columns too.
+    pts = torch.as_tensor(_family_cloud("line3d", 80 + n, n), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + groups)
+    coords, p, nf, _ = fs.sweep_inputs("line3d", pts, gen)
+    kc, kp, ki = fs.sweep_cuda("line3d", coords, p, nf, groups, vote_cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("line3d", coords, p, nf, groups, vote_cols, 1.0)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_line3d_kernel_pad_columns_never_vote_on_card(cuda_device):
+    # 200 points on the x axis: the 56 zero padding columns lie on every
+    # line through the origin, and the kernel stages them as NaN.
+    pts = torch.zeros((200, 3), device=cuda_device)
+    pts[:, 0] = torch.linspace(-30, 30, 200, device=cuda_device)
+    coords, p, nf, cols = fs.sweep_inputs("line3d", pts,
+                                          torch.Generator(device=cuda_device).manual_seed(1))
+    kc, kp, ki = fs.sweep_cuda("line3d", coords, p, nf, 2, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("line3d", coords, p, nf, 2, cols, 1.0)
+    assert int(kc) == int(pc) == 200 and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+def test_line3d_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, offset):
+    # The vote expands |p - a|^2 about P's column 0: a cloud far from the
+    # origin counts as the plain version does, its best within 1 of the
+    # float64 `agree` maximum over the same hypotheses.
+    pts = torch.as_tensor(_family_cloud("line3d", 81, 1024) + np.float32(offset),
+                          device=cuda_device)
+    perms = fs.draw_slot_perms(1024, 2, torch.Generator(device=cuda_device).manual_seed(2),
+                               device=cuda_device)
+    coords, p, nf, cols = fs.sweep_inputs("line3d", pts, None, perms=perms)
+    kc, kp, ki = fs.sweep_cuda("line3d", coords, p, nf, 8, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("line3d", coords, p, nf, 8, cols, 1.0)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+    est = LineEstimator(1.0, 3)
+    params, valid = est.minimal_fit(fs.reference_samples("line3d", pts, perms, 8).double())
+    best = int(torch.where(valid, est.agree(params, pts.double()).sum(-1), 0).max())
+    assert abs(int(kc) - best) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1 << 20, 128, 300, 4096])
+@pytest.mark.parametrize("n,groups,vote_cols", [(1024, 7, 1024), (1000, 3, 300), (1000, 2, 1),
+                                                (2049, 2, 2049)])
+def test_crosswire_kernel_chunks_equal_plain_on_card(cuda_device, monkeypatch, chunk, n, groups,
+                                                     vote_cols):
+    # The fit and vote kernels run once per chunk of hypotheses (ragged at
+    # 300 and 4,096) and the best key accumulates across chunks; vote_cols
+    # 1, 300 and past four 512-point tiles.
+    monkeypatch.setattr(fs, "CROSSWIRE_CHUNK", chunk)
+    data = _us_data("crosswire", 90 + n, n, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + groups)
+    coords, p, nf, _ = fs.sweep_inputs("crosswire", data, gen)
+    kernel = kernels.FUSED_SWEEPS["crosswire"]
+    before = kernel.launches
+    kc, kp, ki = fs.sweep_cuda("crosswire", coords, p, nf, groups, vote_cols, 3.0)
+    pc, pp, pi = fs.sweep_plain("crosswire", coords, p, nf, groups, vote_cols, 3.0)
+    assert kernel.launches == before + 1
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
 def _lm_problems(seed, b, m):
     """The bench's LM problems: centres in U(-50, 50)^3, radius 25, N(0, 0.3)
     noise, start at centre + 1 and radius 23 (f32)."""
@@ -702,9 +794,15 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
 @pytest.mark.parametrize("kernel,num_hyp", [("PHANTOM_QR", 4352), ("PHANTOM_QR", 65536),
                                             ("SPHERE_MEGA", 131072),
                                             ("SPHERE_VOTE", 65536), ("SPHERE_VOTE", 1 << 20),
-                                            ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20)])
+                                            ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20),
+                                            ("FUSED_SWEEP_LINE3D", 1 << 22),
+                                            ("crosswire", 1 << 20), ("crosswire fit", 1 << 20)])
 def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
-    shape = getattr(kernels, kernel).shape(num_hyp)
+    if kernel.startswith("crosswire"):
+        query = "fit_shape" if kernel.endswith("fit") else "shape"
+        shape = kernels.FUSED_SWEEPS["crosswire"].shape(num_hyp, query)
+    else:
+        shape = getattr(kernels, kernel).shape(num_hyp)
     assert shape["spill_bytes"] == 0 and 0 < shape["registers"] <= 255
     assert shape["blocks_per_sm"] >= 1 and shape["threads"] % 32 == 0
     assert (shape["blocks"] - 1) * shape["hyp_per_block"] < num_hyp
