@@ -17,15 +17,19 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
 
   1. device: card name and power limit;
   2. build: every kernel, one ``nvcc`` per source, all in parallel; the
-     line3d kernel's and the crosswire vote and fit kernels' registers,
-     spills, blocks per SM and waves at the main path's shapes;
+     sphere3d and line3d kernels' and the crosswire and pointer vote and fit
+     kernels' registers, spills, blocks per SM and waves at the main path's
+     shapes;
   3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024;
      equal counts) and vs an f64 literal ``agree`` oracle, its registers,
      blocks per SM and waves;
   4. kernel ``fused_sweep_sphere3d`` vs its plain version (n = 1,024 and
-     1,000; 64 groups; groups_per_step 1 and 4; a vote_subsample run);
+     1,000; 64 groups; groups_per_step 1 and 4; a vote_subsample run): equal
+     counts and winner indices, bit-equal params;
   5. ``ransac_fused_sweep`` at n = 1,024 with 2^22 hypotheses (one launch),
-     then ``fused_sweep_sphere3d`` vs its plain version at that shape;
+     then ``fused_sweep_sphere3d`` vs its plain version at that shape, as in
+     phase 4, its launch shape and its time on 1 column (the fit, staging
+     and publishing without the vote);
   6. ``ransac`` at n = 1,024 with 65,536 gathered hypotheses;
   7. ``ransac_fused_sweep`` at n = 8,192 with 2^20 hypotheses, which falls
      back to the structured sweep and the vote kernel, then the vote kernel
@@ -55,14 +59,15 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
  14. ``ransac`` with pivot calibration at 65,536 gathered hypotheses (the
      tree gather and the batched f64 9x6 SVD, no kernel);
  15. kernels ``fused_sweep_crosswire`` and ``fused_sweep_pointer`` vs their
-     plain versions on phase 4's cases and a padding-column case: equal
-     count, equal winner index, bit-equal rows;
+     plain versions on phase 4's cases, a padding-column case and a case of
+     22 ragged chunks (``US_CHUNK_SMALL``): equal count, equal winner index,
+     bit-equal rows;
  16. per ultrasound family, ``ransac_fused_sweep`` (delta 3.0, ITERATIVE
      Levenberg-Marquardt refit) at the JAX family record's width, n = 1,024
      and 1,024 groups (one launch), the ground truth recovered, the refit's
-     iterations and time, then the kernel vs its plain version at that shape
-     (crosswire: its fit and vote kernels' device ms by the profiler and
-     their launch shapes);
+     iterations and time, then the kernel vs its plain version at that shape,
+     each family's fit and vote kernels' device ms by the profiler and their
+     launch shapes;
  17. ``ransac_structured`` on both ultrasound estimators through the
      ``us_fast`` hook at 16,384 hypotheses, and ``ransac`` on crosswire at
      16,384 gathered hypotheses (the batched f64 12x12 SVD minimal fit); no
@@ -171,8 +176,8 @@ H100_SXM = "NVIDIA H100 80GB HBM3"
 PEAKS = (67e12, 3.35e12)
 
 # f32 operations per cell of each kernel's inner loop (an FMA counts 2):
-# sweep: 4 FMA + 1 multiply + compare + add; vote: |p|^2 - 2 c.p as 3 FMA
-# (3 multiplies + 3 adds), + |c|^2, two compares, add.
+# sweep: B7's cell, 4 FMA + abs + compare + count (MEGA_OPS_PER_CELL); vote:
+# |p|^2 - 2 c.p as 3 FMA (3 multiplies + 3 adds), + |c|^2, two compares, add.
 SWEEP_OPS_PER_CELL = 11
 SWEEP_OPS_PER_HYP = 115      # Cramer fit and band rows, once per hypothesis
 VOTE_OPS_PER_CELL = 10
@@ -184,7 +189,7 @@ VOTE_OPS_PER_CELL = 10
 POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (16, 31), "line2d": (9, 15)}
 # The sweeps whose plain versions round FMAs through fma_f32 in float64 take
 # seconds a call at the main path's shapes: their plain time is one call.
-PLAIN_ONCE = ("line3d", "crosswire")
+PLAIN_ONCE = ("sphere3d", "line3d", "crosswire", "pointer")
 # plane_vote: d multiplies + d - 1 adds, subtract, multiply, compare, add.
 PLANE_VOTE_OPS_PER_CELL = {2: 7, 3: 9}
 
@@ -254,11 +259,12 @@ RIGID_LIMITS = {"pivot": (0.1, 0.1), "absolute_orientation": (0.01, 0.2),
 # docs/FAMILY_PERF.json), and f32 operations per vote cell: crosswire
 # 3 x (5 mul + 5 add/sub + sub) + 3 mul + 2 add + compare + count (the
 # kernel's 3 x (add + 5 FMA) + multiply + 2 FMA count the same), pointer
-# 3 x (2 mul + 3 add/sub) + 3 mul + 2 add + compare + count.  The fits'
+# 3 x (2 FMA + sub) + multiply + 2 FMA + compare + count.  The fits'
 # operations come from us_fit_ops.
 US = {"crosswire": ("us_crosswire", 1024, 1024, 40),
       "pointer": ("us_pointer", 1024, 1024, 22)}
 US_DELTA = 3.0
+US_CHUNK_SMALL = 3000   # phase 15's chunked case: 65,536 hypotheses in 22 ragged chunks
 US_MX, US_MY = 0.143, 0.139
 US_R3_ANGLES = (1.1, 0.4, -0.7)
 US_T3, US_T1 = np.array([20.0, -15.0, 40.0]), np.array([30.0, 76.0, -58.0])
@@ -845,12 +851,12 @@ def main(argv=None):
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"    {k.name}: {line.strip()}")
-    cw_kernel = kernels.FUSED_SWEEPS["crosswire"]
-    hyp_cw = US["crosswire"][1] * US["crosswire"][2]
-    print(f"    fused_sweep_line3d at {H_FUSED}: "
-          f"{launch_shape(kernels.FUSED_SWEEP_LINE3D, H_FUSED)}")
-    print(f"    fused_sweep_crosswire at {hyp_cw}: vote {launch_shape(cw_kernel, hyp_cw)}; "
-          f"fit {launch_shape(cw_kernel, hyp_cw, 'fit_shape')}")
+    for k in (kernels.FUSED_SWEEP_SPHERE3D, kernels.FUSED_SWEEP_LINE3D):
+        print(f"    {k.name} at {H_FUSED}: {launch_shape(k, H_FUSED)}")
+    for family, (_, n_us, groups_us, _) in US.items():
+        k, hyp_us = kernels.FUSED_SWEEPS[family], n_us * groups_us
+        print(f"    {k.name} at {hyp_us}: vote {launch_shape(k, hyp_us)}; "
+              f"fit {launch_shape(k, hyp_us, 'fit_shape')}")
 
     # 3. sphere_vote vs plain -----------------------------------------------
     n, b = N_VOTE, B_VOTE
@@ -902,7 +908,7 @@ def main(argv=None):
         sweep_err = max(sweep_err, compare_sweep(
             fs, "sphere3d", est, coords, p, n_fit, num_groups, vote_cols, voters,
             f"[4] fused_sweep n={n_case} groups={total_groups} gps={gps} "
-            f"subsample={subsample}"))
+            f"subsample={subsample}", exact=True))
 
     # 5. main path: ransac_fused_sweep, one launch ---------------------------
     seeds = iter(range(args.seed + 100, args.seed + 10_000))
@@ -945,16 +951,21 @@ def main(argv=None):
     groups5 = h5 // n5
     sweep_ms = timer.ms(lambda: fs.sphere3d_sweep_cuda(coords5, p5, nfit5, groups5, cols5, DELTA), reps=20)
     sweep_plain_ms = timer.ms(lambda: fs.sphere3d_sweep_plain(coords5, p5, nfit5, groups5, cols5, DELTA),
-                              reps=2, warmup=1)
+                              *plain_reps("sphere3d"))
     hyp5 = groups5 * nfit5
     sweep_ops = hyp5 * (cols5 * SWEEP_OPS_PER_CELL + SWEEP_OPS_PER_HYP)
     sweep_bytes = (coords5.numel() + p5.numel() + 5) * 4
     sweep_bound, sweep_by = bound(sweep_ops, sweep_bytes, rates)
-    print(f"    kernel ms: sweep {sweep_ms:.4f}, plain {sweep_plain_ms:.4f}, "
-          f"bound {sweep_bound:.4f} ({sweep_by}) [{smi}]")
+    # The same launch on one column: the fit, the staging and the publishing.
+    sweep_one_ms = timer.ms(lambda: fs.sphere3d_sweep_cuda(coords5, p5, nfit5, groups5, 1, DELTA),
+                            reps=20)
+    print(f"    kernel ms: sweep {sweep_ms:.4f} (on 1 column {sweep_one_ms:.4f}), plain "
+          f"{sweep_plain_ms:.4f}, bound {sweep_bound:.4f} ({sweep_by}) [{smi}]")
+    print(f"    fused_sweep_sphere3d at {hyp5}: "
+          f"{launch_shape(kernels.FUSED_SWEEP_SPHERE3D, hyp5)}")
     sweep_err = max(sweep_err, compare_sweep(
         fs, "sphere3d", est, coords5, p5, nfit5, groups5, cols5, pts5,
-        f"    fused_sweep at this shape ({groups5} groups)"))
+        f"    fused_sweep at this shape ({groups5} groups)", exact=True))
 
     # 6. main path: ransac, gathered hypotheses -----------------------------
     h6 = H_GATHER
@@ -1354,6 +1365,19 @@ def main(argv=None):
                                           US_DELTA)[0])
                 check(n_case - 1 <= count <= n_case,
                       f"[15] {family}: {count} votes on {n_case} exact observations")
+        # The fit and vote kernels once per chunk, the best key across chunks.
+        rng15 = np.random.default_rng([args.seed, 15])     # rng's stream as before
+        data = interop.data_to_torch(us_data(rng15, family, 1024, geometry), device=dev)
+        coords, p, n_fit, vote_cols = fs.sweep_inputs(
+            family, data, torch.Generator(device=dev).manual_seed(args.seed + 15))
+        chunk_before, fs.US_CHUNK = fs.US_CHUNK, US_CHUNK_SMALL
+        try:
+            family_err[family] = max(family_err[family], compare_sweep(
+                fs, family, est_f, coords, p, n_fit, 64, vote_cols, data,
+                f"[15] fused_sweep_{family} n=1024 groups=64 in chunks of {US_CHUNK_SMALL}",
+                US_DELTA, exact=True))
+        finally:
+            fs.US_CHUNK = chunk_before
 
     # 16. main path per ultrasound family: ransac_fused_sweep, one launch ----
     from lsqrrecipes_tpu_torch.estimators import us_calibration
@@ -1416,16 +1440,16 @@ def main(argv=None):
         print(f"    kernel ms: {name_f} {ms16:.4f}, plain {plain_ms16:.4f}, "
               f"bound {bound16:.4f} ({by16}; {us_fit_ops(family)} fit operations per "
               f"hypothesis) [{smi}]")
-        if family == "crosswire":
-            parts = device_ms(torch, lambda: fs.sweep_cuda(family, coords16, p16, nfit16,
-                                                           groups16, cols16, US_DELTA),
-                              ("crosswire_fit_kernel", "crosswire_vote_kernel"))
-            print(f"    {name_f} device ms by kernel (profiler, mean per launch): fit "
-                  f"{parts['crosswire_fit_kernel']:.4f}, vote {parts['crosswire_vote_kernel']:.4f}; "
-                  f"vote {launch_shape(cw_kernel, hyp16)}; "
-                  f"fit {launch_shape(cw_kernel, hyp16, 'fit_shape')} [{smi}]")
-            check(parts["crosswire_fit_kernel"] > 0 and parts["crosswire_vote_kernel"] > 0,
-                  "the profiler saw no crosswire fit or vote kernel")
+        fit_k, vote_k = f"{family}_fit_kernel", f"{family}_vote_kernel"
+        parts = device_ms(torch, lambda: fs.sweep_cuda(family, coords16, p16, nfit16, groups16,
+                                                       cols16, US_DELTA), (fit_k, vote_k))
+        kernel16 = kernels.FUSED_SWEEPS[family]
+        print(f"    {name_f} device ms by kernel (profiler, mean per launch): fit "
+              f"{parts[fit_k]:.4f}, vote {parts[vote_k]:.4f}; "
+              f"vote {launch_shape(kernel16, hyp16)}; "
+              f"fit {launch_shape(kernel16, hyp16, 'fit_shape')} [{smi}]")
+        check(parts[fit_k] > 0 and parts[vote_k] > 0,
+              f"the profiler saw no {family} fit or vote kernel")
         family_err[family] = max(family_err[family], compare_sweep(
             fs, family, est_f, coords16, p16, nfit16, groups16, cols16, data16_t,
             f"    {name_f} at this shape ({groups16} groups)", US_DELTA, exact=True))

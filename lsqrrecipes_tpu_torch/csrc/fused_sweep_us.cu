@@ -3,12 +3,12 @@
 //
 // Replaces lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel with the
 // crosswire_fit_vote and pointer_fit_vote closures (the pallas_call in
-// _sweep_call), with one C launch symbol each: pointer instantiates the
-// __global__ template of sweep_common.cuh, crosswire runs a fit kernel and
-// a vote kernel per chunk of hypotheses (see crosswire_vote_kernel).  Each
-// family computes what its closure computes, in the operation order of the
-// plain versions (ops/fused_sweep.py crosswire_fit / pointer_fit, which call
-// linalg/small.py qr_solve_lanes and ops/us_fast.py orthonormalize_lanes):
+// _sweep_call), with one C launch symbol each: each family runs a fit kernel
+// and a vote kernel per chunk of hypotheses (see us_fit_kernel and the vote
+// kernels).  Each family computes what its closure computes, in the
+// operation order of the plain versions (ops/fused_sweep.py crosswire_fit /
+// pointer_fit, which call linalg/small.py qr_solve_lanes and
+// ops/us_fast.py orthonormalize_lanes):
 //   * crosswire (k = 4 tracked images, slot features [vec(R2) 9, t2 3, u, v]):
 //     the 12 x 12 system [u R2 | v R2 | R2 | -I] x = -t2 by Householder QR
 //     with equilibrated columns (1/sqrt of the sequential sum of squares),
@@ -35,10 +35,12 @@
 //   * crosswire: e_j = u c1_j + v c2_j + t3_j + (R2^T t2)_j - (R2 col j).t1,
 //     |e|^2 < delta^2, as five FMAs and an add per component and a multiply
 //     and two FMAs for |e|^2 (40 f32 operations per cell, an FMA counting
-//     2); the plain version rounds each FMA as CUDA does;
-//   * pointer: e_j = ((u c1_j + v c2_j) + t3_j) - w_j with w = R2^T (p - t2),
-//     over [u, v, w 3], separate multiplies and adds (3 x (2 mul + 3
-//     add/sub) + 5 + 2 = 22 operations).
+//     2);
+//   * pointer: e_j = fma(v, c2_j, fma(u, c1_j, t3_j)) - w_j with w = R2^T
+//     (p - t2), the subtraction last as in the closure's ((u c1_j + v c2_j)
+//     + t3_j) - w_j, and |e|^2 a multiply and two FMAs (3 x (2 FMA + sub)
+//     + mul + 2 FMA + compare + count = 22 operations).
+// The plain versions round each FMA as CUDA does, so the two count alike.
 // Padding columns (the ones row of P is 0) are staged with a NaN in u, so
 // every comparison of theirs is false; the plain versions mask them.
 //
@@ -47,19 +49,20 @@
 // (crosswire) and 2.3e10 (pointer) f32 operations and the fits about
 // 3,900 and 2,100 operations per hypothesis (4.1e9 and 2.2e9), against
 // < 2 MB of input: 0.70 and 0.38 ms at 67 TFLOP/s.  Every cell runs on the
-// FP32 pipes, several hypotheses' vote rows per thread in registers so that
-// one staged column feeds them all, P staged in shared memory and read as
-// broadcasts.  The fits are unrolled into registers (the 12 x 12 QR holds
-// about 170 floats), which is why crosswire fits in a kernel of its own:
-// fused with the vote, the fit held the whole kernel at 255 registers and
-// two hypotheses per thread.  Split, the vote runs at 96 registers, two
-// blocks of 256 threads per SM, and the fit's rows pass through a workspace
-// of 54.5 MB per 2^20 hypotheses.  On an H100 80GB HBM3 at 700 W
-// (chip_smoke.py) the crosswire sweep took 1.26-1.27 ms at that width (fit
-// 0.23, vote 1.01-1.02), where the vote with separate multiplies and adds
-// took 1.78-1.79 ms in all (timed from an edited copy of this source) and
-// the fused kernel 2.18-2.19 ms.  The pointer
-// fits four hypotheses per thread and stages 5 rows in 1,024-column tiles.
+// FP32 pipes, four hypotheses' vote rows per thread in registers so that
+// one staged point feeds them all, points staged in shared memory and read
+// as broadcasts.  The fits are unrolled into registers (the 12 x 12 QR holds
+// about 170 floats), which is why each family fits in a kernel of its own:
+// fused with the vote, the fit held the whole kernel at 255 (crosswire) and
+// 210 (pointer) registers and one block of 256 threads per SM.  Split, the
+// votes run at 96 registers or fewer, two or more blocks of 256 threads per
+// SM, and the fit's rows pass through a workspace (54.5 and 41.9 MB per
+// 2^20 hypotheses).  On an H100 80GB HBM3 at 700 W (chip_smoke.py) the
+// crosswire sweep took 1.26-1.27 ms at that width (fit 0.23, vote
+// 1.01-1.02), where the vote with separate multiplies and adds took
+// 1.78-1.79 ms in all (timed from an edited copy of this source) and the
+// fused kernel 2.18-2.19 ms; the pointer sweep took 0.74 ms (fit 0.116, vote
+// 0.610) where its fused kernel took 1.21 ms.
 
 #include "sweep_common.cuh"
 
@@ -250,48 +253,72 @@ struct Crosswire {
       out[12 + i] = f.c3[i];
     }
   }
+
+  // Workspace rows: t1 0-2, t3 3-5, c1 6-8, c2 9-11, degenerate 12.
+  static constexpr int kWsRows = 13;
+  static __device__ __forceinline__ void store(const Fit& f, float* ws, unsigned chunk,
+                                               unsigned i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ws[c * chunk + i] = f.t1[c];
+      ws[(3 + c) * chunk + i] = f.t3[c];
+      ws[(6 + c) * chunk + i] = f.c1[c];
+      ws[(9 + c) * chunk + i] = f.c2[c];
+    }
+  }
 };
 
-// The crosswire sweep: a fit kernel and a vote kernel per chunk of at most
-// `chunk` hypotheses, through a workspace ws f32[kCwRows, chunk] in
+// Each family's sweep: a fit kernel and a vote kernel per chunk of at most
+// `chunk` hypotheses, through a workspace ws f32[F::kWsRows, chunk] in
 // structure-of-arrays order (row r of hypothesis i at ws[r * chunk + i]).
-//   * crosswire_fit_kernel: one hypothesis per thread runs Crosswire::fit and
-//     writes t1 (rows 0-2), t3 (3-5), c1 (6-8), c2 (9-11) and the degenerate
-//     flag (row 12, 1 or 0).  The 12 x 12 QR keeps ~170 floats live, so the
-//     fit alone sets this kernel's registers;
+//   * the fit kernel (us_fit_kernel<F>, one wrapper per family): one
+//     hypothesis per thread runs F::fit and F::store writes its vote rows
+//     and the degenerate flag (the last row, 1 or 0).  The QR keeps its
+//     system in registers, so the fit alone sets this kernel's registers;
 //   * crosswire_vote_kernel: the split-vote layout (sweep_common.cuh), four
-//     hypotheses' 12 rows per thread.  A point is staged as four float4
-//     [u, v, q0, q1], [q2, R00, R01, R02], [R10, R11, R12, R20],
+//     hypotheses' 12 rows (t1, t3, c1, c2) per thread.  A point is staged as
+//     four float4 [u, v, q0, q1], [q2, R00, R01, R02], [R10, R11, R12, R20],
 //     [R21, R22, 0, 0] with q = R2^T t2 (P's rows 3-5) and R2[k][j] P's row
 //     6 + 3k + j, u NaN on a padding column (P's row 2, the ones row, is 0),
 //     512 points per 32 KB tile.  Per cell, e_j = fma(R2[2][j], -t1_2,
 //     fma(R2[1][j], -t1_1, fma(R2[0][j], -t1_0, fma(v, c2_j, fma(u, c1_j,
 //     t3_j + q_j))))) and the count where fma(e2, e2, fma(e1, e1, e0 e0)) <
 //     delta^2: 21 FMAs and adds, one multiply, a compare and a predicated add
-//     per cell, and one 16-byte broadcast load.
-constexpr int kCwRows = 13;
-constexpr int kCwFitThreads = 128;
+//     per cell, and one 16-byte broadcast load;
+//   * pointer_vote_kernel: the same layout, four hypotheses' 9 rows (t3, c1,
+//     c2) per thread.  A point is staged as a float4 [u, v, w0, w1] and a
+//     float w2 (P's rows 0, 1, 3-5), u NaN on a padding column, 2,048 points
+//     per 40 KB tile.  Per cell, e_j = fma(v, c2_j, fma(u, c1_j, t3_j)) - w_j
+//     and the count where fma(e2, e2, fma(e1, e1, e0 e0)) < delta^2: six
+//     FMAs, three subtractions, a multiply, two FMAs, a compare and a
+//     predicated add per cell, and two broadcast loads per point.  Its
+//     __launch_bounds__ ask for 3 blocks per SM (80 registers, no spill;
+//     left to itself the compiler took 96 and 2 blocks).
+constexpr int kFitThreads = 128;
 constexpr int kCwTile = 512;
 static_assert(lsq_sweep::kSplitWarps * lsq_sweep::kSplitHypPerBlock * sizeof(int) <=
                   4 * kCwTile * sizeof(float4),
               "the partial counts reuse the tile");
 
-__global__ void __launch_bounds__(kCwFitThreads)
+template <class F>
+__device__ __forceinline__ void fit_chunk(const float* __restrict__ coords,
+                                          long long coords_stride, unsigned n_fit,
+                                          unsigned h_first, unsigned n_valid, int b, int m,
+                                          unsigned mask, const Consts& k,
+                                          float* __restrict__ ws, unsigned chunk) {
+  const unsigned i = blockIdx.x * kFitThreads + threadIdx.x;
+  if (i >= n_valid) return;
+  const typename F::Fit f =
+      lsq_sweep::fit_hypothesis<F>(coords, coords_stride, h_first + i, n_fit, b, m, mask, k);
+  F::store(f, ws, chunk, i);
+  ws[(F::kWsRows - 1) * static_cast<size_t>(chunk) + i] = f.degenerate ? 1.f : 0.f;
+}
+
+__global__ void __launch_bounds__(kFitThreads)
 crosswire_fit_kernel(const float* __restrict__ coords, long long coords_stride, unsigned n_fit,
                      unsigned h_first, unsigned n_valid, int b, int m, unsigned mask, Consts k,
                      float* __restrict__ ws, unsigned chunk) {
-  const unsigned i = blockIdx.x * kCwFitThreads + threadIdx.x;
-  if (i >= n_valid) return;
-  const Crosswire::Fit f = lsq_sweep::fit_hypothesis<Crosswire>(coords, coords_stride,
-                                                                h_first + i, n_fit, b, m, mask, k);
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    ws[c * chunk + i] = f.t1[c];
-    ws[(3 + c) * chunk + i] = f.t3[c];
-    ws[(6 + c) * chunk + i] = f.c1[c];
-    ws[(9 + c) * chunk + i] = f.c2[c];
-  }
-  ws[12 * chunk + i] = f.degenerate ? 1.f : 0.f;
+  fit_chunk<Crosswire>(coords, coords_stride, n_fit, h_first, n_valid, b, m, mask, k, ws, chunk);
 }
 
 __global__ void __launch_bounds__(lsq_sweep::kSplitThreads, 2)
@@ -322,7 +349,7 @@ crosswire_vote_kernel(const float* __restrict__ p, long long p_stride, int vote_
   }
   if (threadIdx.x < kSplitHypPerBlock) {
     const unsigned i = i_first + threadIdx.x;
-    counts_zero[threadIdx.x] = i >= n_valid || ws[12 * chunk + i] != 0.f;
+    counts_zero[threadIdx.x] = i >= n_valid || ws[(Crosswire::kWsRows - 1) * chunk + i] != 0.f;
   }
 
   for (int t0 = 0; t0 < vote_cols; t0 += kCwTile) {
@@ -370,13 +397,10 @@ crosswire_vote_kernel(const float* __restrict__ p, long long p_stride, int vote_
 }
 
 struct Pointer {
-  static constexpr int kSlots = 3, kDim = 17, kParams = 12, kTileRows = 5;
+  static constexpr int kSlots = 3, kDim = 17, kParams = 12;
   struct Fit {
     float t3[3], c1[3], c2[3], c3[3];
     bool degenerate;
-  };
-  struct Band {
-    float t3[3], c1[3], c2[3], delta_sq;
   };
 
   static __device__ __forceinline__ Fit fit(const float s[3][17], const Consts&) {
@@ -406,39 +430,6 @@ struct Pointer {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
-#pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      b.t3[i] = f.t3[i];
-      b.c1[i] = f.c1[i];
-      b.c2[i] = f.c2[i];
-    }
-    b.delta_sq = k.delta_sq;
-    return b;
-  }
-
-  // P rows: u 0, v 1, ones 2, w 3-5, guard 6.  Tile rows: u 0 (NaN on
-  // padding columns), v 1, w 2-4.
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[lsq_sweep::kTile], int i) {
-    tile[0][i] = live_or_nan(p, stride, col, 0, 2);
-    tile[1][i] = p[stride + col];
-#pragma unroll
-    for (int r = 2; r < kTileRows; ++r) tile[r][i] = p[(r + 1) * stride + col];
-  }
-
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[lsq_sweep::kTile],
-                                             int i) {
-    const float u = tile[0][i], v = tile[1][i];
-    float e[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      e[j] = sub(add(add(mul(u, b.c1[j]), mul(v, b.c2[j])), b.t3[j]), tile[2 + j][i]);
-    }
-    return add3(mul(e[0], e[0]), mul(e[1], e[1]), mul(e[2], e[2])) < b.delta_sq;
-  }
-
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -448,17 +439,127 @@ struct Pointer {
       out[9 + i] = f.c3[i];
     }
   }
+
+  // Workspace rows: t3 0-2, c1 3-5, c2 6-8, degenerate 9.
+  static constexpr int kWsRows = 10;
+  static __device__ __forceinline__ void store(const Fit& f, float* ws, unsigned chunk,
+                                               unsigned i) {
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      ws[c * chunk + i] = f.t3[c];
+      ws[(3 + c) * chunk + i] = f.c1[c];
+      ws[(6 + c) * chunk + i] = f.c2[c];
+    }
+  }
 };
 
-template <class F>
-int launch(const float* coords, long long coords_stride, const float* p, long long p_stride,
-           int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask,
-           float delta, float delta_sq, float cross_eps, unsigned long long* best_key,
-           float* best_out, long long* best_index, void* stream) {
-  return lsq_sweep::launch_sweep<F>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
-                                    num_groups, b, m, mask,
-                                    Consts{0.f, delta_sq, delta, cross_eps}, best_key,
-                                    best_out, best_index, stream);
+constexpr int kPtTile = 2048;  // points per tile: 32 KB of float4 + 8 KB of w2
+static_assert(lsq_sweep::kSplitWarps * lsq_sweep::kSplitHypPerBlock * sizeof(int) <=
+                  kPtTile * sizeof(float4),
+              "the partial counts reuse the tile");
+
+__global__ void __launch_bounds__(kFitThreads)
+pointer_fit_kernel(const float* __restrict__ coords, long long coords_stride, unsigned n_fit,
+                   unsigned h_first, unsigned n_valid, int b, int m, unsigned mask, Consts k,
+                   float* __restrict__ ws, unsigned chunk) {
+  fit_chunk<Pointer>(coords, coords_stride, n_fit, h_first, n_valid, b, m, mask, k, ws, chunk);
+}
+
+__global__ void __launch_bounds__(lsq_sweep::kSplitThreads, 3)
+pointer_vote_kernel(const float* __restrict__ p, long long p_stride, int vote_cols,
+                    unsigned h_first, unsigned n_valid, const float* __restrict__ ws,
+                    unsigned chunk, float delta_sq, unsigned long long* __restrict__ best_key) {
+  using namespace lsq_sweep;
+  constexpr int kHyp = kSplitHypPerThread;
+  __shared__ float4 tile[kPtTile];  // [u, v, w0, w1]
+  __shared__ float tile_w2[kPtTile];
+  __shared__ bool counts_zero[kSplitHypPerBlock];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned i_first = blockIdx.x * kSplitHypPerBlock;
+  float t3[kHyp][3], c1[kHyp][3], c2[kHyp][3];
+  int count[kHyp];
+#pragma unroll
+  for (int q = 0; q < kHyp; ++q) {
+    const unsigned i = i_first + 32 * q + lane;
+    const bool in = i < n_valid;  // a slot past the chunk votes on zeros, unpublished
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      t3[q][c] = in ? ws[c * chunk + i] : 0.f;
+      c1[q][c] = in ? ws[(3 + c) * chunk + i] : 0.f;
+      c2[q][c] = in ? ws[(6 + c) * chunk + i] : 0.f;
+    }
+    count[q] = 0;
+  }
+  if (threadIdx.x < kSplitHypPerBlock) {
+    const unsigned i = i_first + threadIdx.x;
+    counts_zero[threadIdx.x] = i >= n_valid || ws[(Pointer::kWsRows - 1) * chunk + i] != 0.f;
+  }
+
+  for (int t0 = 0; t0 < vote_cols; t0 += kPtTile) {
+    const int len = min(kPtTile, vote_cols - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < len; i += kSplitThreads) {
+      const int col = t0 + i;
+      const float* r = p + col;
+      tile[i] = make_float4(live_or_nan(p, p_stride, col, 0, 2), r[p_stride], r[3 * p_stride],
+                            r[4 * p_stride]);
+      tile_w2[i] = r[5 * p_stride];
+    }
+    __syncthreads();
+#pragma unroll 2
+    for (int i = warp; i < len; i += kSplitWarps) {
+      const float4 s = tile[i];
+      const float w[3] = {s.z, s.w, tile_w2[i]};
+#pragma unroll
+      for (int q = 0; q < kHyp; ++q) {
+        float e[3];
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+          e[j] = __fsub_rn(__fmaf_rn(s.y, c2[q][j], __fmaf_rn(s.x, c1[q][j], t3[q][j])), w[j]);
+        }
+        const float d2 = __fmaf_rn(e[2], e[2], __fmaf_rn(e[1], e[1], __fmul_rn(e[0], e[0])));
+        count_below(count[q], d2, delta_sq);
+      }
+    }
+  }
+
+  split_publish(count, reinterpret_cast<int*>(tile), counts_zero, h_first + i_first,
+                n_valid - i_first, best_key);
+}
+
+// Enqueue a family's whole sweep: clear the key; per chunk of at most
+// `chunk` hypotheses the fit kernel, then the vote kernel; the finalize.
+// Returns the first CUDA error, 0 on success.
+template <class F, class FitKernel, class VoteKernel>
+int launch_chunks(FitKernel fit_kernel, VoteKernel vote_kernel, const float* coords,
+                  long long coords_stride, const float* p, long long p_stride, int vote_cols,
+                  int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
+                  float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
+                  long long* best_index, float* workspace, int chunk, void* stream) {
+  using lsq_sweep::ceil_div;
+  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Consts k{0.f, delta_sq, delta, cross_eps};
+  const unsigned step = static_cast<unsigned>(chunk);
+  return lsq_sweep::launch_with<F>(
+      coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k, best_key, best_out,
+      best_index, s, [&](unsigned num_hyp) {
+        for (unsigned long long h0 = 0; h0 < num_hyp; h0 += step) {
+          const unsigned len = static_cast<unsigned>(num_hyp - h0 < step ? num_hyp - h0 : step);
+          fit_kernel<<<ceil_div(len, kFitThreads), kFitThreads, 0, s>>>(
+              coords, coords_stride, static_cast<unsigned>(n_fit), static_cast<unsigned>(h0),
+              len, b, m, mask, k, workspace, step);
+          cudaError_t err = cudaGetLastError();
+          if (err != cudaSuccess) return err;
+          vote_kernel<<<ceil_div(len, lsq_sweep::kSplitHypPerBlock), lsq_sweep::kSplitThreads,
+                        0, s>>>(p, p_stride, vote_cols, static_cast<unsigned>(h0), len,
+                                workspace, step, delta_sq, best_key);
+          err = cudaGetLastError();
+          if (err != cudaSuccess) return err;
+        }
+        return cudaSuccess;
+      });
 }
 
 }  // namespace
@@ -469,60 +570,51 @@ extern "C" const char* lsq_cuda_error_string(int code) {
 
 // Each launch symbol: coords f32[kSlots * kDim, coords_stride] (coords_stride
 // = 5 n_fit), p f32[16 (crosswire) or 7 (pointer), p_stride], best_key u64[1]
-// (scratch), best_out f32[kParams + 1], best_index i64[1]; all contiguous on
-// the current device.  delta_sq is f32 (delta and cross_eps are unused: the
-// rigid families' signature).  Evaluates num_groups * n_fit hypotheses
-// (< 2^32) and enqueues three operations on `stream`; returns the first CUDA
-// error, 0 on success.
+// (scratch), best_out f32[kParams + 1], best_index i64[1], workspace
+// f32[kWsRows (13 or 10), chunk]; all contiguous on the current device.
+// delta_sq is f32 (delta and cross_eps are unused: the rigid families'
+// signature).  Evaluates num_groups * n_fit hypotheses (< 2^32) in chunks of
+// at most `chunk` and enqueues 2 + 2 ceil(num_hyp / chunk) operations on
+// `stream`; returns the first CUDA error, 0 on success.
 extern "C" int fused_sweep_crosswire_launch(
     const float* coords, long long coords_stride, const float* p, long long p_stride,
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, float* workspace, int chunk, void* stream) {
-  using lsq_sweep::ceil_div;
-  if (chunk <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Consts k{0.f, delta_sq, delta, cross_eps};
-  const unsigned step = static_cast<unsigned>(chunk);
-  return lsq_sweep::launch_with<Crosswire>(
-      coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k, best_key, best_out,
-      best_index, s, [&](unsigned num_hyp) {
-        for (unsigned long long h0 = 0; h0 < num_hyp; h0 += step) {
-          const unsigned len = static_cast<unsigned>(num_hyp - h0 < step ? num_hyp - h0 : step);
-          crosswire_fit_kernel<<<ceil_div(len, kCwFitThreads), kCwFitThreads, 0, s>>>(
-              coords, coords_stride, static_cast<unsigned>(n_fit), static_cast<unsigned>(h0),
-              len, b, m, mask, k, workspace, step);
-          cudaError_t err = cudaGetLastError();
-          if (err != cudaSuccess) return err;
-          crosswire_vote_kernel<<<ceil_div(len, lsq_sweep::kSplitHypPerBlock),
-                                  lsq_sweep::kSplitThreads, 0, s>>>(
-              p, p_stride, vote_cols, static_cast<unsigned>(h0), len, workspace, step, delta_sq,
-              best_key);
-          err = cudaGetLastError();
-          if (err != cudaSuccess) return err;
-        }
-        return cudaSuccess;
-      });
-}
-
-// The launch shapes at num_hyp hypotheses (one chunk) on the current device,
-// of the vote kernel (fused_sweep_crosswire_shape) and of the fit kernel
-// (fused_sweep_crosswire_fit_shape), as lsq_sweep::kernel_shape gives them.
-extern "C" int fused_sweep_crosswire_shape(int num_hyp, int* out) {
-  return lsq_sweep::kernel_shape(crosswire_vote_kernel, lsq_sweep::kSplitThreads,
-                                 lsq_sweep::kSplitHypPerBlock, num_hyp, out);
-}
-
-extern "C" int fused_sweep_crosswire_fit_shape(int num_hyp, int* out) {
-  return lsq_sweep::kernel_shape(crosswire_fit_kernel, kCwFitThreads, kCwFitThreads, num_hyp,
-                                 out);
+  return launch_chunks<Crosswire>(crosswire_fit_kernel, crosswire_vote_kernel, coords,
+                                  coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m,
+                                  mask, delta, delta_sq, cross_eps, best_key, best_out,
+                                  best_index, workspace, chunk, stream);
 }
 
 extern "C" int fused_sweep_pointer_launch(
     const float* coords, long long coords_stride, const float* p, long long p_stride,
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
-    long long* best_index, void* stream) {
-  return launch<Pointer>(coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m,
-                         mask, delta, delta_sq, cross_eps, best_key, best_out, best_index, stream);
+    long long* best_index, float* workspace, int chunk, void* stream) {
+  return launch_chunks<Pointer>(pointer_fit_kernel, pointer_vote_kernel, coords, coords_stride,
+                                p, p_stride, vote_cols, n_fit, num_groups, b, m, mask, delta,
+                                delta_sq, cross_eps, best_key, best_out, best_index, workspace,
+                                chunk, stream);
+}
+
+// The launch shapes at num_hyp hypotheses (one chunk) on the current device,
+// of each family's vote kernel (<family>_shape) and fit kernel
+// (<family>_fit_shape), as lsq_sweep::kernel_shape gives them.
+extern "C" int fused_sweep_crosswire_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(crosswire_vote_kernel, lsq_sweep::kSplitThreads,
+                                 lsq_sweep::kSplitHypPerBlock, num_hyp, out);
+}
+
+extern "C" int fused_sweep_crosswire_fit_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(crosswire_fit_kernel, kFitThreads, kFitThreads, num_hyp, out);
+}
+
+extern "C" int fused_sweep_pointer_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(pointer_vote_kernel, lsq_sweep::kSplitThreads,
+                                 lsq_sweep::kSplitHypPerBlock, num_hyp, out);
+}
+
+extern "C" int fused_sweep_pointer_fit_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(pointer_fit_kernel, kFitThreads, kFitThreads, num_hyp, out);
 }

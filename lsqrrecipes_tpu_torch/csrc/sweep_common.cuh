@@ -3,9 +3,9 @@
 // A family F supplies its minimal fit and its per-cell vote; this header
 // supplies what every family does alike, as the TPU kernel
 // lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel does for every fit_vote
-// closure (line3d and crosswire use the shift hash, the finalize kernel and
-// the split-vote layout below with kernels of their own; the other families
-// instantiate sweep_kernel):
+// closure (sphere3d, line3d, crosswire and pointer use the shift hash, the
+// finalize kernel and the split-vote layout below with kernels of their own;
+// the other families instantiate sweep_kernel):
 //   * the shift hash: hypothesis h = g * n_fit + lane takes, for slot j, the
 //     point at column shift_units(g, j) * 128 + lane of rows
 //     F::kDim * j .. F::kDim * j + kDim - 1 of the four-permutation
@@ -190,8 +190,8 @@ __global__ void finalize_kernel(const float* __restrict__ coords, long long coor
 }
 
 // ---------------------------------------------------------------------------
-// The split-vote layout (line3d and crosswire; the other families keep
-// sweep_kernel above).  A block of kSplitThreads threads owns
+// The split-vote layout (sphere3d, line3d, crosswire and pointer; the other
+// families keep sweep_kernel above).  A block of kSplitThreads threads owns
 // kSplitHypPerBlock consecutive hypotheses: lane l of every warp holds the
 // vote rows of hypotheses l + 32 q (q < kSplitHypPerThread) in registers, and
 // warp w votes on points w, w + kSplitWarps, ..., read from shared memory as
@@ -220,26 +220,29 @@ __device__ __forceinline__ void count_below(int& count, float x, float lim) {
 // The block's end: add the warps' partial counts of its hypotheses h_first +
 // i (i < n_valid; counts_zero[i] marks a degenerate one, which counts 0),
 // reduce them to the best key (count << 32) | (0xFFFFFFFF - h) and
-// atomicMax it into best_key.  `partial` holds kSplitWarps x kSplitHypPerBlock
-// ints of shared memory that no thread reads any more (it may alias the
-// caller's point tile).  Every thread of the block calls it.
-__device__ __forceinline__ void split_publish(const int (&count)[kSplitHypPerThread],
-                                              int* partial, const bool* counts_zero,
-                                              unsigned h_first, unsigned n_valid,
+// atomicMax it into best_key.  Each thread holds the counts of kHyp
+// hypotheses (l + 32 q for lane l), so the block owns 32 kHyp <= kSplitThreads
+// of them.  `partial` holds kSplitWarps x 32 kHyp ints of shared memory that
+// no thread reads any more (it may alias the caller's point tile).  Every
+// thread of the block calls it.
+template <int kHyp>
+__device__ __forceinline__ void split_publish(const int (&count)[kHyp], int* partial,
+                                              const bool* counts_zero, unsigned h_first,
+                                              unsigned n_valid,
                                               unsigned long long* __restrict__ best_key) {
+  constexpr int kBlockHyp = 32 * kHyp;
+  static_assert(kBlockHyp <= kSplitThreads, "one thread per hypothesis adds the partials");
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   __syncthreads();  // the caller's tile is no longer read
 #pragma unroll
-  for (int q = 0; q < kSplitHypPerThread; ++q) {
-    partial[warp * kSplitHypPerBlock + 32 * q + lane] = count[q];
-  }
+  for (int q = 0; q < kHyp; ++q) partial[warp * kBlockHyp + 32 * q + lane] = count[q];
   __syncthreads();
-  if (threadIdx.x >= kSplitHypPerBlock) return;  // whole warps: no shuffle below diverges
+  if (threadIdx.x >= kBlockHyp) return;  // whole warps: no shuffle below diverges
   unsigned long long key = 0;
   if (threadIdx.x < n_valid) {
     int total = 0;
 #pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w) total += partial[w * kSplitHypPerBlock + threadIdx.x];
+    for (int w = 0; w < kSplitWarps; ++w) total += partial[w * kBlockHyp + threadIdx.x];
     const unsigned long long c =
         counts_zero[threadIdx.x] ? 0ull : static_cast<unsigned long long>(total);
     key = (c << 32) | (0xFFFFFFFFull - (h_first + threadIdx.x));

@@ -140,7 +140,7 @@ class Kernel:
     def shape(self, num_hyp: int, query: str = "shape") -> dict:
         """The launch shape at ``num_hyp`` hypotheses on the current device,
         from the source's ``<name>_<query>`` query (the redesigned kernels
-        have ``<name>_shape``; the crosswire sweep's fit kernel
+        have ``<name>_shape``; the ultrasound sweeps' fit kernels
         ``<name>_fit_shape``): registers and spill bytes per thread, threads
         and hypotheses per block, blocks, resident blocks per SM, and waves =
         blocks / (blocks per SM x SMs)."""
@@ -225,17 +225,15 @@ _RIGID_SWEEPS = {
 }
 
 # The crosswire and calibrated-pointer ultrasound sweeps of
-# csrc/fused_sweep_us.cu: one library, the rigid families' signature; the
-# crosswire sweep (a fit and a vote kernel per chunk of hypotheses) also takes
-# its workspace f32[13, chunk] and chunk before the stream.
+# csrc/fused_sweep_us.cu: one library, the rigid families' signature plus
+# the workspace f32[rows, chunk] and chunk before the stream (each sweep runs
+# a fit and a vote kernel per chunk of hypotheses).
 US_FAMILIES = ("crosswire", "pointer")
 
 _US_SWEEPS = {
-    "crosswire": Kernel("fused_sweep_crosswire", "fused_sweep_us.cu",
-                        "fused_sweep_crosswire_launch",
-                        _RIGID_SWEEP_ARGS[:-1] + [_P, ctypes.c_int, _P]),
-    "pointer": Kernel("fused_sweep_pointer", "fused_sweep_us.cu",
-                      "fused_sweep_pointer_launch", _RIGID_SWEEP_ARGS),
+    family: Kernel(f"fused_sweep_{family}", "fused_sweep_us.cu", f"fused_sweep_{family}_launch",
+                   _RIGID_SWEEP_ARGS[:-1] + [_P, ctypes.c_int, _P])
+    for family in US_FAMILIES
 }
 
 FUSED_SWEEPS = {

@@ -15,7 +15,8 @@ packed rows ``P`` (padding columns carry a 1e30 guard or a zero ones-row)
 that fall in the family's band:
 
   * sphere3d: Cramer circumsphere, ``|P^T A| < 1`` with
-    ``A = [w(-2c), w|c|^2 + o, w]`` on ``P = [x, y, z, 1, |p|^2]``;
+    ``A = [w(-2c), w|c|^2 + o, w]`` on live columns of ``P = [x, y, z, 1,
+    |p|^2]`` (four FMAs per cell in the kernel);
   * plane3d: cross-product normal, ``|P^T A| < 1`` with
     ``A = [w n, o, w]`` on ``P = [x, y, z, 1, guard]``;
   * line2d: two-point normal, the same band on ``P = [x, y, 1, guard]``;
@@ -45,15 +46,17 @@ that fall in the family's band:
     parameters on the host (``_POSTPROCESS``);
   * pointer: the ``9 x 9`` system ``[u R2 | v R2 | R2] x = p - t2`` of three
     images (slot features ``[..., p 3]``), ``e_j = u c1_j + v c2_j + t3_j -
-    w_j`` on ``P = [u, v, 1, w = R2^T (p - t2), guard]``; ``[t3, c1, c2, c3]``
-    become 17 parameters on the host.
+    w_j`` (two FMAs and a subtraction in the kernel) on ``P = [u, v, 1, w =
+    R2^T (p - t2), guard]``; ``[t3, c1, c2, c3]`` become 17 parameters on
+    the host.
 
 Degenerate lanes count 0 outright.  On CUDA tensors :func:`sweep` launches
 the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
 ``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``,
 ``csrc/fused_sweep_us.cu``); on CPU tensors it runs :func:`sweep_plain`,
-which repeats the kernels' fits and votes operation by operation (the line3d
-and crosswire votes' FMAs through ``linalg.small.fma_f32``).
+which repeats the kernels' fits and votes operation by operation (the
+sphere3d, line3d, crosswire and pointer votes' FMAs through
+``linalg.small.fma_f32``).
 """
 
 import ctypes
@@ -97,11 +100,13 @@ _FAMILIES = {
 # Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries
 # (float64 ones in the families whose votes round FMAs through fma_f32).
 _PLAIN_CELLS = 1 << 25
-_PLAIN_CELLS_FMA = {"line3d": 1 << 22, "crosswire": 1 << 22}
+_PLAIN_CELLS_FMA = dict.fromkeys(("sphere3d", "line3d", "crosswire", "pointer"), 1 << 22)
 
-# Hypotheses per fit-and-vote chunk of the crosswire kernel: its workspace
-# f32[13, chunk] holds 54.5 MB at 2^20.
-CROSSWIRE_CHUNK = 1 << 20
+# Hypotheses per fit-and-vote chunk of the ultrasound kernels, and the rows
+# of their workspace f32[rows, chunk] (crosswire's 54.5 MB at 2^20,
+# pointer's 41.9 MB).
+US_CHUNK = 1 << 20
+_US_WORKSPACE_ROWS = {"crosswire": 13, "pointer": 10}
 
 
 def sweep_static(n: int, k_slots: int):
@@ -659,6 +664,24 @@ def _band_vote(p_vote, rows, delta):
     return ((p_vote.T @ torch.stack(rows)).abs() < 1.0).sum(dim=0)
 
 
+def sphere_band_e(a_rows, x, y, z, pp):
+    """The sphere kernels' band value of a cell (the sphere3d sweep's and the
+    per-step sweep's), ``e = fma(a4, |p|^2, fma(a2, z, fma(a1, y, fma(a0, x,
+    a3))))`` with each FMA rounded once as CUDA's ``__fmaf_rn``
+    (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`); the band rows and
+    the point rows broadcast together."""
+    a0, a1, a2, a3, a4 = a_rows
+    return fma_f32(a4, pp, fma_f32(a2, z, fma_f32(a1, y, fma_f32(a0, x, a3))))
+
+
+def _sphere3d_vote(p_vote, rows, delta):
+    """``#{live columns: |P^T A| < 1}`` in the kernel's per-cell arithmetic
+    (:func:`sphere_band_e` on P's rows x, y, z and ``|p|^2``, 0-2 and 4),
+    live where the ones row (3) is nonzero."""
+    e = sphere_band_e(rows, *(p_vote[r][:, None] for r in (0, 1, 2, 4)))
+    return ((e.abs() < 1.0) & _live(p_vote, 3)).sum(dim=0)
+
+
 def _line3d_vote(p_vote, rows, delta):
     """``#{live columns: |p - a|^2 - (u.(p - a))^2 < delta^2}`` in the
     kernel's per-cell arithmetic, each FMA rounded once as CUDA's
@@ -763,17 +786,21 @@ def _crosswire_vote(p_vote, rows, delta):
 
 
 def _pointer_vote(p_vote, rows, delta):
-    """``|e|^2 < delta^2``, ``e_j = ((u c1_j + v c2_j) + t3_j) - w_j`` per
-    cell (rows of P: u 0, v 1, ones 2, w 3-5)."""
+    """``|e|^2 < delta^2`` per cell in the kernel's arithmetic, each FMA
+    rounded once as CUDA's ``__fmaf_rn`` (``fma_f32``): ``e_j = fma(v, c2_j,
+    fma(u, c1_j, t3_j)) - w_j``, the subtraction last as in the TPU
+    closure's ``((u c1_j + v c2_j) + t3_j) - w_j``, and ``|e|^2 = fma(e_2,
+    e_2, fma(e_1, e_1, e_0 e_0))`` (rows of P: u 0, v 1, ones 2, w 3-5)."""
     t3, c1, c2 = rows[0:3], rows[3:6], rows[6:9]
     col = [p_vote[r][:, None] for r in range(6)]
-    e = [col[0] * c1[j] + col[1] * c2[j] + t3[j] - col[3 + j] for j in range(3)]
+    e = [fma_f32(col[1], c2[j], fma_f32(col[0], c1[j], t3[j])) - col[3 + j] for j in range(3)]
+    dist2 = fma_f32(e[2], e[2], fma_f32(e[1], e[1], e[0] * e[0]))
     d = float(delta)
-    return _component_vote(p_vote, e, d * d, 2)
+    return ((dist2 < scalar_like(d * d, dist2)) & _live(p_vote, 2)).sum(dim=0)
 
 
 _VOTES = {
-    "sphere3d": _band_vote,
+    "sphere3d": _sphere3d_vote,
     "plane3d": _band_vote,
     "line3d": _line3d_vote,
     "line2d": _band_vote,
@@ -885,9 +912,10 @@ def sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta):
     head = (coords.data_ptr(), coords.shape[1], p.data_ptr(), p.shape[1],
             vote_cols, n_fit, num_groups, b, m, mask)
     tail = (best_key.data_ptr(), best_out.data_ptr(), best_index.data_ptr())
-    if family == "crosswire":
-        chunk = min(num_groups * n_fit, CROSSWIRE_CHUNK)
-        workspace = torch.empty((13, chunk), dtype=torch.float32, device=dev)
+    if family in _US_WORKSPACE_ROWS:
+        chunk = min(num_groups * n_fit, US_CHUNK)
+        workspace = torch.empty((_US_WORKSPACE_ROWS[family], chunk), dtype=torch.float32,
+                                device=dev)
         tail += (workspace.data_ptr(), chunk)
     delta, cross_eps = _split_delta(delta)
     with torch.cuda.device(dev):

@@ -35,8 +35,8 @@ import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
-from lsqrrecipes_tpu_torch.linalg.small import fma_f32, scalar_like
-from lsqrrecipes_tpu_torch.ops.fused_sweep import circumsphere, sphere3d_fit
+from lsqrrecipes_tpu_torch.linalg.small import scalar_like
+from lsqrrecipes_tpu_torch.ops.fused_sweep import circumsphere, sphere3d_fit, sphere_band_e
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
 
@@ -257,10 +257,7 @@ def megakernel_call_plain(shifts, coords2, points_t, valid, delta):
             cols = (sh[:, j : j + 1] + lanes[None, :]).reshape(-1)
             pts.append([coords2[3 * j + c][cols] for c in range(3)])
         center, r, degenerate, a = sphere3d_fit(pts, delta)
-        e = fma_f32(a[0][:, None], x, a[3][:, None])
-        e = fma_f32(a[1][:, None], y, e)
-        e = fma_f32(a[2][:, None], z, e)
-        e = fma_f32(a[4][:, None], pp, e)
+        e = sphere_band_e([r[:, None] for r in a], x, y, z, pp)
         counts.append(((e.abs() < 1.0) & live).sum(dim=1, dtype=torch.int32))
         params.append(_params_rows(center, r, degenerate))
     params_t = torch.cat(params, dim=1) if params else coords2.new_zeros((8, 0))

@@ -7,8 +7,11 @@ set: host-side planes and samples are bitwise equal; the best count agrees
 within one (the f32 band product sums in another order) and, where the
 winner is the same hypothesis, its params agree to rtol 1e-5.  The JAX
 kernel runs in interpret mode on the CPU; the port's CPU path is the plain
-version of the CUDA kernel.
+version of the CUDA kernel, which votes with four FMAs per cell, each
+rounded once as CUDA's ``__fmaf_rn``.
 """
+
+from fractions import Fraction
 
 import jax
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ import torch
 
 from lsqrrecipes_tpu.ops import fused_sweep as jfs
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+from test_torch_vote import _f32_round
 
 torch.set_num_threads(2)
 
@@ -177,3 +181,65 @@ def test_cuda_sweep_path_rejects_cpu_tensors():
     coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="CUDA"):
         fs.sphere3d_sweep_cuda(coords, p, nf, 4, cols, 1.0)
+
+
+def test_pad_columns_never_vote():
+    # 200 points on a sphere through the origin, with the padding columns'
+    # 1e30 guard replaced by their true |p|^2 = 0: the 56 zero columns lie on
+    # the sphere, so only the ones-row mask (the kernel's NaN staging) keeps
+    # them out of the count.
+    d = np.random.default_rng(31).normal(size=(200, 3))
+    centre = np.array([6.0, -2.0, 3.0])                       # radius |centre| = 7
+    pts = torch.as_tensor((centre + 7.0 * d / np.linalg.norm(d, axis=1, keepdims=True))
+                          .astype(np.float32))
+    coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, torch.Generator().manual_seed(1))
+    assert p.shape == (5, 256) and cols == 256
+    p[4, 200:] = 0.0
+    count, params, _ = fs.sweep_plain("sphere3d", coords, p, nf, 4, cols, 1.0)
+    assert int(count) == 200
+    np.testing.assert_allclose(params.numpy(), np.append(centre, 7.0), atol=1e-3)
+
+
+def test_plain_sphere3d_vote_rounds_each_fma_once_on_band_edge_points():
+    # The sphere3d kernel and its plain version count a cell where |e| < 1,
+    # e = fma(a4, |p|^2, fma(a2, z, fma(a1, y, fma(a0, x, a3)))) in float32
+    # on P's rows.  Held here against that chain with each FMA rounded once
+    # from its exact rational value, on points placed at distance r +- delta
+    # from each centre (the band edge, |e| = 1, where one rounding decides
+    # the count) and on padding columns, which never count.
+    rng = np.random.default_rng(35)
+    pts = torch.as_tensor(_cloud(36, 256))
+    perms = fs.draw_slot_perms(256, 4, torch.Generator().manual_seed(5))
+    samples = fs.reference_samples("sphere3d", pts, perms, 1)
+    params, degenerate, a_rows = fs._sphere3d_rows(
+        [[samples[:, j, c] for c in range(3)] for j in range(4)], 1.0)
+    keep = (~degenerate & (params[3] < 60.0)).nonzero()[:, 0][:8]
+    assert len(keep) == 8
+    rows = [a[keep] for a in a_rows]
+    centres = torch.stack(params[:3], 1)[keep].double().numpy()
+    radii = params[3][keep].double().numpy()
+    edge = []
+    for c, r in zip(centres, radii):
+        u = rng.normal(size=(6, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        edge.append(c + (r + np.array([1.0, -1.0] * 3))[:, None] * u)
+    edge = np.concatenate(edge).astype(np.float32)            # 48 points, 80 padding columns
+    p = fs.pack_feature_rows(torch.as_tensor(edge), True)
+    assert p.shape == (5, 128)
+    got = fs._sphere3d_vote(p, rows, 1.0).numpy()
+
+    def fma(a, b, c):
+        return _f32_round(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+    cells = p.numpy()
+    hyp = torch.stack(rows, 1).numpy()
+    want, near_edge = [], 0
+    for a0, a1, a2, a3, a4 in hyp:
+        count = 0
+        for x, y, z, one, pp in cells.T:
+            e = fma(a4, pp, fma(a2, z, fma(a1, y, fma(a0, x, a3))))
+            count += bool(abs(e) < 1.0) and one != 0
+            near_edge += bool(one != 0 and abs(abs(float(e)) - 1.0) <= 1e-3)
+        want.append(count)
+    np.testing.assert_array_equal(got, np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge points really sit on the edge

@@ -13,8 +13,8 @@ within 2 of each other and each within 1 of the float64 ``agree`` maximum
 over the same hypotheses; the port's winner is among them bit for bit, and
 its host-side parameters match the f64 minimal fit of the winner to f32
 accuracy.  The JAX kernel votes through a 3-pass bf16 split product; the
-port, like its CUDA kernels, per cell in f32 (crosswire's components as
-chains of FMAs, each rounded once as CUDA's ``__fmaf_rn``).
+port, like its CUDA kernels, per cell in f32 (each residual component a
+chain of FMAs, each rounded once as CUDA's ``__fmaf_rn``).
 """
 
 from fractions import Fraction
@@ -258,6 +258,55 @@ def test_plain_crosswire_vote_rounds_each_fma_once_on_band_edge_points():
                 for k in range(3):
                     acc = fma(r2[k, j], -t1[k], acc)
                 e.append(acc)
+            d2 = fma(e[2], e[2], fma(e[1], e[1], e[0] * e[0]))
+            count += bool(d2 < limit)
+            near_edge += bool(abs(float(d2) - float(limit)) <= 1e-3)
+        want.append(count)
+    np.testing.assert_array_equal(got, np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge observations really sit on the edge
+
+
+def test_plain_pointer_vote_rounds_each_fma_once_on_band_edge_points():
+    # The pointer kernel and its plain version count a cell where
+    # fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2, e_j = fma(v, c2_j,
+    # fma(u, c1_j, t3_j)) - w_j in float32.  Held here against that chain
+    # with each FMA rounded once from its exact rational value, on
+    # observations placed at residual delta from each hypothesis (the band
+    # edge) and on padding columns, which never count.
+    rng = np.random.default_rng(35)
+    f32 = np.float32
+    data, _ = _data("pointer", 36, 256)
+    tdata = to_torch(data)
+    perms = fs.draw_slot_perms(256, 3, torch.Generator().manual_seed(4))
+    samples = fs.reference_samples("pointer", tdata, perms, 1)[:16]
+    rows, degenerate, _ = fs.pointer_fit([[samples[:, j, c] for c in range(17)]
+                                          for j in range(3)], DELTA)
+    rows = [r[~degenerate][:8] for r in rows[:9]]               # t3, c1, c2
+    hyp = torch.stack(rows, 1).numpy()
+    assert hyp.shape == (8, 9)
+    pix, w = [], []
+    for t3, c1, c2 in (h.reshape(3, 3).astype(np.float64) for h in hyp):
+        for _ in range(6):
+            uv = rng.uniform(size=2) * np.array([640.0, 480.0])
+            e = rng.normal(size=3)
+            e *= DELTA / np.linalg.norm(e)
+            pix.append(uv)
+            w.append(uv[0] * c1 + uv[1] * c2 + t3 - e)
+    pix, w = np.array(pix, np.float32), np.array(w, np.float32)   # 48 + 80 padding
+    p = fs._us_rows(torch.as_tensor(pix), torch.as_tensor(w))
+    assert p.shape == (7, 128)
+    got = fs._pointer_vote(p, [torch.as_tensor(hyp[:, i]) for i in range(9)], DELTA).numpy()
+
+    def fma(a, b, c):
+        return _f32_round(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+    limit = f32(DELTA * DELTA)
+    want, near_edge = [], 0
+    for h in hyp:
+        t3, c1, c2 = h.reshape(3, 3)
+        count = 0
+        for (u, v), obs in zip(pix, w):
+            e = [fma(v, c2[j], fma(u, c1[j], t3[j])) - obs[j] for j in range(3)]   # f32 subtract
             d2 = fma(e[2], e[2], fma(e[1], e[1], e[0] * e[0]))
             count += bool(d2 < limit)
             near_edge += bool(abs(float(d2) - float(limit)) <= 1e-3)

@@ -121,12 +121,12 @@ def test_us_sweeps_share_one_source_and_build():
     assert {k.source.name for k in sweeps} == {"fused_sweep_us.cu"}
     assert len({k.library_path() for k in sweeps}) == 1
     assert [k.symbol for k in sweeps] == [f"fused_sweep_{f}_launch" for f in kernels.US_FAMILIES]
-    # pointer takes the rigid families' arguments; crosswire also its
-    # workspace and chunk (a fit and a vote kernel per chunk) before the stream.
+    # Both take the rigid families' arguments plus their workspace and chunk
+    # (a fit and a vote kernel per chunk) before the stream.
     rigid = kernels.FUSED_SWEEPS["pivot"].argtypes
-    assert kernels.FUSED_SWEEPS["pointer"].argtypes == rigid
-    assert kernels.FUSED_SWEEPS["crosswire"].argtypes == rigid[:-1] + [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    for family in kernels.US_FAMILIES:
+        assert kernels.FUSED_SWEEPS[family].argtypes == rigid[:-1] + [
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
     assert len(kernels.ALL) == 16 and len({k.source for k in kernels.ALL}) == 9
 
@@ -151,16 +151,19 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
 
 _SPLIT_LAYOUT = "constexpr int kSplitHypPerThread = 4;"   # sweep_common.cuh
 
-# kernel: (the layout constant, whether its source holds FMAs).  B2, line3d
-# and crosswire fuse their votes into FMAs (their plain versions round each
-# one as CUDA does); B4 keeps separate multiplies and adds, as JAX's counts.
+# kernel: (the layout constant, whether its source holds FMAs).  B2, the
+# sphere3d, line3d, crosswire and pointer sweeps fuse their votes into FMAs
+# (their plain versions round each one as CUDA does); B4 keeps separate
+# multiplies and adds, as JAX's counts.
 _REDESIGNED = {
     "phantom_qr": ("constexpr int kGroup = 16;", None),
     "sphere_mega": ("constexpr int kMegaHypPerThread = 4;", None),
     "sphere_vote": ("constexpr int kHypPerThread = 4;", True),
     "plane_vote": ("constexpr int kHypPerThread = 4;", False),
+    "fused_sweep_sphere3d": ("constexpr int kSphereHypPerThread = 8;", True),
     "fused_sweep_line3d": (_SPLIT_LAYOUT, True),
     "fused_sweep_crosswire": (_SPLIT_LAYOUT, True),
+    "fused_sweep_pointer": (_SPLIT_LAYOUT, True),
 }
 
 
@@ -179,8 +182,8 @@ def test_redesigned_kernels_declare_a_shape_query(name):
     assert layout in text
     if fused is not None:
         assert ("__fmaf_rn" in text) == fused
-    if name == "fused_sweep_crosswire":     # its fit kernel has a query of its own
-        assert 'extern "C" int fused_sweep_crosswire_fit_shape(int num_hyp' in text
+    if name in ("fused_sweep_crosswire", "fused_sweep_pointer"):   # fit kernels: a query each
+        assert f'extern "C" int {name}_fit_shape(int num_hyp' in text
 
 
 def test_nvcc_path_raises_when_missing(monkeypatch):
@@ -255,9 +258,38 @@ def test_sweep_kernel_matches_plain_on_card(cuda_device, n, gps, subsample):
     kc, kp, ki = fs.sphere3d_sweep(coords, p, nf, groups, cols, 1.0)
     pc, pp, pi = fs.sphere3d_sweep_plain(coords, p, nf, groups, cols, 1.0)
     assert kernels.FUSED_SWEEP_SPHERE3D.launches == before + 1
-    assert abs(int(kc) - int(pc)) <= 1
-    if int(ki) == int(pi):
-        assert torch.equal(kp, pp)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,groups,vote_cols", [(1024, 63, 1), (1000, 5, 300), (1000, 3, 1000),
+                                                (4096, 1, 2049), (200, 7, 256)])
+def test_sphere3d_kernel_ragged_shapes_equal_plain_on_card(cuda_device, n, groups, vote_cols):
+    # vote_cols 1, 300, 1,000 and past one 2,048-point tile; n = 200 votes
+    # on its 56 padding columns too.
+    pts = torch.as_tensor(_cloud(30 + n, n), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(n + groups)
+    coords, p, nf, _ = fs.sweep_inputs("sphere3d", pts, gen)
+    kc, kp, ki = fs.sweep_cuda("sphere3d", coords, p, nf, groups, vote_cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("sphere3d", coords, p, nf, groups, vote_cols, 1.0)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+def test_sphere3d_kernel_pad_columns_never_vote_on_card(cuda_device):
+    # 200 points on a sphere through the origin, with the padding columns'
+    # 1e30 guard replaced by their true |p|^2 = 0: the 56 zero columns lie on
+    # the sphere, and the kernel stages them as NaN.
+    d = np.random.default_rng(31).normal(size=(200, 3))
+    centre = np.array([6.0, -2.0, 3.0])                       # radius |centre| = 7
+    pts = torch.as_tensor((centre + 7.0 * d / np.linalg.norm(d, axis=1, keepdims=True))
+                          .astype(np.float32), device=cuda_device)
+    coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts,
+                                          torch.Generator(device=cuda_device).manual_seed(1))
+    p[4, 200:] = 0.0
+    kc, kp, ki = fs.sweep_cuda("sphere3d", coords, p, nf, 4, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("sphere3d", coords, p, nf, 4, cols, 1.0)
+    assert int(kc) == int(pc) == 200 and int(ki) == int(pi) and torch.equal(kp, pp)
 
 
 def _family_cloud(family, seed, n):
@@ -639,25 +671,41 @@ def test_line3d_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, off
     assert abs(int(kc) - best) <= 1
 
 
+def _us_chunks_equal_plain(family, monkeypatch, device, chunk, n, groups, vote_cols):
+    monkeypatch.setattr(fs, "US_CHUNK", chunk)
+    data = _us_data(family, 90 + n, n, device)
+    gen = torch.Generator(device=device).manual_seed(n + groups)
+    coords, p, nf, _ = fs.sweep_inputs(family, data, gen)
+    kernel = kernels.FUSED_SWEEPS[family]
+    before = kernel.launches
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, groups, vote_cols, 3.0)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, vote_cols, 3.0)
+    assert kernel.launches == before + 1
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+
+
+_US_CHUNK_CASES = [(1024, 7, 1024), (1000, 3, 300), (1000, 2, 1), (2049, 2, 2049)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("chunk", [1 << 20, 128, 300, 4096])
-@pytest.mark.parametrize("n,groups,vote_cols", [(1024, 7, 1024), (1000, 3, 300), (1000, 2, 1),
-                                                (2049, 2, 2049)])
+@pytest.mark.parametrize("n,groups,vote_cols", _US_CHUNK_CASES)
 def test_crosswire_kernel_chunks_equal_plain_on_card(cuda_device, monkeypatch, chunk, n, groups,
                                                      vote_cols):
     # The fit and vote kernels run once per chunk of hypotheses (ragged at
     # 300 and 4,096) and the best key accumulates across chunks; vote_cols
     # 1, 300 and past four 512-point tiles.
-    monkeypatch.setattr(fs, "CROSSWIRE_CHUNK", chunk)
-    data = _us_data("crosswire", 90 + n, n, cuda_device)
-    gen = torch.Generator(device=cuda_device).manual_seed(n + groups)
-    coords, p, nf, _ = fs.sweep_inputs("crosswire", data, gen)
-    kernel = kernels.FUSED_SWEEPS["crosswire"]
-    before = kernel.launches
-    kc, kp, ki = fs.sweep_cuda("crosswire", coords, p, nf, groups, vote_cols, 3.0)
-    pc, pp, pi = fs.sweep_plain("crosswire", coords, p, nf, groups, vote_cols, 3.0)
-    assert kernel.launches == before + 1
-    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+    _us_chunks_equal_plain("crosswire", monkeypatch, cuda_device, chunk, n, groups, vote_cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [1 << 20, 128, 300, 4096])
+@pytest.mark.parametrize("n,groups,vote_cols", _US_CHUNK_CASES)
+def test_pointer_kernel_chunks_equal_plain_on_card(cuda_device, monkeypatch, chunk, n, groups,
+                                                   vote_cols):
+    # As crosswire's: chunks of 128, 300 and 4,096 hypotheses; vote_cols 1,
+    # 300 and past one 2,048-point tile.
+    _us_chunks_equal_plain("pointer", monkeypatch, cuda_device, chunk, n, groups, vote_cols)
 
 
 def _lm_problems(seed, b, m):
@@ -796,11 +844,13 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
                                             ("SPHERE_VOTE", 65536), ("SPHERE_VOTE", 1 << 20),
                                             ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20),
                                             ("FUSED_SWEEP_LINE3D", 1 << 22),
-                                            ("crosswire", 1 << 20), ("crosswire fit", 1 << 20)])
+                                            ("FUSED_SWEEP_SPHERE3D", 1 << 22),
+                                            ("crosswire", 1 << 20), ("crosswire fit", 1 << 20),
+                                            ("pointer", 1 << 20), ("pointer fit", 1 << 20)])
 def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
-    if kernel.startswith("crosswire"):
+    if kernel.split()[0] in kernels.US_FAMILIES:
         query = "fit_shape" if kernel.endswith("fit") else "shape"
-        shape = kernels.FUSED_SWEEPS["crosswire"].shape(num_hyp, query)
+        shape = kernels.FUSED_SWEEPS[kernel.split()[0]].shape(num_hyp, query)
     else:
         shape = getattr(kernels, kernel).shape(num_hyp)
     assert shape["spill_bytes"] == 0 and 0 < shape["registers"] <= 255
