@@ -17,15 +17,19 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
 
   1. device: card name and power limit;
   2. build: every kernel, one ``nvcc`` per source, all in parallel; the
-     sphere3d and line3d kernels' and the crosswire and pointer vote and fit
-     kernels' registers, spills, blocks per SM and waves at the main path's
-     shapes;
+     sphere3d, line3d, dense_linear6 and absolute_orientation kernels' and
+     the crosswire and pointer vote and fit kernels' registers, spills,
+     blocks per SM and waves at the main path's shapes;
   3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024;
      equal counts) and vs an f64 literal ``agree`` oracle, its registers,
-     blocks per SM and waves;
+     blocks per SM and waves; then on the cloud 1e4 from the origin
+     (``FAR_OFFSET``): equal counts, the best within 1 of the f64 ``agree``
+     maximum;
   4. kernel ``fused_sweep_sphere3d`` vs its plain version (n = 1,024 and
      1,000; 64 groups; groups_per_step 1 and 4; a vote_subsample run): equal
-     counts and winner indices, bit-equal params;
+     counts and winner indices, bit-equal params; and so on the cloud 1e4
+     from the origin, its best within 1 of the f64 maximum over the same
+     samples (``minimal_fit`` + ``agree``);
   5. ``ransac_fused_sweep`` at n = 1,024 with 2^22 hypotheses (one launch),
      then ``fused_sweep_sphere3d`` vs its plain version at that shape, as in
      phase 4, its launch shape and its time on 1 column (the fit, staging
@@ -52,10 +56,13 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      launch shape (and at 2^20 the SM clock and power while it runs);
  12. kernels ``fused_sweep_pivot``, ``fused_sweep_absolute_orientation``,
      ``fused_sweep_ray3d`` and ``fused_sweep_dense_linear6`` vs their plain
-     versions on phase 4's cases (pivot at n = 512 and 480);
+     versions on phase 4's cases (pivot at n = 512 and 480;
+     absolute_orientation and dense_linear6, whose votes are FMA chains
+     rounded alike, with equal counts and winner indices);
  13. per rigid family, ``ransac_fused_sweep`` through its estimator at the
      JAX family record's width (one launch), the ground truth recovered,
-     then the kernel vs its plain version at that shape;
+     then the kernel vs its plain version at that shape (with the launch
+     shape of the split-vote families and their time on 1 column);
  14. ``ransac`` with pivot calibration at 65,536 gathered hypotheses (the
      tree gather and the batched f64 9x6 SVD, no kernel);
  15. kernels ``fused_sweep_crosswire`` and ``fused_sweep_pointer`` vs their
@@ -85,10 +92,14 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      counts on every 32nd hypothesis against f64 ``minimal_fit`` + ``agree``
      (within 2 where both fit, equal maxima), its registers, blocks per SM
      and waves, and a 256-point, 4-group step against ``minimal_fit`` +
-     ``agree`` on its hypothesis set;
+     ``agree`` on its hypothesis set; then one step on the cloud 1e4 from
+     the origin: bit-equal to the plain version, the best within 1 of the
+     f64 maximum over the same samples;
  20. kernel ``sphere_planar_vote`` through ``planar_sphere_samples`` +
      ``sphere_fit_and_vote_planar`` at B = 131,072 (128 groups x n =
-     1,024) against its plain version and ``minimal_fit`` + ``vote_counts``;
+     1,024) against its plain version and ``minimal_fit`` + ``vote_counts``,
+     and so on the cloud 1e4 from the origin, its best within 1 of the f64
+     maximum;
  21. the drivers that add no kernel: ``ransac_fused_sweep`` with the
      GEOMETRIC (Levenberg-Marquardt) refit at n = 1,024 and 2^22 hypotheses,
      the ground truth, the refit's iterations and time; ``ransac_batched``
@@ -189,7 +200,8 @@ VOTE_OPS_PER_CELL = 10
 POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (16, 31), "line2d": (9, 15)}
 # The sweeps whose plain versions round FMAs through fma_f32 in float64 take
 # seconds a call at the main path's shapes: their plain time is one call.
-PLAIN_ONCE = ("sphere3d", "line3d", "crosswire", "pointer")
+PLAIN_ONCE = ("sphere3d", "line3d", "crosswire", "pointer", "absolute_orientation",
+              "dense_linear6")
 # plane_vote: d multiplies + d - 1 adds, subtract, multiply, compare, add.
 PLANE_VOTE_OPS_PER_CELL = {2: 7, 3: 9}
 
@@ -224,9 +236,13 @@ MAX_ANGLE, MAX_ANCHOR = 0.01, 0.1   # radians; data units
 # Point sweeps held to equal counts and winner indices against their plain
 # versions (phases 8, 9); the others within one count, as before.
 EXACT_POINT_SWEEPS = ("line3d",)
-# Phase 8 also sweeps a line3d cloud this far from the origin on every axis,
-# where the vote's |p|^2 - 2a.p expansion would cancel badly about the origin.
+# Phases 3, 4, 8, 19 and 20 also vote on a cloud this far from the origin on
+# every axis (phase 8 a line3d cloud, the others the bench's sphere), where
+# the votes' |p|^2 - 2a.p expansion would cancel badly about the origin.
 FAR_OFFSET = 1e4
+# The rigid sweeps in split_sweep_kernel (FMA votes, rounded alike by the
+# plain versions): held to equal counts and winner indices (phases 12, 13).
+SPLIT_RIGID = ("absolute_orientation", "dense_linear6")
 
 # The rigid families (csrc/fused_sweep_rigid.cu): estimator registry name,
 # data size n and groups of the main path (the JAX family record,
@@ -597,6 +613,22 @@ def max_or(t, default):
     return int(t.max()) if t.numel() else default
 
 
+def far_cloud(seed, phase, n):
+    """The bench's sphere, ``FAR_OFFSET`` from the origin on every axis,
+    from a generator of its own (``[seed, phase]``), float32 ``[n, 3]``."""
+    return bench_cloud(np.random.default_rng([seed, phase]), n) + np.float32(FAR_OFFSET)
+
+
+def f64_best(est, samples, pts, chunk=16384):
+    """The float64 ``minimal_fit`` + ``agree`` maximum over the sphere
+    ``samples`` ``[B, 4, 3]`` on ``pts``, ``chunk`` hypotheses at a time."""
+    best = 0
+    for b0 in range(0, samples.shape[0], chunk):
+        params, valid = est.minimal_fit(samples[b0 : b0 + chunk].double())
+        best = max(best, max_or(est.agree(params, pts.double()).sum(-1) * valid, 0))
+    return best
+
+
 def plain_reps(family):
     """``(reps, warmup)`` for timing a sweep's plain version."""
     return (1, 0) if family in PLAIN_ONCE else (2, 1)
@@ -853,6 +885,10 @@ def main(argv=None):
                 print(f"    {k.name}: {line.strip()}")
     for k in (kernels.FUSED_SWEEP_SPHERE3D, kernels.FUSED_SWEEP_LINE3D):
         print(f"    {k.name} at {H_FUSED}: {launch_shape(k, H_FUSED)}")
+    for family in SPLIT_RIGID:
+        k = kernels.FUSED_SWEEPS[family]
+        hyp2 = RIGID[family][2] * fs.fit_size(RIGID[family][1], fs._FAMILIES[family][0])
+        print(f"    {k.name} at {hyp2}: {launch_shape(k, hyp2)}")
     for family, (_, n_us, groups_us, _) in US.items():
         k, hyp_us = kernels.FUSED_SWEEPS[family], n_us * groups_us
         print(f"    {k.name} at {hyp_us}: vote {launch_shape(k, hyp_us)}; "
@@ -893,6 +929,22 @@ def main(argv=None):
     print(f"    ms: kernel {vote_ms:.4f}, plain {vote_plain_ms:.4f}, library {vote_lib_ms:.4f}, "
           f"bound {vote_bound:.4f} ({vote_by}) [{smi}]")
     print(f"    sphere_vote at {b}: {launch_shape(kernels.SPHERE_VOTE, b)}")
+    # The same hypotheses about the same sphere, FAR_OFFSET from the origin.
+    far3 = torch.as_tensor(far_cloud(args.seed, 3, n), device=dev)
+    params3 = params + torch.tensor([FAR_OFFSET] * 3 + [0.0], device=dev)
+    pt3, valid3, _ = vote.pack_points(far3)
+    got3 = vote.sphere_vote_counts_cuda(params3, pt3, valid3, DELTA)
+    err3 = int((got3.long() - vote.sphere_vote_counts_plain(params3, pt3, valid3, DELTA).long())
+               .abs().max())
+    dist3 = torch.cdist(params3[:, :3].double(), far3.double(),
+                        compute_mode="donot_use_mm_for_euclid_dist")
+    max3 = int(((dist3 - params3[:, 3:4].double()).abs() < DELTA).sum(1).max())
+    print(f"    the cloud {FAR_OFFSET:g} from the origin: max|kernel-plain|={err3} (must be 0); "
+          f"best count {int(got3.max())}, float64 agree maximum {max3}")
+    check(err3 == 0, "sphere_vote disagrees with its plain version far from the origin")
+    check(abs(int(got3.max()) - max3) <= 1, "[3] sphere_vote far from the origin: the best "
+          "count is not within 1 of the float64 maximum")
+    vote_err = max(vote_err, err3)
 
     # 4. fused_sweep_sphere3d vs plain --------------------------------------
     sweep_err = 0
@@ -909,6 +961,20 @@ def main(argv=None):
             fs, "sphere3d", est, coords, p, n_fit, num_groups, vote_cols, voters,
             f"[4] fused_sweep n={n_case} groups={total_groups} gps={gps} "
             f"subsample={subsample}", exact=True))
+    far4 = torch.as_tensor(far_cloud(args.seed, 4, N_MAIN), device=dev)
+    perms4 = fs.draw_slot_perms(N_MAIN, 4, torch.Generator(device=dev).manual_seed(args.seed),
+                                device=dev)
+    coords, p, n_fit, vote_cols = fs.sweep_inputs("sphere3d", far4, None, perms=perms4)
+    groups4 = SWEEP_CASES[0][1]
+    sweep_err = max(sweep_err, compare_sweep(
+        fs, "sphere3d", est, coords, p, n_fit, groups4, vote_cols, far4,
+        f"[4] fused_sweep n={N_MAIN} groups={groups4}, the cloud {FAR_OFFSET:g} from the origin",
+        exact=True))
+    far_count = int(fs.sweep_cuda("sphere3d", coords, p, n_fit, groups4, vote_cols, DELTA)[0])
+    far_max = f64_best(est, fs.reference_samples("sphere3d", far4, perms4, groups4), far4)
+    print(f"    best count {far_count}, float64 minimal_fit + agree maximum {far_max}")
+    check(abs(far_count - far_max) <= 1, "[4] sphere3d far from the origin: the best count is "
+          "not within 1 of the float64 maximum")
 
     # 5. main path: ransac_fused_sweep, one launch ---------------------------
     seeds = iter(range(args.seed + 100, args.seed + 10_000))
@@ -1261,7 +1327,7 @@ def main(argv=None):
             family_err[family] = max(family_err[family], compare_sweep(
                 fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
                 f"[12] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
-                f"subsample={subsample}", delta_f))
+                f"subsample={subsample}", delta_f, exact=family in SPLIT_RIGID))
 
     # 13. main path per rigid family: ransac_fused_sweep, one launch ---------
     for family, (_, n13, groups13, (per_cell, per_hyp)) in RIGID.items():
@@ -1295,7 +1361,7 @@ def main(argv=None):
         ms13 = timer.ms(lambda: fs.sweep_cuda(family, coords13, p13, nfit13, groups13, cols13,
                                               delta_f), reps=20)
         plain_ms13 = timer.ms(lambda: fs.sweep_plain(family, coords13, p13, nfit13, groups13,
-                                                     cols13, delta_f), reps=2, warmup=1)
+                                                     cols13, delta_f), *plain_reps(family))
         # The least work: every evaluated hypothesis fitted once and voted on
         # the n observations (not on the padding columns).
         bound13, by13 = bound(hyp13 * (n13 * per_cell + per_hyp),
@@ -1304,9 +1370,16 @@ def main(argv=None):
         family_times[family] = (ms13, plain_ms13, bound13, by13)
         print(f"    kernel ms: {name_f} {ms13:.4f}, plain {plain_ms13:.4f}, "
               f"bound {bound13:.4f} ({by13}) [{smi}]")
+        if family in SPLIT_RIGID:
+            # The same launch on one column: the fit, the staging and the publishing.
+            one13 = timer.ms(lambda: fs.sweep_cuda(family, coords13, p13, nfit13, groups13, 1,
+                                                   delta_f), reps=20)
+            print(f"    {name_f} at {hyp13}: {launch_shape(kernels.FUSED_SWEEPS[family], hyp13)}; "
+                  f"on 1 column {one13:.4f} ms")
         family_err[family] = max(family_err[family], compare_sweep(
             fs, family, est_f, coords13, p13, nfit13, groups13, cols13, data13_t,
-            f"    {name_f} at this shape ({groups13} groups)", delta_f))
+            f"    {name_f} at this shape ({groups13} groups)", delta_f,
+            exact=family in SPLIT_RIGID))
 
     # 14. gathered pivot calibration (tree gather, f64 9x6 SVD, no kernel) ----
     pivot_est = rigid_est("pivot")
@@ -1612,6 +1685,24 @@ def main(argv=None):
     check(abs(int(c_small) - agree_best) <= 1 and abs(regain - int(c_small)) <= 1,
           "the per-step sweep disagrees with minimal_fit + agree")
     mega_err = max(mega_err, abs(int(c_small) - agree_best))
+    far19 = torch.as_tensor(far_cloud(args.seed, 19, N_MAIN), device=dev)
+    pt_far19, valid_far19, _ = vote.pack_points(far19)
+    coords_far19 = sr._slot_planes(far19, torch.Generator(device=dev).manual_seed(args.seed + 19),
+                                   N_MAIN)
+    kc_far19, kp_far19 = sr.megakernel_call_cuda(shifts19, coords_far19, pt_far19, valid_far19,
+                                                 DELTA)
+    pc_far19, pp_far19 = sr.megakernel_call_plain(shifts19, coords_far19, pt_far19, valid_far19,
+                                                  DELTA)
+    far_max19 = f64_best(est, sr.reference_mega_samples(far19, None, SCAN_GROUPS,
+                                                        coords2=coords_far19), far19)
+    print(f"    step on the cloud {FAR_OFFSET:g} from the origin: counts equal "
+          f"{bool(torch.equal(kc_far19, pc_far19))}, params_t bit-equal "
+          f"{bool(torch.equal(kp_far19, pp_far19))}; best {int(kc_far19.max())}, float64 "
+          f"minimal_fit + agree maximum {far_max19}")
+    check(torch.equal(kc_far19, pc_far19) and torch.equal(kp_far19, pp_far19),
+          "sphere_mega disagrees with its plain version far from the origin")
+    check(abs(int(kc_far19.max()) - far_max19) <= 1, "[19] sphere_mega far from the origin: the "
+          "best count is not within 1 of the float64 maximum")
 
     # 20. sphere_planar_vote on a sampled plane --------------------------------
     def run20():
@@ -1651,6 +1742,24 @@ def main(argv=None):
     check(int(d20.max()) <= 2 and int(kc20.max()) == int(cref20.max()),
           "sphere_planar_vote disagrees with minimal_fit + vote_counts")
     check(int(flips20.max()) <= 5, "sphere_planar_vote disagrees with the f64 oracle")
+    far20 = torch.as_tensor(far_cloud(args.seed, 20, N_MAIN), device=dev)
+    pt_far20, valid_far20, _ = vote.pack_points(far20)
+    sxyz_far20 = sr.planar_sphere_samples(
+        torch.Generator(device=dev).manual_seed(args.seed + 20), far20, SCAN_GROUPS)
+    kc_far20, kp_far20 = sr.sphere_fit_and_vote_planar_cuda(sxyz_far20, pt_far20, valid_far20,
+                                                            DELTA)
+    pc_far20, pp_far20 = sr.sphere_fit_and_vote_planar_plain(sxyz_far20, pt_far20, valid_far20,
+                                                             DELTA)
+    far_max20 = f64_best(est, torch.stack([sxyz_far20[0:4].T, sxyz_far20[4:8].T,
+                                           sxyz_far20[8:12].T], dim=-1), far20)
+    print(f"    the cloud {FAR_OFFSET:g} from the origin: counts equal "
+          f"{bool(torch.equal(kc_far20, pc_far20))}, params_t bit-equal "
+          f"{bool(torch.equal(kp_far20, pp_far20))}; best {int(kc_far20.max())}, float64 "
+          f"minimal_fit + agree maximum {far_max20}")
+    check(torch.equal(kc_far20, pc_far20) and torch.equal(kp_far20, pp_far20),
+          "sphere_planar_vote disagrees with its plain version far from the origin")
+    check(abs(int(kc_far20.max()) - far_max20) <= 1, "[20] sphere_planar_vote far from the "
+          "origin: the best count is not within 1 of the float64 maximum")
     planar_ms = timer.ms(lambda: sr.sphere_fit_and_vote_planar_cuda(sxyz20, pt19, valid19, DELTA),
                          reps=20)
     planar_plain_ms = timer.ms(lambda: sr.sphere_fit_and_vote_planar_plain(sxyz20, pt19, valid19,

@@ -4,9 +4,10 @@
 //
 // Replaces lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel with the
 // pivot_fit_vote, absolute_orientation_fit_vote, ray3d_fit_vote and
-// dense_linear6_fit_vote closures (the pallas_call in _sweep_call): one
-// __global__ template (sweep_common.cuh) instantiated per family, with one C
-// launch symbol each.  Each family computes what its closure computes, in the
+// dense_linear6_fit_vote closures (the pallas_call in _sweep_call): one C
+// launch symbol per family; pivot and ray3d instantiate sweep_common.cuh's
+// sweep_kernel, absolute_orientation and dense_linear6 its split-vote
+// split_sweep_kernel.  Each family computes what its closure computes, in the
 // closure's operation order:
 //   * pivot (k = 3 frames, slot features [vec(R) 9, t 3, R^T t 3]): S = sum R,
 //     v = sum t, u = sum R^T t; N = 9I - S S^T, rhs = 3v - S u; Cramer solve
@@ -30,19 +31,22 @@
 // The votes.  The TPU closures vote through _dot_f32x3: three bf16 passes of
 // K = 8-17 products on the matrix unit (whose f32 product is one bf16
 // pass), walked in 512-column chunks to stay inside VMEM.  On the FP32 pipes
-// neither reason holds, so every cell is computed in plain, unfused f32 from
-// the staged rows, in the order the plain versions repeat:
+// neither reason holds, so every cell is computed in f32 from the staged
+// rows, in the order the plain versions repeat (each FMA rounded once by
+// linalg.small.fma_f32 there):
 //   * pivot: e_j = (sum_k R[j][k] t_D[k] + t_j) - t_W[j], |e|^2 < delta^2
 //     (the residual components, not the quadratic expansion whose ~1e4 terms
 //     cancel: 3 x (3 mul + 2 add + add + sub) + 3 mul + 2 add + compare +
-//     count = 28 f32 operations);
-//   * absolute_orientation: e_j = (sum_k R[j][k] p1[k] + t_j) - p2[j],
-//     |e|^2 < delta^2 (28 operations);
+//     count = 28 f32 operations), unfused;
+//   * absolute_orientation: e_j = fma(R_j2, z1, fma(R_j1, y1, fma(R_j0, x1,
+//     t_j))) - p2_j, |e|^2 = fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2
+//     (the subtraction last, as pointer's; the function's 28 operations in
+//     9 + 2 FMAs, 3 subtractions, a multiply, a compare and a count);
 //   * ray3d: v = x - p, t = n.v >= 0 and |v|^2 - t^2 (2 - |n|^2) < delta^2,
 //     the last term exact for directions that are not unit (3 sub, 8 mul,
-//     4 add, 2 sub, 2 compares, and, count = 21 operations);
-//   * dense_linear6: |a.x - b| < delta (6 mul, 5 add, sub, abs, compare,
-//     count = 15 operations).
+//     4 add, 2 sub, 2 compares, and, count = 21 operations), unfused;
+//   * dense_linear6: |e| < delta, e = fma(a5, x5, ... fma(a0, x0, -b)) (the
+//     function's 15 operations in six FMAs, an abs-compare and a count).
 // Padding columns (the ones row of P is 0) are staged with a NaN in the first
 // row, so every comparison of theirs is false; the plain versions mask them.
 //
@@ -51,12 +55,22 @@
 // and ray3d 1,024 x 1,024 x 1,024; dense_linear6 2,048 x 1,024 x 1,024) the
 // votes are 1.4e10-3.2e10 f32 operations against < 1 MB of input, 0.2-0.5 ms
 // at 67 TFLOP/s; the fits (70-470 operations per hypothesis) add under 2%.
-// The design is the point sweeps': every cell on the FP32 pipes, four
-// hypotheses' vote rows per thread in registers so that one staged column
-// feeds four hypotheses, P staged in shared memory and read as broadcasts,
-// nothing per hypothesis written to device memory.  Pivot stages 12 rows, so
-// its tiles are 512 columns wide (24 KB) to stay under the 48 KB static
-// shared-memory limit; the others stage 6-7 rows in 1,024-column tiles.
+// Every cell runs on the FP32 pipes, and nothing per hypothesis is written
+// to device memory.  sweep_kernel keeps four hypotheses' vote rows per
+// thread in registers, so one staged column feeds four hypotheses, with P
+// staged row by row in shared memory and read as scalar broadcasts (pivot
+// stages 12 rows, so its tiles are 512 columns wide, 24 KB, under the 48 KB
+// static limit; ray3d 7 rows in 1,024-column tiles).  split_sweep_kernel
+// gives a block 32 k hypotheses (k per thread) whose 8 warps split the
+// points, stages a point as two float4s read as 16-byte broadcasts, adds
+// the warps' counts exactly in shared memory and votes in FMA chains:
+// absolute_orientation at k = 4 (96 registers, 2 blocks per SM) ~17.75
+// instructions per cell against ~29.5 in sweep_kernel; dense_linear6 at k =
+// 8 ~8.5 against ~16.5, every thread fitting one hypothesis, which halves
+// the blocks and with them the fit's share of the sweep (its Cholesky takes
+// 6 square roots and 27 divisions per hypothesis).
+// On an H100 80GB HBM3 at 700 W (chip_smoke.py) sweep_kernel took 1.3149 ms
+// for dense_linear6 and 1.1800 ms for absolute_orientation.
 
 #include "sweep_common.cuh"
 
@@ -179,13 +193,12 @@ struct Pivot {
 };
 
 struct AbsoluteOrientation {
-  static constexpr int kSlots = 3, kDim = 6, kParams = 12, kTileRows = 6;
+  static constexpr int kSlots = 3, kDim = 6, kParams = 12, kVoteRows = 12;
+  static constexpr int kHypPerThread = 4;
+  using Point = lsq_sweep::Float4x2;
   struct Fit {
     float r[3][3], t[3];
     bool degenerate;
-  };
-  struct Band {
-    float r[3][3], t[3], delta_sq;
   };
 
   // Orthonormal frame (columns x, y, z) and mean of the slot points at
@@ -230,36 +243,41 @@ struct AbsoluteOrientation {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
+  // Vote rows: R row by row, then t.
+  static __device__ __forceinline__ void vote_rows(const Fit& f, float r[kVoteRows]) {
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
 #pragma unroll
-      for (int c = 0; c < 3; ++c) b.r[a][c] = f.r[a][c];
-      b.t[a] = f.t[a];
+      for (int c = 0; c < 3; ++c) r[3 * a + c] = f.r[a][c];
+      r[9 + a] = f.t[a];
     }
-    b.delta_sq = k.delta_sq;
-    return b;
   }
 
-  // P rows: p1 0-2, p2 3-5, ones 6, guard 7; tile rows p1, p2 (p1_x NaN on
-  // padding columns).
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTile], int i) {
-    tile[0][i] = live_or_nan(p, stride, col, 0, 6);
-#pragma unroll
-    for (int r = 1; r < kTileRows; ++r) tile[r][i] = p[r * stride + col];
+  // P rows: p1 0-2, p2 3-5, ones 6, guard 7; staged [p1, p2_x], [p2_y,
+  // p2_z, 0, 0] (p1_x NaN on padding columns).
+  static __device__ __forceinline__ Point stage(const float* __restrict__ p, long long stride,
+                                                int col) {
+    const float* c = p + col;
+    return {make_float4(live_or_nan(p, stride, col, 0, 6), c[stride], c[2 * stride],
+                        c[3 * stride]),
+            make_float4(c[4 * stride], c[5 * stride], 0.f, 0.f)};
   }
 
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTile], int i) {
+  // e_j = fma(R_j2, z1, fma(R_j1, y1, fma(R_j0, x1, t_j))) - p2_j, counted
+  // where fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2.
+  static __device__ __forceinline__ void vote(int& count, const float (&r)[kVoteRows],
+                                              const Point& pt, const Consts& k) {
+    const float p2[3] = {pt.a.w, pt.b.x, pt.b.y};
     float e[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float rp = add3(mul(b.r[j][0], tile[0][i]), mul(b.r[j][1], tile[1][i]),
-                            mul(b.r[j][2], tile[2][i]));
-      e[j] = sub(add(rp, b.t[j]), tile[3 + j][i]);
+      e[j] = __fsub_rn(__fmaf_rn(r[3 * j + 2], pt.a.z,
+                                 __fmaf_rn(r[3 * j + 1], pt.a.y,
+                                           __fmaf_rn(r[3 * j], pt.a.x, r[9 + j]))),
+                       p2[j]);
     }
-    return dot3(e, e) < b.delta_sq;
+    lsq_sweep::count_below(
+        count, __fmaf_rn(e[2], e[2], __fmaf_rn(e[1], e[1], __fmul_rn(e[0], e[0]))), k.delta_sq);
   }
 
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
@@ -341,13 +359,12 @@ struct Ray3D {
 };
 
 struct DenseLinear6 {
-  static constexpr int kSlots = 6, kDim = 7, kParams = 6, kTileRows = 7;
+  static constexpr int kSlots = 6, kDim = 7, kParams = 6, kVoteRows = 6;
+  static constexpr int kHypPerThread = 8;
+  using Point = lsq_sweep::Float4x2;
   struct Fit {
     float x[6];
     bool degenerate;
-  };
-  struct Band {
-    float x[6], delta;
   };
 
   // sum over the six sampled rows of s[r][i] * s[r][j], in row order.
@@ -395,28 +412,32 @@ struct DenseLinear6 {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
+  static __device__ __forceinline__ void vote_rows(const Fit& f, float r[kVoteRows]) {
 #pragma unroll
-    for (int c = 0; c < 6; ++c) b.x[c] = f.x[c];
-    b.delta = k.delta;
-    return b;
+    for (int c = 0; c < 6; ++c) r[c] = f.x[c];
   }
 
-  // P rows: a 0-5, b 6, ones 7, guard 8; tile rows a, b (a_0 NaN on padding
-  // columns).
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTile], int i) {
-    tile[0][i] = live_or_nan(p, stride, col, 0, 7);
-#pragma unroll
-    for (int r = 1; r < kTileRows; ++r) tile[r][i] = p[r * stride + col];
+  // P rows: a 0-5, b 6, ones 7, guard 8; staged [a0 .. a3], [a4, a5, b, 0]
+  // (a0 NaN on padding columns).
+  static __device__ __forceinline__ Point stage(const float* __restrict__ p, long long stride,
+                                                int col) {
+    const float* c = p + col;
+    return {make_float4(live_or_nan(p, stride, col, 0, 7), c[stride], c[2 * stride],
+                        c[3 * stride]),
+            make_float4(c[4 * stride], c[5 * stride], c[6 * stride], 0.f)};
   }
 
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTile], int i) {
-    float acc = mul(tile[0][i], b.x[0]);
-#pragma unroll
-    for (int c = 1; c < 6; ++c) acc = add(acc, mul(tile[c][i], b.x[c]));
-    return fabsf(sub(acc, tile[6][i])) < b.delta;
+  // e = fma(a5, x5, ... fma(a1, x1, fma(a0, x0, -b))), counted where |e| <
+  // delta: six FFMAs and one FSETP with |e| and -b as operand modifiers.
+  static __device__ __forceinline__ void vote(int& count, const float (&x)[kVoteRows],
+                                              const Point& pt, const Consts& k) {
+    float e = __fmaf_rn(pt.a.x, x[0], -pt.b.z);
+    e = __fmaf_rn(pt.a.y, x[1], e);
+    e = __fmaf_rn(pt.a.z, x[2], e);
+    e = __fmaf_rn(pt.a.w, x[3], e);
+    e = __fmaf_rn(pt.b.x, x[4], e);
+    e = __fmaf_rn(pt.b.y, x[5], e);
+    lsq_sweep::count_below(count, fabsf(e), k.delta);
   }
 
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
@@ -425,15 +446,9 @@ struct DenseLinear6 {
   }
 };
 
-template <class F>
-int launch(const float* coords, long long coords_stride, const float* p, long long p_stride,
-           int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask,
-           float delta, float delta_sq, float cross_eps, unsigned long long* best_key,
-           float* best_out, long long* best_index, void* stream) {
-  return lsq_sweep::launch_sweep<F>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
-                                    num_groups, b, m, mask,
-                                    Consts{0.f, delta_sq, delta, cross_eps}, best_key,
-                                    best_out, best_index, stream);
+// The kernels' constants from the launch symbols' f32 arguments.
+Consts consts(float delta, float delta_sq, float cross_eps) {
+  return Consts{0.f, delta_sq, delta, cross_eps};
 }
 
 }  // namespace
@@ -454,8 +469,9 @@ extern "C" int fused_sweep_pivot_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return launch<Pivot>(coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m,
-                       mask, delta, delta_sq, cross_eps, best_key, best_out, best_index, stream);
+  return lsq_sweep::launch_sweep<Pivot>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
+                                        num_groups, b, m, mask, consts(delta, delta_sq, cross_eps),
+                                        best_key, best_out, best_index, stream);
 }
 
 extern "C" int fused_sweep_absolute_orientation_launch(
@@ -463,9 +479,17 @@ extern "C" int fused_sweep_absolute_orientation_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return launch<AbsoluteOrientation>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
-                                     num_groups, b, m, mask, delta, delta_sq, cross_eps,
-                                     best_key, best_out, best_index, stream);
+  return lsq_sweep::launch_split<AbsoluteOrientation>(
+      coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m, mask,
+      consts(delta, delta_sq, cross_eps), best_key, best_out, best_index, stream);
+}
+
+// The absolute_orientation kernel's launch shape at num_hyp hypotheses on
+// the current device, as lsq_sweep::kernel_shape gives it.
+extern "C" int fused_sweep_absolute_orientation_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<AbsoluteOrientation>,
+                                 lsq_sweep::kSplitThreads, 32 * AbsoluteOrientation::kHypPerThread,
+                                 num_hyp, out);
 }
 
 extern "C" int fused_sweep_ray3d_launch(
@@ -473,8 +497,9 @@ extern "C" int fused_sweep_ray3d_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return launch<Ray3D>(coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m,
-                       mask, delta, delta_sq, cross_eps, best_key, best_out, best_index, stream);
+  return lsq_sweep::launch_sweep<Ray3D>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
+                                        num_groups, b, m, mask, consts(delta, delta_sq, cross_eps),
+                                        best_key, best_out, best_index, stream);
 }
 
 extern "C" int fused_sweep_dense_linear6_launch(
@@ -482,7 +507,15 @@ extern "C" int fused_sweep_dense_linear6_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return launch<DenseLinear6>(coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups,
-                              b, m, mask, delta, delta_sq, cross_eps, best_key, best_out,
-                              best_index, stream);
+  return lsq_sweep::launch_split<DenseLinear6>(
+      coords, coords_stride, p, p_stride, vote_cols, n_fit, num_groups, b, m, mask,
+      consts(delta, delta_sq, cross_eps), best_key, best_out, best_index, stream);
+}
+
+// The dense_linear6 kernel's launch shape at num_hyp hypotheses on the
+// current device, as lsq_sweep::kernel_shape gives it.
+extern "C" int fused_sweep_dense_linear6_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<DenseLinear6>,
+                                 lsq_sweep::kSplitThreads, 32 * DenseLinear6::kHypPerThread,
+                                 num_hyp, out);
 }

@@ -11,9 +11,11 @@
 //   * a Cramer circumsphere in f32 with the closure's exact operation order
 //     (sphere_fit.cuh: explicit __f*_rn intrinsics, so no multiply-add is
 //     contracted and the fit is bit-for-bit the plain PyTorch version's);
-//   * an affine band vote |P^T A| < 1 over the live columns among the first
-//     vote_cols of P [5, p_stride] (rows x, y, z, 1, |p|^2; a padding column
-//     has 0 in the ones row) with A = [w(-2c), w|c|^2 + o, w];
+//   * an affine band vote |w |p - c|^2 + o| < 1 over the live columns among
+//     the first vote_cols of P [5, p_stride] (rows x, y, z, 1, |p|^2; a
+//     padding column has 0 in the ones row), which the TPU kernel expands
+//     as |P^T A| with A = [w(-2c), w|c|^2 + o, w] about the origin and this
+//     kernel about P's column 0 (see below);
 //   * degenerate lanes (|det| < 1e-9) count 0 outright;
 //   * the winner is the highest count, ties to the lowest h, i.e. the
 //     earliest group and then the lowest lane, as the TPU grid's strict
@@ -32,9 +34,12 @@
 // of input.  The depth-5 band product has no use for the tensor cores (TF32
 // would move the band edges), so the vote runs on the FP32 pipes in
 // sweep_common.cuh's split-vote layout with eight hypotheses per thread (see
-// sphere3d_kernel): B7's cell (sphere_ransac.cu), e = fma(a4, |p|^2, fma(a2,
-// z, fma(a1, y, fma(a0, x, a3)))) on one float4 broadcast per point, so that
-// one staged point feeds eight cells, and the count one predicated add.
+// sphere3d_kernel): B7's cell (sphere_ransac.cu), e = fma(a4, |p'|^2, fma(a2,
+// z', fma(a1, y', fma(a0, x', a3)))) on one float4 broadcast per point, so
+// that one staged point feeds eight cells, and the count one predicated add.
+// Points and centres are taken relative to P's column 0 (sphere_fit.cuh's
+// vote_origin): about the origin, a cloud 1e4 away lost its band to
+// ulp(|p|^2), and the plain version's best count fell from 823 to 706.
 // Nothing per hypothesis is written to device memory.  The plain version
 // (ops/fused_sweep.py::_sphere3d_vote) rounds each FMA as CUDA does, so the
 // two count alike.  A cell issues ~6.4 instructions with the loop (4 FFMA,
@@ -51,6 +56,7 @@
 namespace {
 
 using lsq_sphere::band_rows;
+using lsq_sphere::centred_point;
 using lsq_sphere::circumsphere;
 using lsq_sphere::Hypothesis;
 using lsq_sweep::Consts;
@@ -79,11 +85,12 @@ struct Sphere3D {
 // eight (l + 32 q for lane l), and warp w votes on points w, w + 8, ....
 // Against four per thread (128 per block, half the threads fitting) this
 // halves the blocks, and with them the fit's latency, the staging and the
-// publishing per hypothesis, and the shared load per cell.  Points are
-// staged 2,048 at a time as float4 [x, y, z, |p|^2] from P's rows 0-2 and 4;
-// a padding column (row 3, the ones row, is 0) is staged with x = NaN, so
-// every cell of it compares false.  Per cell: four FMAs, one compare of |e|
-// against 1 and a predicated add.
+// publishing per hypothesis, and the shared load per cell.  With o = P's
+// column 0, the band rows are formed about o and points are staged 2,048 at
+// a time as float4 [x', y', z', |p'|^2] from P's rows 0-2 (p' = p - o; P's
+// |p|^2 row is not read); a padding column (row 3, the ones row, is 0) is
+// staged with x' = NaN, so every cell of it compares false.  Per cell: four
+// FMAs, one compare of |e| against 1 and a predicated add.
 constexpr int kSphereHypPerThread = 8;
 constexpr int kSphereHypPerBlock = 32 * kSphereHypPerThread;
 constexpr int kSphereRows = 5;     // a0 .. a4
@@ -93,7 +100,7 @@ static_assert(lsq_sweep::kSplitWarps * kSphereHypPerBlock * sizeof(int) <=
                   kSphereTile * sizeof(float4),
               "the partial counts reuse the tile");
 
-__global__ void __launch_bounds__(lsq_sweep::kSplitThreads)
+__global__ void __launch_bounds__(lsq_sweep::kSplitThreads, 3)
 sphere3d_kernel(const float* __restrict__ coords, long long coords_stride,
                 const float* __restrict__ p, long long p_stride, int vote_cols,
                 unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
@@ -106,6 +113,7 @@ sphere3d_kernel(const float* __restrict__ coords, long long coords_stride,
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const unsigned h_first = blockIdx.x * kSphereHypPerBlock;
+  const float3 o = lsq_sphere::vote_origin(p, p_stride, vote_cols);
   {
     const unsigned h = h_first + threadIdx.x;
     float a[kSphereRows] = {};  // a slot past the last hypothesis votes on zeros, unpublished
@@ -113,7 +121,7 @@ sphere3d_kernel(const float* __restrict__ coords, long long coords_stride,
     if (h < num_hyp) {
       const Hypothesis s =
           fit_hypothesis<Sphere3D>(coords, coords_stride, h, n_fit, b, m, mask, k);
-      band_rows(s, k.delta, a);
+      band_rows(s, o, k.delta, a);
       zero = s.degenerate;
     }
 #pragma unroll
@@ -139,9 +147,9 @@ sphere3d_kernel(const float* __restrict__ coords, long long coords_stride,
     __syncthreads();  // the previous tile is no longer read
     for (int i = threadIdx.x; i < len; i += kSplitThreads) {
       const int col = t0 + i;
-      const bool live = p[3 * p_stride + col] != 0.f;
-      tile[i] = make_float4(live ? p[col] : __int_as_float(0x7fffffff), p[p_stride + col],
-                            p[2 * p_stride + col], p[4 * p_stride + col]);
+      float4 pt = centred_point(p, p_stride, col, o);
+      if (p[3 * p_stride + col] == 0.f) pt.x = __int_as_float(0x7fffffff);
+      tile[i] = pt;
     }
     __syncthreads();
 #pragma unroll 4

@@ -9,6 +9,8 @@
 // with explicit __f*_rn intrinsics, so no multiply-add is contracted and the
 // fit is bit for bit the plain PyTorch version's
 // (lsqrrecipes_tpu_torch/ops/fused_sweep.py::circumsphere, sphere3d_fit).
+// The votes are not the TPU kernels': they expand |p - c|^2 about a point
+// of the cloud (vote_origin), the fits about the origin as those do.
 
 #pragma once
 
@@ -82,18 +84,50 @@ __device__ __forceinline__ Hypothesis circumsphere(const float p[4][3]) {
   return hyp;
 }
 
-// |c|^2 in coordinate order.
-__device__ __forceinline__ float center_sq(const Hypothesis& s) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(s.cx, s.cx), __fmul_rn(s.cy, s.cy)),
-                   __fmul_rn(s.cz, s.cz));
+// The votes' centre o: column 0 of the point rows x, y, z at `rows`, each
+// `stride` floats apart (a live point: the packers put padding columns
+// last), or 0 where there is no column.  Every sphere vote expands |p - c|^2
+// about o instead of the origin: 1e4 from the origin ulp(|p|^2) is 32, while
+// the band (r + delta)^2 - (r - delta)^2 is 40 at r = 10, delta = 1; about
+// a point of the cloud the terms scale with the cloud's extent.  Read on the
+// device, so no host sync stalls the caller.
+__device__ __forceinline__ float3 vote_origin(const float* __restrict__ rows, long long stride,
+                                              long long cols) {
+  return cols > 0 ? make_float3(rows[0], rows[stride], rows[2 * stride])
+                  : make_float3(0.f, 0.f, 0.f);
 }
 
-// Band rows A = [w(-2cx), w(-2cy), w(-2cz), w|c|^2 + o, w] of |[x, y, z, 1,
-// |p|^2] . A| < 1, with hi = (r + delta)^2, lo = max(r - delta, 0)^2,
-// w = 2 / (hi - lo), o = -(hi + lo) / (hi - lo); degenerate lanes get
-// w = 0, o = 2, so they never agree.
-__device__ __forceinline__ void band_rows(const Hypothesis& s, float delta, float a[5]) {
-  const float cc = center_sq(s);
+// Point `col` relative to o as (x', y', z', |p'|^2), |p'|^2 = (x'^2 + y'^2) +
+// z'^2 unfused in row order, as the plain versions form it.
+__device__ __forceinline__ float4 centred_point(const float* __restrict__ rows, long long stride,
+                                                long long col, float3 o) {
+  const float x = __fsub_rn(rows[col], o.x);
+  const float y = __fsub_rn(rows[stride + col], o.y);
+  const float z = __fsub_rn(rows[2 * stride + col], o.z);
+  const float pp = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
+  return make_float4(x, y, z, pp);
+}
+
+// The hypothesis's centre relative to o, c' = c - o, one rounded
+// subtraction per component.
+__device__ __forceinline__ float3 centre_about(const Hypothesis& s, float3 o) {
+  return make_float3(__fsub_rn(s.cx, o.x), __fsub_rn(s.cy, o.y), __fsub_rn(s.cz, o.z));
+}
+
+// |c|^2 in coordinate order.
+__device__ __forceinline__ float norm_sq(float3 c) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y)), __fmul_rn(c.z, c.z));
+}
+
+// Band rows A = [w(-2c'x), w(-2c'y), w(-2c'z), w|c'|^2 + o, w] of |[x', y',
+// z', 1, |p'|^2] . A| < 1 about `origin` (c' = c - origin, p' = p - origin),
+// with hi = (r + delta)^2, lo = max(r - delta, 0)^2, w = 2 / (hi - lo),
+// o = -(hi + lo) / (hi - lo); degenerate lanes get w = 0, o = 2, so they
+// never agree.
+__device__ __forceinline__ void band_rows(const Hypothesis& s, float3 origin, float delta,
+                                          float a[5]) {
+  const float3 c = centre_about(s, origin);
+  const float cc = norm_sq(c);
   const float rp = __fadd_rn(s.r, delta);
   const float hi = __fmul_rn(rp, rp);
   const float lo_root = nan_max(__fsub_rn(s.r, delta), 0.f);
@@ -101,9 +135,9 @@ __device__ __forceinline__ void band_rows(const Hypothesis& s, float delta, floa
   const float width = nan_max(__fsub_rn(hi, lo), 1e-30f);
   const float w = s.degenerate ? 0.f : __fdiv_rn(2.f, width);
   const float o = s.degenerate ? 2.f : __fdiv_rn(-__fadd_rn(hi, lo), width);
-  a[0] = __fmul_rn(w, __fmul_rn(-2.f, s.cx));
-  a[1] = __fmul_rn(w, __fmul_rn(-2.f, s.cy));
-  a[2] = __fmul_rn(w, __fmul_rn(-2.f, s.cz));
+  a[0] = __fmul_rn(w, __fmul_rn(-2.f, c.x));
+  a[1] = __fmul_rn(w, __fmul_rn(-2.f, c.y));
+  a[2] = __fmul_rn(w, __fmul_rn(-2.f, c.z));
   a[3] = __fadd_rn(__fmul_rn(w, cc), o);
   a[4] = w;
 }

@@ -10,10 +10,10 @@
 //   * the Cramer circumsphere in the TPU kernel's operation order
 //     (sphere_fit.cuh), so params_t is bit-equal to the plain version's;
 //   * the K = 5 affine band vote |e| < 1, e = w |p - c|^2 + o expanded as
-//     e = a0 x + a1 y + a2 z + a3 + a4 |p|^2 with A = [w(-2c), w|c|^2 + o, w]
-//     (w = 0, o = 2 on degenerate lanes), as four fused multiply-adds,
-//     e = fma(a4, |p|^2, fma(a2, z, fma(a1, y, fma(a0, x, a3)))), on the valid
-//     columns of points_t (the TPU kernel's one K = 5 dot_general).
+//     e = a0 x' + a1 y' + a2 z' + a3 + a4 |p'|^2 with A = [w(-2c'), w|c'|^2 +
+//     o, w] (w = 0, o = 2 on degenerate lanes), as four fused multiply-adds,
+//     e = fma(a4, |p'|^2, fma(a2, z', fma(a1, y', fma(a0, x', a3)))), on the
+//     valid columns of points_t (the TPU kernel's one K = 5 dot_general).
 //
 // Replaces lsqrrecipes_tpu/ops/sphere_ransac.py::_fused_kernel (the
 // pallas_call in sphere_fit_and_vote_planar) by sphere_planar_vote_launch,
@@ -21,9 +21,14 @@
 //   * hypothesis h takes slot j, coordinate c from row 4c + j of sxyz[12, B];
 //   * the same circumsphere;
 //   * its own predicate, two K = 4 bounds closed at the lower edge:
-//     s = -2cx x - 2cy y - 2cz z, e_hi = s + (|c|^2 - hi + 1e30 degenerate),
-//     e_lo = s + (|c|^2 - lo); agree iff e_hi + |p|^2 < 0 and
-//     e_lo + |p|^2 >= 0, hi = (r + delta)^2, lo = max(r - delta, 0)^2.
+//     s = -2c'x x' - 2c'y y' - 2c'z z', e_hi = s + (|c'|^2 - hi + 1e30
+//     degenerate), e_lo = s + (|c'|^2 - lo); agree iff e_hi + |p'|^2 < 0 and
+//     e_lo + |p'|^2 >= 0, hi = (r + delta)^2, lo = max(r - delta, 0)^2.
+//
+// Both expand |p - c|^2 about o = points_t's column 0 (sphere_fit.cuh's
+// vote_origin), p' = p - o and c' = c - o, where the TPU kernels expand it
+// about the origin: 1e4 from the origin ulp(|p|^2) is 32, against a band of
+// 40 at r = 10, delta = 1.  The fits are not centred.
 //
 // Both write counts int32[B] and params_t f32[8, B] = [cx, cy, cz, r,
 // degenerate, 0, 0, 0].  Invalid columns (valid == 0) are staged as NaN, so
@@ -58,7 +63,7 @@
 namespace {
 
 using lsq_sphere::band_rows;
-using lsq_sphere::center_sq;
+using lsq_sphere::centre_about;
 using lsq_sphere::circumsphere;
 using lsq_sphere::Hypothesis;
 using lsq_sphere::nan_max;
@@ -72,15 +77,14 @@ constexpr int kMegaHypPerThread = 4;
 constexpr int kMegaHypPerBlock = kThreads * kMegaHypPerThread;
 constexpr int kTile = 1024;  // point columns per shared-memory tile
 
-// Columns t0 .. t0 + len of points_t as (x, y, z, |p|^2); invalid ones NaN.
+// Columns t0 .. t0 + len of points_t relative to o as (x', y', z', |p'|^2);
+// invalid ones NaN.
 __device__ __forceinline__ void stage_tile(const float* __restrict__ points_t,
                                            const float* __restrict__ valid, int n_pad,
-                                           int t0, int len, float4* tile) {
+                                           float3 o, int t0, int len, float4* tile) {
   for (int i = threadIdx.x; i < len; i += kThreads) {
     const int col = t0 + i;
-    const float x = points_t[col], y = points_t[n_pad + col], z = points_t[2 * n_pad + col];
-    const float pp = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-    tile[i] = valid[col] != 0.f ? make_float4(x, y, z, pp)
+    tile[i] = valid[col] != 0.f ? lsq_sphere::centred_point(points_t, n_pad, col, o)
                                 : make_float4(NAN, NAN, NAN, NAN);
   }
 }
@@ -104,6 +108,7 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
   __shared__ float4 tile[kTile];
   const unsigned base = blockIdx.x * kMegaHypPerBlock + threadIdx.x;
   const size_t stride = 2 * static_cast<size_t>(n);
+  const float3 o = lsq_sphere::vote_origin(points_t, n_pad, n_pad);
   float a[kMegaHypPerThread][5];
   int count[kMegaHypPerThread];
 #pragma unroll
@@ -122,7 +127,7 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
         for (int c = 0; c < 3; ++c) p[j][c] = __ldg(coords2 + (3 * j + c) * stride + col);
       }
       const Hypothesis s = circumsphere(p);
-      band_rows(s, delta, a[k]);
+      band_rows(s, o, delta, a[k]);
       write_params(s, h, num_hyp, params_t);
     }
   }
@@ -130,7 +135,7 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
   for (int t0 = 0; t0 < n_pad; t0 += kTile) {
     const int len = min(kTile, n_pad - t0);
     __syncthreads();  // the previous tile is no longer read
-    stage_tile(points_t, valid, n_pad, t0, len, tile);
+    stage_tile(points_t, valid, n_pad, o, t0, len, tile);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < len; ++i) {
@@ -157,7 +162,8 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
                           float* __restrict__ params_t) {
   __shared__ float4 tile[kTile];
   const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
-  // Per hypothesis: -2c (3), |c|^2 - hi + 1e30 degenerate, |c|^2 - lo.
+  const float3 o = lsq_sphere::vote_origin(points_t, n_pad, n_pad);
+  // Per hypothesis: -2c' (3), |c'|^2 - hi + 1e30 degenerate, |c'|^2 - lo.
   float a[kHypPerThread][5];
   int count[kHypPerThread];
 #pragma unroll
@@ -176,14 +182,15 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
         }
       }
       const Hypothesis s = circumsphere(p);
-      const float cc = center_sq(s);
+      const float3 c = centre_about(s, o);
+      const float cc = lsq_sphere::norm_sq(c);
       const float rp = __fadd_rn(s.r, delta);
       const float hi = __fmul_rn(rp, rp);
       const float lo_root = nan_max(__fsub_rn(s.r, delta), 0.f);
       const float lo = __fmul_rn(lo_root, lo_root);
-      a[k][0] = __fmul_rn(-2.f, s.cx);
-      a[k][1] = __fmul_rn(-2.f, s.cy);
-      a[k][2] = __fmul_rn(-2.f, s.cz);
+      a[k][0] = __fmul_rn(-2.f, c.x);
+      a[k][1] = __fmul_rn(-2.f, c.y);
+      a[k][2] = __fmul_rn(-2.f, c.z);
       a[k][3] = __fadd_rn(__fsub_rn(cc, hi), s.degenerate ? 1e30f : 0.f);
       a[k][4] = __fsub_rn(cc, lo);
       write_params(s, h, num_hyp, params_t);
@@ -193,7 +200,7 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
   for (int t0 = 0; t0 < n_pad; t0 += kTile) {
     const int len = min(kTile, n_pad - t0);
     __syncthreads();  // the previous tile is no longer read
-    stage_tile(points_t, valid, n_pad, t0, len, tile);
+    stage_tile(points_t, valid, n_pad, o, t0, len, tile);
     __syncthreads();
 #pragma unroll 4
     for (int i = 0; i < len; ++i) {

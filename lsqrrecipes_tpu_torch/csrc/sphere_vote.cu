@@ -3,9 +3,14 @@
 // Replaces lsqrrecipes_tpu/ops/vote.py::_sphere_vote_kernel (the pallas_call
 // in sphere_vote_counts).  For every hypothesis (cx, cy, cz, r) it counts the
 // valid points p inside the sqrt-free squared band
-//     lo2 < |p|^2 - 2 c.p + |c|^2 < (r + delta)^2,
+//     lo2 < |p - c|^2 < (r + delta)^2,
 //     lo2 = (r - delta)^2 if r - delta >= 0 else -inf,
-// the predicate of SphereEstimator.vote_counts.
+// the predicate of SphereEstimator.vote_counts.  The TPU kernel expands
+// |p - c|^2 = |p|^2 - 2 c.p + |c|^2 about the origin; this one about the
+// centre o = points_t's column 0 (sphere_fit.cuh's vote_origin, read on the
+// device), with p' = p - o and c' = c - o: 1e4 from the origin ulp(|p|^2) is
+// 32 against a band of 40 at r = 10, delta = 1, and the uncentred plain
+// version counted 525 where float64 counts 819-820.
 //
 // What bounds it on an H100: instruction issue.  The bound counts a
 // (hypothesis, point) cell as 10 f32 operations (-2 c.p as three multiplies
@@ -16,14 +21,14 @@
 // depth-3 contraction has no use for the tensor cores (and TF32 would move
 // the band edge), so every cell is FP32 instructions, issued one warp
 // instruction per clock per SM quarter.  The layout cuts those instructions:
-//   * |p|^2 - 2 c.p is three fused multiply-adds, t = fma(-2cz, z,
-//     fma(-2cy, y, fma(-2cx, x, |p|^2))), then d2 = t + |c|^2: with the two
+//   * |p'|^2 - 2 c'.p' is three fused multiply-adds, t = fma(-2c'z, z',
+//     fma(-2c'y, y', fma(-2c'x, x', |p'|^2))), then d2 = t + |c'|^2: with the two
 //     compares and one predicated add, 7 instructions per cell where
 //     separate multiplies and adds take 10.  The plain PyTorch version
 //     computes each FMA exactly as CUDA rounds it (linalg.small.fma_f32), so
 //     the counts stay equal to it; against JAX's kernel they differ by at
 //     most one at a band edge, as the unfused form did;
-//   * a thread keeps kHypPerThread = 4 hypotheses in registers (-2c, |c|^2
+//   * a thread keeps kHypPerThread = 4 hypotheses in registers (-2c', |c'|^2
 //     and both band edges), so one warp-wide broadcast of a point feeds four
 //     cells: a quarter of a shared-memory load per cell, and the loop's own
 //     instructions amortised over 16 cells per unrolled step;
@@ -33,8 +38,8 @@
 //     order, so 65,536 hypotheses make 512 blocks (about four per SM) and
 //     2^20 make 8,192, with no atomics and no memset;
 //   * the points are staged tile by tile (2,048 points, 32 KB) in shared
-//     memory as float4 [x, y, z, |p|^2]; a padding column (valid == 0) is
-//     staged with |p|^2 = +inf, so it fails d2 < hi2 and needs no per-cell
+//     memory as float4 [x', y', z', |p'|^2]; a padding column (valid == 0) is
+//     staged with |p'|^2 = +inf, so it fails d2 < hi2 and needs no per-cell
 //     valid test;
 //   * the [B, n] distance matrix never exists: the counts are the only output.
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py) this took 2.62-2.63 ms at
@@ -45,6 +50,8 @@
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "sphere_fit.cuh"
 
 namespace {
 
@@ -80,8 +87,9 @@ sphere_vote_kernel(const float* __restrict__ params,
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const unsigned base = blockIdx.x * kHypPerBlock + lane;
   // Every operation is its own correctly rounded intrinsic (__f*_rn), in the
-  // plain version's order, so the two agree bit for bit; scaling c by -2 is
+  // plain version's order, so the two agree bit for bit; scaling c' by -2 is
   // exact.
+  const float3 o = lsq_sphere::vote_origin(points_t, n_pad, n_pad);
   float mx[kHypPerThread], my[kHypPerThread], mz[kHypPerThread];
   float cc[kHypPerThread], hi2[kHypPerThread], lo2[kHypPerThread];
   int count[kHypPerThread];
@@ -96,10 +104,11 @@ sphere_vote_kernel(const float* __restrict__ params,
       cz = row[2];
       r = row[3];
     }
-    mx[k] = -2.f * cx;
-    my[k] = -2.f * cy;
-    mz[k] = -2.f * cz;
-    cc[k] = __fadd_rn(__fadd_rn(__fmul_rn(cx, cx), __fmul_rn(cy, cy)), __fmul_rn(cz, cz));
+    const float3 c = make_float3(__fsub_rn(cx, o.x), __fsub_rn(cy, o.y), __fsub_rn(cz, o.z));
+    mx[k] = -2.f * c.x;
+    my[k] = -2.f * c.y;
+    mz[k] = -2.f * c.z;
+    cc[k] = lsq_sphere::norm_sq(c);
     const float rp = __fadd_rn(r, delta);
     const float rm = __fsub_rn(r, delta);
     hi2[k] = __fmul_rn(rp, rp);
@@ -112,12 +121,9 @@ sphere_vote_kernel(const float* __restrict__ params,
     __syncthreads();  // the previous tile is no longer read
     for (int i = threadIdx.x; i < len; i += kThreads) {
       const int col = t0 + i;
-      const float x = points_t[col];
-      const float y = points_t[n_pad + col];
-      const float z = points_t[2 * n_pad + col];
-      // Unfused, in row order: the plain version's |p|^2 bit for bit.
-      const float pp = __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-      tile[i] = make_float4(x, y, z, valid[col] != 0.f ? pp : CUDART_INF_F);
+      float4 pt = lsq_sphere::centred_point(points_t, n_pad, col, o);
+      if (valid[col] == 0.f) pt.w = CUDART_INF_F;
+      tile[i] = pt;
     }
     __syncthreads();
 #pragma unroll 4

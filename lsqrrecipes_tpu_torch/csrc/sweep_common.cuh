@@ -3,9 +3,11 @@
 // A family F supplies its minimal fit and its per-cell vote; this header
 // supplies what every family does alike, as the TPU kernel
 // lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel does for every fit_vote
-// closure (sphere3d, line3d, crosswire and pointer use the shift hash, the
-// finalize kernel and the split-vote layout below with kernels of their own;
-// the other families instantiate sweep_kernel):
+// closure (dense_linear6 and absolute_orientation instantiate
+// split_sweep_kernel, the split-vote layout below; sphere3d, line3d,
+// crosswire and pointer use the shift hash, the finalize kernel and that
+// layout with kernels of their own; the other families instantiate
+// sweep_kernel):
 //   * the shift hash: hypothesis h = g * n_fit + lane takes, for slot j, the
 //     point at column shift_units(g, j) * 128 + lane of rows
 //     F::kDim * j .. F::kDim * j + kDim - 1 of the four-permutation
@@ -190,15 +192,16 @@ __global__ void finalize_kernel(const float* __restrict__ coords, long long coor
 }
 
 // ---------------------------------------------------------------------------
-// The split-vote layout (sphere3d, line3d, crosswire and pointer; the other
-// families keep sweep_kernel above).  A block of kSplitThreads threads owns
-// kSplitHypPerBlock consecutive hypotheses: lane l of every warp holds the
-// vote rows of hypotheses l + 32 q (q < kSplitHypPerThread) in registers, and
-// warp w votes on points w, w + kSplitWarps, ..., read from shared memory as
-// warp-wide broadcasts, so one staged point feeds four cells per thread.  The
-// warps' partial counts are then added in shared memory (integer sums, exact
-// in any order) and the block publishes one key.  4,096 groups x 1,024 lanes
-// make 32,768 blocks; the count is one predicated add per cell.
+// The split-vote layout (split_sweep_kernel below; sphere3d, line3d,
+// crosswire and pointer with kernels of their own).  A block of
+// kSplitThreads threads owns kSplitHypPerBlock consecutive hypotheses: lane l
+// of every warp holds the vote rows of hypotheses l + 32 q (q <
+// kSplitHypPerThread) in registers, and warp w votes on points w, w +
+// kSplitWarps, ..., read from shared memory as warp-wide broadcasts, so one
+// staged point feeds four cells per thread.  The warps' partial counts are
+// then added in shared memory (integer sums, exact in any order) and the
+// block publishes one key.  4,096 groups x 1,024 lanes make 32,768 blocks;
+// the count is one predicated add per cell.
 // ---------------------------------------------------------------------------
 
 constexpr int kSplitThreads = 256;
@@ -259,6 +262,90 @@ __device__ __forceinline__ void split_publish(const int (&count)[kHyp], int* par
   }
 }
 
+// split_sweep_kernel: the split-vote sweep of a family that supplies its
+// per-cell vote.  Beside kSlots, kDim, kParams, Fit, fit() and params() (as
+// sweep_kernel's families), F provides:
+//   kVoteRows   — vote rows per hypothesis, held in registers;
+//   Point       — one staged point, a struct of float4s read as 16-byte
+//                 warp broadcasts (Float4x2 below);
+//   static void vote_rows(const Fit&, float r[kVoteRows]);
+//   static Point stage(const float* p, long long p_stride, int col);
+//   static void vote(int& count, const float (&r)[kVoteRows], const Point&,
+//                    const Consts&);   // count_below on the cell's value
+//   kHypPerThread — hypotheses per thread, 4 or 8: a block owns 32 x that
+//                 many, and at 8 every thread fits one.
+// The kernel asks for two resident blocks per SM (at most 128 registers a
+// thread): three made absolute_orientation and dense_linear6 spill.
+// The first 32 kHypPerThread threads fit one hypothesis each and leave its
+// vote rows in shared memory; every thread then takes the rows of its
+// kHypPerThread (l + 32 q for lane l), and warp w votes on points w,
+// w + kSplitWarps, ... of 32 KB tiles.  The family's vote is all that runs
+// per cell, so ray3d or pivot take this kernel by supplying theirs.
+struct Float4x2 {
+  float4 a, b;
+};
+
+constexpr int kSplitTileBytes = 32768;
+
+template <class F>
+__global__ void __launch_bounds__(kSplitThreads, 2)
+split_sweep_kernel(const float* __restrict__ coords, long long coords_stride,
+                   const float* __restrict__ p, long long p_stride, int vote_cols,
+                   unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
+                   unsigned long long* __restrict__ best_key) {
+  using Point = typename F::Point;
+  constexpr int kHyp = F::kHypPerThread;
+  constexpr int kBlockHyp = 32 * kHyp;
+  constexpr int kRows = F::kVoteRows;
+  constexpr int kPoints = kSplitTileBytes / static_cast<int>(sizeof(Point));
+  static_assert(kSplitWarps * kBlockHyp * sizeof(int) <= sizeof(Point) * kPoints,
+                "the partial counts reuse the tile");
+  __shared__ Point tile[kPoints];
+  __shared__ float rows[kRows][kBlockHyp];
+  __shared__ bool counts_zero[kBlockHyp];
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned h_first = blockIdx.x * kBlockHyp;
+  if (threadIdx.x < kBlockHyp) {
+    const unsigned h = h_first + threadIdx.x;
+    float r[kRows] = {};  // a slot past the last hypothesis votes on zeros, unpublished
+    bool zero = true;
+    if (h < num_hyp) {
+      const typename F::Fit f = fit_hypothesis<F>(coords, coords_stride, h, n_fit, b, m, mask, k);
+      F::vote_rows(f, r);
+      zero = f.degenerate;
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) rows[i][threadIdx.x] = r[i];
+    counts_zero[threadIdx.x] = zero;
+  }
+  __syncthreads();
+  float r[kHyp][kRows];
+  int count[kHyp];
+#pragma unroll
+  for (int q = 0; q < kHyp; ++q) {
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) r[q][i] = rows[i][32 * q + lane];
+    count[q] = 0;
+  }
+
+  for (int t0 = 0; t0 < vote_cols; t0 += kPoints) {
+    const int len = min(kPoints, vote_cols - t0);
+    __syncthreads();  // the previous tile is no longer read
+    for (int i = threadIdx.x; i < len; i += kSplitThreads) tile[i] = F::stage(p, p_stride, t0 + i);
+    __syncthreads();
+#pragma unroll 4
+    for (int i = warp; i < len; i += kSplitWarps) {
+      const Point pt = tile[i];
+#pragma unroll
+      for (int q = 0; q < kHyp; ++q) F::vote(count[q], r[q], pt, k);
+    }
+  }
+
+  split_publish(count, reinterpret_cast<int*>(tile), counts_zero, h_first, num_hyp - h_first,
+                best_key);
+}
+
 inline unsigned ceil_div(unsigned long long a, unsigned b) {
   return static_cast<unsigned>((a + b - 1) / b);
 }
@@ -299,6 +386,25 @@ int launch_sweep(const float* coords, long long coords_stride, const float* p,
                           sweep_kernel<F><<<ceil_div(num_hyp, kHypPerBlock), kThreads, 0, s>>>(
                               coords, coords_stride, p, p_stride, vote_cols,
                               static_cast<unsigned>(n_fit), num_hyp, b, m, mask, k, best_key);
+                          return cudaGetLastError();
+                        });
+}
+
+// Enqueue the whole sweep of a split_sweep_kernel family on `stream`: clear
+// the key, sweep, finalize.  Returns the first CUDA error, 0 on success.
+template <class F>
+int launch_split(const float* coords, long long coords_stride, const float* p,
+                 long long p_stride, int vote_cols, int n_fit, long long num_groups, int b,
+                 int m, unsigned mask, Consts k, unsigned long long* best_key,
+                 float* best_out, long long* best_index, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return launch_with<F>(coords, coords_stride, vote_cols, n_fit, num_groups, b, m, mask, k,
+                        best_key, best_out, best_index, s, [&](unsigned num_hyp) {
+                          split_sweep_kernel<F>
+                              <<<ceil_div(num_hyp, 32 * F::kHypPerThread), kSplitThreads, 0, s>>>(
+                                  coords, coords_stride, p, p_stride, vote_cols,
+                                  static_cast<unsigned>(n_fit), num_hyp, b, m, mask, k,
+                                  best_key);
                           return cudaGetLastError();
                         });
 }

@@ -137,12 +137,13 @@ class SphereEstimator(Estimator):
         (r+delta)^2``.
 
         f32 data in 3D goes to
-        :func:`lsqrrecipes_tpu_torch.ops.vote.sphere_vote_counts` whatever
-        B is (the JAX package's Pallas kernel needs ``B % 512 == 0``; the
-        CUDA kernel does not), so the counts do not depend on the batch
-        size at band edges: it launches the kernel on CUDA tensors and runs
-        its plain version on CPU tensors.  f64 data and other dims take the
-        formula below.
+        :func:`lsqrrecipes_tpu_torch.ops.vote.sphere_vote_counts`, which
+        expands the band about the data's first point, whatever B is (the
+        JAX package's Pallas kernel needs ``B % 512 == 0``; the CUDA kernel
+        does not), so the counts do not depend on the batch size at band
+        edges: it launches the kernel on CUDA tensors and runs its plain
+        version on CPU tensors.  f64 data and other dims take the formula
+        below.
         """
         if self.dim == 3 and data.dtype == torch.float32:
             from lsqrrecipes_tpu_torch.ops import vote as _vote

@@ -14,9 +14,10 @@ family's minimal fit runs per lane; its vote counts the live columns of the
 packed rows ``P`` (padding columns carry a 1e30 guard or a zero ones-row)
 that fall in the family's band:
 
-  * sphere3d: Cramer circumsphere, ``|P^T A| < 1`` with
-    ``A = [w(-2c), w|c|^2 + o, w]`` on live columns of ``P = [x, y, z, 1,
-    |p|^2]`` (four FMAs per cell in the kernel);
+  * sphere3d: Cramer circumsphere, ``|w |p - c|^2 + o| < 1`` on live
+    columns of ``P = [x, y, z, 1, |p|^2]``, expanded as the TPU closure's
+    ``|P^T A|`` with ``A = [w(-2c), w|c|^2 + o, w]`` but about P's column 0,
+    not the origin (four FMAs per cell in the kernel);
   * plane3d: cross-product normal, ``|P^T A| < 1`` with
     ``A = [w n, o, w]`` on ``P = [x, y, z, 1, guard]``;
   * line2d: two-point normal, the same band on ``P = [x, y, 1, guard]``;
@@ -26,14 +27,16 @@ that fall in the family's band:
     but about P's column 0, not the origin (seven FMAs per cell in the
     kernel);
   * dense_linear6: 6x6 normal-equation Cholesky over six rows ``[a | b]``,
-    ``|a.x - b| < delta`` per cell on ``P = [a(6), b, 1, guard]``;
+    ``|a.x - b| < delta`` per cell on ``P = [a(6), b, 1, guard]`` (six FMAs
+    per cell in the kernel);
   * pivot: 3x3 Schur/Cramer solve over three frames (slot features
     ``[vec(R) 9, t 3, R^T t 3]``), ``|R t_D + t - t_W|^2 < delta^2`` from the
     three residual components per cell on ``P = [t, R^T t, vec(R), 1, guard]``;
   * absolute_orientation: orthonormal frames of three point pairs (slot
     features ``[p1, p2]``), ``R = R2 R1^T``, ``|R p1 + t - p2|^2 < delta^2``
-    on ``P = [p1, p2, 1, guard]``; the kernel's ``[vec(R), t]`` becomes
-    ``[q, t]`` on the host (``_POSTPROCESS``);
+    on ``P = [p1, p2, 1, guard]`` (eleven FMAs per cell in the kernel); the
+    kernel's ``[vec(R), t]`` becomes ``[q, t]`` on the host
+    (``_POSTPROCESS``);
   * ray3d: midpoint of the common perpendicular of two rays (slot features
     ``[p, n]``), ``t = n.(x-p) >= 0`` and ``|x-p|^2 - t^2 (2 - |n|^2) <
     delta^2`` on ``P = [p, n, n.p, 1, |n|^2, |p|^2]``;
@@ -55,8 +58,8 @@ the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
 ``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``,
 ``csrc/fused_sweep_us.cu``); on CPU tensors it runs :func:`sweep_plain`,
 which repeats the kernels' fits and votes operation by operation (the
-sphere3d, line3d, crosswire and pointer votes' FMAs through
-``linalg.small.fma_f32``).
+sphere3d, line3d, dense_linear6, absolute_orientation, crosswire and pointer
+votes' FMAs through ``linalg.small.fma_f32``).
 """
 
 import ctypes
@@ -100,7 +103,8 @@ _FAMILIES = {
 # Cells of one plain-version chunk: bounds its [vote_cols, chunk] temporaries
 # (float64 ones in the families whose votes round FMAs through fma_f32).
 _PLAIN_CELLS = 1 << 25
-_PLAIN_CELLS_FMA = dict.fromkeys(("sphere3d", "line3d", "crosswire", "pointer"), 1 << 22)
+_PLAIN_CELLS_FMA = dict.fromkeys(("sphere3d", "line3d", "crosswire", "pointer", "dense_linear6",
+                                  "absolute_orientation"), 1 << 22)
 
 # Hypotheses per fit-and-vote chunk of the ultrasound kernels, and the rows
 # of their workspace f32[rows, chunk] (crosswire's 54.5 MB at 2^20,
@@ -384,15 +388,16 @@ def circumsphere(pts):
 
 
 def sphere3d_fit(pts, delta):
-    """Circumsphere + band rows for f32 lane tensors ``pts[j][c]`` and
+    """Circumsphere + band scale for f32 lane tensors ``pts[j][c]`` and
     ``delta`` (a float or an f32 scalar tensor), in the TPU closure's exact
-    operation order.
+    operation order: ``hi = (r + delta)^2``, ``lo = max(r - delta, 0)^2``,
+    ``w = 2 / (hi - lo)``, ``o = -(hi + lo) / (hi - lo)`` (``w = 0, o = 2``
+    on degenerate lanes, which never agree).
 
-    Returns ``(center [cx, cy, cz], r, degenerate, a_rows[5])``.
+    Returns ``(center [cx, cy, cz], r, degenerate, [w, o])``; see
+    :func:`sphere_band_rows` for the vote's rows.
     """
     center, r, degenerate = circumsphere(pts)
-    cx, cy, cz = center
-    cc = cx * cx + cy * cy + cz * cz
     rp = r + delta
     hi = rp * rp
     lo_root = torch.clamp_min(r - delta, 0.0)
@@ -401,8 +406,20 @@ def sphere3d_fit(pts, delta):
     zero, two = torch.zeros_like(r), torch.full_like(r, 2.0)
     w = torch.where(degenerate, zero, 2.0 / width)
     o = torch.where(degenerate, two, -(hi + lo) / width)
-    a_rows = [w * (-2.0 * cx), w * (-2.0 * cy), w * (-2.0 * cz), w * cc + o, w]
-    return center, r, degenerate, a_rows
+    return center, r, degenerate, [w, o]
+
+
+def sphere_band_rows(center, scale, origin):
+    """The sphere kernels' band rows ``A = [w(-2c'), w|c'|^2 + o, w]`` of
+    ``|[x', y', z', 1, |p'|^2] . A| < 1``, ``|e| = |w |p - c|^2 + o|``,
+    expanded about ``origin`` (the vote's centre, three f32 scalars): ``c' =
+    c - origin`` with each component one f32 subtraction, ``|c'|^2`` in
+    coordinate order (``csrc/sphere_fit.cuh`` ``band_rows``).  ``scale`` is
+    :func:`sphere3d_fit`'s ``[w, o]``."""
+    w, o = scale
+    c = [center[k] - origin[k] for k in range(3)]
+    cc = c[0] * c[0] + c[1] * c[1] + c[2] * c[2]
+    return [w * (-2.0 * c[0]), w * (-2.0 * c[1]), w * (-2.0 * c[2]), w * cc + o, w]
 
 
 def _signed_band(n_rows, d_off, degenerate, delta):
@@ -462,8 +479,10 @@ def line3d_fit(pts, delta):
 
 
 def _sphere3d_rows(pts, delta):
-    center, r, degenerate, a_rows = sphere3d_fit(pts, scalar_like(float(delta), pts[0][0]))
-    return center + [r], degenerate, a_rows
+    """``(params [c, r], degenerate, vote rows [c, w, o])``: the band rows
+    are formed about the vote's centre in :func:`_sphere3d_vote`."""
+    center, r, degenerate, scale = sphere3d_fit(pts, scalar_like(float(delta), pts[0][0]))
+    return center + [r], degenerate, center + scale
 
 
 def _split_delta(delta):
@@ -675,10 +694,16 @@ def sphere_band_e(a_rows, x, y, z, pp):
 
 
 def _sphere3d_vote(p_vote, rows, delta):
-    """``#{live columns: |P^T A| < 1}`` in the kernel's per-cell arithmetic
-    (:func:`sphere_band_e` on P's rows x, y, z and ``|p|^2``, 0-2 and 4),
-    live where the ones row (3) is nonzero."""
-    e = sphere_band_e(rows, *(p_vote[r][:, None] for r in (0, 1, 2, 4)))
+    """``#{live columns: |w |p - c|^2 + o| < 1}`` in the kernel's per-cell
+    arithmetic: points and centres taken relative to P's column 0, ``c0``
+    (``x' = x - c0_x``, ... and ``|p'|^2 = (x'^2 + y'^2) + z'^2``; P's
+    ``|p|^2`` row is not read), then :func:`sphere_band_e` with
+    :func:`sphere_band_rows` about ``c0``; live where the ones row (3) is
+    nonzero.  ``rows`` are :func:`_sphere3d_rows`' ``[c, w, o]``."""
+    c0 = p_vote[0:3, 0]
+    x, y, z = ((p_vote[k] - c0[k])[:, None] for k in range(3))
+    a_rows = sphere_band_rows(rows[0:3], rows[3:5], c0)
+    e = sphere_band_e(a_rows, x, y, z, _sum3(x * x, y * y, z * z))
     return ((e.abs() < 1.0) & _live(p_vote, 3)).sum(dim=0)
 
 
@@ -734,13 +759,19 @@ def _pivot_vote(p_vote, rows, delta):
 
 
 def _absor_vote(p_vote, rows, delta):
-    """``|R p1 + t - p2|^2 < delta^2`` from ``e_j = (sum_k R[j,k] p1[k] +
-    t_j) - p2[j]`` per cell (rows of P: p1 0-2, p2 3-5, ones 6)."""
+    """``|R p1 + t - p2|^2 < delta^2`` per cell in the kernel's arithmetic,
+    each FMA rounded once as CUDA's ``__fmaf_rn`` (``fma_f32``): ``e_j =
+    fma(R_j2, z1, fma(R_j1, y1, fma(R_j0, x1, t_j))) - p2_j``, the
+    subtraction last, and ``|e|^2`` as :func:`_fma_norm_vote` (rows of P: p1
+    0-2, p2 3-5, ones 6)."""
     col = [p_vote[r][:, None] for r in range(6)]
-    e = [_sum3(rows[3 * j] * col[0], rows[3 * j + 1] * col[1], rows[3 * j + 2] * col[2])
-         + rows[9 + j] - col[3 + j] for j in range(3)]
-    d = float(delta)
-    return _component_vote(p_vote, e, d * d, 6)
+    e = []
+    for j in range(3):
+        acc = rows[9 + j]
+        for k in range(3):
+            acc = fma_f32(rows[3 * j + k], col[k], acc)
+        e.append(acc - col[3 + j])
+    return _fma_norm_vote(p_vote, e, delta, 6)
 
 
 def _ray3d_vote(p_vote, rows, delta):
@@ -756,12 +787,22 @@ def _ray3d_vote(p_vote, rows, delta):
 
 
 def _dense6_vote(p_vote, rows, delta):
-    """``|a.x - b| < delta`` per cell (rows of P: a 0-5, b 6, ones 7)."""
-    acc = p_vote[0][:, None] * rows[0]
-    for c in range(1, 6):
-        acc = acc + p_vote[c][:, None] * rows[c]
-    e = acc - p_vote[6][:, None]
+    """``|a.x - b| < delta`` per cell in the kernel's arithmetic, ``e =
+    fma(a5, x5, ... fma(a1, x1, fma(a0, x0, -b)))`` with each FMA rounded
+    once as CUDA's ``__fmaf_rn`` (``fma_f32``) (rows of P: a 0-5, b 6, ones
+    7)."""
+    e = -p_vote[6][:, None]
+    for c in range(6):
+        e = fma_f32(p_vote[c][:, None], rows[c], e)
     return ((e.abs() < scalar_like(float(delta), e)) & _live(p_vote, 7)).sum(dim=0)
+
+
+def _fma_norm_vote(p_vote, e, delta, live_row):
+    """``#{live columns: fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2}``,
+    each FMA rounded once as CUDA's ``__fmaf_rn`` (``fma_f32``)."""
+    dist2 = fma_f32(e[2], e[2], fma_f32(e[1], e[1], e[0] * e[0]))
+    d = float(delta)
+    return ((dist2 < scalar_like(d * d, dist2)) & _live(p_vote, live_row)).sum(dim=0)
 
 
 def _crosswire_vote(p_vote, rows, delta):
@@ -780,9 +821,7 @@ def _crosswire_vote(p_vote, rows, delta):
         for k in range(3):
             acc = fma_f32(col[6 + 3 * k + j], -t1[k], acc)
         e.append(acc)
-    dist2 = fma_f32(e[2], e[2], fma_f32(e[1], e[1], e[0] * e[0]))
-    d = float(delta)
-    return ((dist2 < scalar_like(d * d, dist2)) & _live(p_vote, 2)).sum(dim=0)
+    return _fma_norm_vote(p_vote, e, delta, 2)
 
 
 def _pointer_vote(p_vote, rows, delta):
@@ -794,9 +833,7 @@ def _pointer_vote(p_vote, rows, delta):
     t3, c1, c2 = rows[0:3], rows[3:6], rows[6:9]
     col = [p_vote[r][:, None] for r in range(6)]
     e = [fma_f32(col[1], c2[j], fma_f32(col[0], c1[j], t3[j])) - col[3 + j] for j in range(3)]
-    dist2 = fma_f32(e[2], e[2], fma_f32(e[1], e[1], e[0] * e[0]))
-    d = float(delta)
-    return ((dist2 < scalar_like(d * d, dist2)) & _live(p_vote, 2)).sum(dim=0)
+    return _fma_norm_vote(p_vote, e, delta, 2)
 
 
 _VOTES = {

@@ -7,7 +7,7 @@ Two fit-and-vote kernels with their host side:
     built by :func:`planar_sphere_samples` from one permutation and the
     structured shift table), fits each column's circumsphere and counts the
     points with ``lo <= |p - c|^2 < hi`` (``hi = (r + delta)^2``, ``lo =
-    max(r - delta, 0)^2``) as two K = 4 bounds on ``|p|^2 - 2 c.p``;
+    max(r - delta, 0)^2``) as two K = 4 bounds on ``|p'|^2 - 2 c'.p'``;
     degenerate lanes are pushed out by a 1e30 shift;
   * the per-step sweep (:func:`megakernel_call`) samples inside the kernel:
     hypothesis ``(g, i)`` takes slot ``j`` from column ``shifts[g, j] + i``
@@ -19,8 +19,11 @@ Two fit-and-vote kernels with their host side:
     slice of one ``steps * groups`` table of 128-aligned shift quadruples
     (:func:`mega_group_shifts`) and keeps the running best on the device.
 
-Both return ``counts int32[B]`` and ``params_t f32[8, B]`` (``[cx, cy, cz,
-r, degenerate, 0, 0, 0]``).  On CUDA tensors they launch the hand-written
+Both expand ``|p - c|^2`` about the packed points' column 0 (``p - c0``,
+``c - c0``), not the origin, so that a cloud far from the origin keeps its
+band (:func:`~lsqrrecipes_tpu_torch.ops.vote.centre`); the fits are not
+centred.  Both return ``counts int32[B]`` and ``params_t f32[8, B]``
+(``[cx, cy, cz, r, degenerate, 0, 0, 0]``).  On CUDA tensors they launch the hand-written
 kernels (``csrc/sphere_ransac.cu``); on CPU tensors they run the plain
 versions, which repeat the kernels' arithmetic operation by operation (the
 per-step sweep's FMAs through :func:`~lsqrrecipes_tpu_torch.linalg.small.
@@ -36,8 +39,13 @@ import torch
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
 from lsqrrecipes_tpu_torch.linalg.small import scalar_like
-from lsqrrecipes_tpu_torch.ops.fused_sweep import circumsphere, sphere3d_fit, sphere_band_e
-from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
+from lsqrrecipes_tpu_torch.ops.fused_sweep import (
+    circumsphere,
+    sphere3d_fit,
+    sphere_band_e,
+    sphere_band_rows,
+)
+from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows, centre
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
 
 _BIG = 1e30          # degenerate lanes' shift of the upper bound
@@ -93,20 +101,25 @@ def _params_rows(center, r, degenerate):
 
 
 def _plain_points(points_t, valid):
-    """``(x, y, z, |p|^2, live)`` rows of the packed points, f32."""
-    pts = points_t.to(torch.float32)
-    return pts[0], pts[1], pts[2], _sum_sq_rows(pts), valid[0] != 0
+    """``(c0, x', y', z', |p'|^2, live)``: the votes' centre ``c0`` (column 0,
+    :func:`~lsqrrecipes_tpu_torch.ops.vote.centre`, as three f32 scalars)
+    and the packed points' rows relative to it, f32."""
+    c0 = centre(points_t)
+    rel = points_t.to(torch.float32) - c0
+    return c0[:, 0], rel[0], rel[1], rel[2], _sum_sq_rows(rel), valid[0] != 0
 
 
 def sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, delta):
     """Plain PyTorch version of the planar fit-and-vote kernel: ``(counts
     int32[B], params_t f32[8, B])``, the kernel's arithmetic operation by
-    operation: ``s = -2cx x - 2cy y - 2cz z`` left to right, agree iff
-    ``(s + (|c|^2 - hi + 1e30 deg)) + |p|^2 < 0`` and ``(s + (|c|^2 - lo))
-    + |p|^2 >= 0`` on valid columns."""
+    operation: points and centres relative to the packed points' column 0,
+    ``c0`` (``p' = p - c0``, ``c' = c - c0``), ``s = -2c'x x' - 2c'y y' -
+    2c'z z'`` left to right, agree iff ``(s + (|c'|^2 - hi + 1e30 deg)) +
+    |p'|^2 < 0`` and ``(s + (|c'|^2 - lo)) + |p'|^2 >= 0`` on valid
+    columns."""
     _check_planar_args(sxyz, points_t, valid)
     sxyz = sxyz.to(torch.float32)
-    x, y, z, pp, live = _plain_points(points_t, valid)
+    c0, x, y, z, pp, live = _plain_points(points_t, valid)
     delta = scalar_like(float(delta), x)
     big, zero = scalar_like(_BIG, x), scalar_like(0.0, x)
     b = sxyz.shape[1]
@@ -116,7 +129,7 @@ def sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, delta):
         rows = sxyz[:, b0 : b0 + chunk]
         center, r, degenerate = circumsphere([[rows[4 * c + j] for c in range(3)]
                                               for j in range(4)])
-        cx, cy, cz = center
+        cx, cy, cz = (center[k] - c0[k] for k in range(3))
         cc = cx * cx + cy * cy + cz * cz
         rp = r + delta
         hi = rp * rp
@@ -240,12 +253,13 @@ def _check_mega_args(shifts, coords2, points_t, valid):
 def megakernel_call_plain(shifts, coords2, points_t, valid, delta):
     """Plain PyTorch version of the per-step sweep kernel: ``(counts
     int32[G n], params_t f32[8, G n])`` for the hypotheses ``h = g n + i``,
-    the kernel's arithmetic operation by operation (``e = fma(a4, |p|^2,
-    fma(a2, z, fma(a1, y, fma(a0, x, a3))))``, each FMA rounded once as on
+    the kernel's arithmetic operation by operation (``e = fma(a4, |p'|^2,
+    fma(a2, z', fma(a1, y', fma(a0, x', a3))))`` on the points relative to
+    their column 0 with the band rows about it, each FMA rounded once as on
     the card, valid columns only)."""
     n = _check_mega_args(shifts, coords2, points_t, valid)
     coords2 = coords2.to(torch.float32)
-    x, y, z, pp, live = _plain_points(points_t, valid)
+    c0, x, y, z, pp, live = _plain_points(points_t, valid)
     delta = scalar_like(float(delta), x)
     lanes = torch.arange(n, device=x.device)
     gchunk = max(1, _PLAIN_CELLS // (n * max(1, x.shape[0])))
@@ -256,8 +270,9 @@ def megakernel_call_plain(shifts, coords2, points_t, valid, delta):
         for j in range(4):
             cols = (sh[:, j : j + 1] + lanes[None, :]).reshape(-1)
             pts.append([coords2[3 * j + c][cols] for c in range(3)])
-        center, r, degenerate, a = sphere3d_fit(pts, delta)
-        e = sphere_band_e([r[:, None] for r in a], x, y, z, pp)
+        center, r, degenerate, scale = sphere3d_fit(pts, delta)
+        a = sphere_band_rows(center, scale, c0)
+        e = sphere_band_e([row[:, None] for row in a], x, y, z, pp)
         counts.append(((e.abs() < 1.0) & live).sum(dim=1, dtype=torch.int32))
         params.append(_params_rows(center, r, degenerate))
     params_t = torch.cat(params, dim=1) if params else coords2.new_zeros((8, 0))

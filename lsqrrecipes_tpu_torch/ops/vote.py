@@ -56,32 +56,49 @@ def _check_vote_args(params, points_t, valid):
         raise ValueError(f"params, points_t and valid lie on different devices: {devices}")
 
 
+def centre(points_t):
+    """``f32[3, 1]``: the point the sphere votes are taken about, column 0
+    of ``points_t`` (:func:`pack_points` puts a live point there; zeros when
+    there is no column).  Expanded about the origin, ``|p|^2 - 2 c.p +
+    |c|^2`` cancels: 1e4 from the origin ``ulp(|p|^2)`` is 32, against a
+    band of 40 at r = 10, delta = 1.  About a point of the cloud its terms
+    scale with the cloud's extent instead."""
+    pts = points_t.to(torch.float32)
+    if pts.shape[1] == 0:
+        return pts.new_zeros((pts.shape[0], 1))
+    return pts[:, 0:1]
+
+
 def sphere_vote_counts_plain(params, points_t, valid, delta):
     """Plain PyTorch version of the kernel: ``int32[B]`` counts of valid
-    columns with ``lo2 < |p|^2 - 2 c.p + |c|^2 < (r + delta)^2``.
+    columns with ``lo2 < |p - c|^2 < (r + delta)^2``.
 
     It repeats the kernel's f32 arithmetic operation by operation, so the
-    two give equal counts: ``|p|^2 - 2 c.p`` as three fused multiply-adds
-    ``fma(-2cz, z, fma(-2cy, y, fma(-2cx, x, |p|^2)))``, each rounded once
-    as CUDA's ``__fmaf_rn`` (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`),
-    then ``+ |c|^2``; no matrix product.
+    two give equal counts.  Points and centres are taken relative to
+    :func:`centre` ``c0`` (``p' = p - c0``, ``c' = c - c0``, each one f32
+    subtraction), ``|p'|^2 = (x'^2 + y'^2) + z'^2``, then ``|p'|^2 - 2
+    c'.p'`` as three fused multiply-adds ``fma(-2c'z, z', fma(-2c'y, y',
+    fma(-2c'x, x', |p'|^2)))``, each rounded once as CUDA's ``__fmaf_rn``
+    (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`), then ``+
+    |c'|^2``; no matrix product.
     """
     _check_vote_args(params, points_t, valid)
     params = params.to(torch.float32)
-    pts = points_t.to(torch.float32)
-    pp = _sum_sq_rows(pts)[None, :]
+    c0 = centre(points_t)
+    rel = points_t.to(torch.float32) - c0
+    pp = _sum_sq_rows(rel)[None, :]
     live = valid.to(torch.float32) != 0
     delta = torch.tensor(delta, dtype=torch.float32, device=params.device)
-    chunk = max(1, _PLAIN_CELLS // max(1, pts.shape[1]))
+    chunk = max(1, _PLAIN_CELLS // max(1, rel.shape[1]))
     out = []
     for b0 in range(0, params.shape[0], chunk):
         prm = params[b0 : b0 + chunk]
-        c = prm[:, 0:3]
+        c = prm[:, 0:3] - c0.T
         r = prm[:, 3]
         m = -2.0 * c                            # exact
-        t = fma_f32(m[:, 0:1], pts[0], pp)
-        t = fma_f32(m[:, 1:2], pts[1], t)
-        t = fma_f32(m[:, 2:3], pts[2], t)
+        t = fma_f32(m[:, 0:1], rel[0], pp)
+        t = fma_f32(m[:, 1:2], rel[1], t)
+        t = fma_f32(m[:, 2:3], rel[2], t)
         d2 = t + _sum_sq_rows(c.T)[:, None]
         rp = r + delta
         rm = r - delta

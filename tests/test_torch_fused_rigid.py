@@ -13,6 +13,8 @@ winner is among them bit for bit.  The JAX kernel votes through a 3-pass
 bf16 split product; the port, like its CUDA kernels, per cell in plain f32.
 """
 
+from fractions import Fraction
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ransac import ransac_fused_sweep
 from lsqrrecipes_tpu_torch.tree import tree_map
 from test_torch_rigid_estimators import ESTIMATORS, _rotations, make_data, to_jax, to_torch
+from test_torch_vote import _f32_round
 
 torch.set_num_threads(2)
 
@@ -244,3 +247,92 @@ def test_supports_data_and_ray_delta_pack():
     assert int(count) == 0
     count, _ = fs.fused_sweep("ray3d", rays, torch.Generator().manual_seed(4), 2, _delta("ray3d"))
     assert int(count) > 150
+
+
+def _fma(a, b, c):
+    """``a * b + c`` rounded once to float32 from its exact rational value."""
+    return _f32_round(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
+
+
+def test_plain_dense6_vote_rounds_each_fma_once_on_band_edge_points():
+    # The dense_linear6 kernel and its plain version count a cell where |e| <
+    # delta, e = fma(a5, x5, ... fma(a1, x1, fma(a0, x0, -b))) in float32.
+    # Held here against that chain with each FMA rounded once from its exact
+    # rational value, on rows placed at residual +-delta from each hypothesis
+    # (the band edge, where one rounding decides the count) and on padding
+    # columns, which never count.
+    rng = np.random.default_rng(61)
+    delta = np.float32(1.0)
+    a = rng.uniform(-10, 10, (16, 6, 6))
+    b = a @ np.linspace(-2.0, 3.0, 6) + 0.05 * rng.normal(size=(16, 6))
+    samples = torch.as_tensor(np.concatenate([a, b[..., None]], -1).astype(np.float32))
+    x, degenerate, _ = fs.dense_linear6_fit([[samples[:, j, c] for c in range(7)]
+                                             for j in range(6)], float(delta))
+    hyp = torch.stack([r[~degenerate][:8] for r in x], 1).numpy()
+    assert hyp.shape == (8, 6)
+    rows = []
+    for xh in hyp.astype(np.float64):
+        a_e = rng.uniform(-10, 10, (6, 6))
+        rows.append(np.concatenate([a_e, (a_e @ xh + np.array([1.0, -1.0] * 3))[:, None]], 1))
+    p = fs.pack_feature_rows(torch.as_tensor(np.concatenate(rows).astype(np.float32)), False)
+    assert p.shape == (9, 128)                                # 48 rows, 80 padding columns
+    got = fs._dense6_vote(p, [torch.as_tensor(hyp[:, c]) for c in range(6)], float(delta))
+
+    want, near_edge = [], 0
+    for xh in hyp:
+        count = 0
+        for col in p.numpy().T:
+            e = -col[6]
+            for c in range(6):
+                e = _fma(col[c], xh[c], e)
+            count += bool(abs(e) < delta) and col[7] != 0
+            near_edge += bool(col[7] != 0 and abs(abs(float(e)) - float(delta)) <= 1e-3)
+        want.append(count)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge rows really sit on the edge
+
+
+def test_plain_absor_vote_rounds_each_fma_once_on_band_edge_points():
+    # The absolute_orientation kernel and its plain version count a cell
+    # where fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2, e_j = fma(R_j2,
+    # z1, fma(R_j1, y1, fma(R_j0, x1, t_j))) - p2_j in float32.  Held here
+    # against that chain with each FMA rounded once from its exact rational
+    # value, on pairs placed at residual delta from each hypothesis (the band
+    # edge) and on padding columns, which never count.
+    rng = np.random.default_rng(62)
+    f32 = np.float32
+    delta = 1.0
+    rot = _rotations(rng, 1)[0]
+    first = rng.uniform(-100, 100, (16, 3, 3))
+    second = first @ rot.T + np.array([12.0, -7.0, 30.0]) + 0.1 * rng.normal(size=(16, 3, 3))
+    samples = torch.as_tensor(np.concatenate([first, second], -1).astype(np.float32))
+    rows, degenerate, _ = fs.absolute_orientation_fit([[samples[:, j, c] for c in range(6)]
+                                                       for j in range(3)], delta)
+    hyp = torch.stack([r[~degenerate][:8] for r in rows], 1).numpy()
+    assert hyp.shape == (8, 12)
+    p1, p2 = [], []
+    for h in hyp.astype(np.float64):
+        for _ in range(6):
+            q = rng.uniform(-100, 100, 3)
+            e = rng.normal(size=3)
+            p1.append(q)
+            p2.append(h[0:9].reshape(3, 3) @ q + h[9:12] - delta * e / np.linalg.norm(e))
+    p = fs._absor_p((torch.as_tensor(np.array(p1, np.float32)),
+                     torch.as_tensor(np.array(p2, np.float32))))
+    assert p.shape == (8, 128)                                # 48 pairs, 80 padding columns
+    got = fs._absor_vote(p, [torch.as_tensor(hyp[:, i]) for i in range(12)], delta)
+
+    limit = f32(delta * delta)
+    want, near_edge = [], 0
+    for h in hyp:
+        count = 0
+        for col in p.numpy().T:
+            e = [_fma(h[3 * j + 2], col[2], _fma(h[3 * j + 1], col[1], _fma(h[3 * j], col[0],
+                                                                           h[9 + j])))
+                 - col[3 + j] for j in range(3)]                # f32 subtract
+            d2 = _fma(e[2], e[2], _fma(e[1], e[1], e[0] * e[0]))
+            count += bool(d2 < limit) and col[6] != 0
+            near_edge += bool(col[6] != 0 and abs(float(d2) - float(limit)) <= 1e-3)
+        want.append(count)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge pairs really sit on the edge

@@ -20,8 +20,9 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu.ops import fused_sweep as jfs
+from lsqrrecipes_tpu_torch.estimators import SphereEstimator
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
-from test_torch_vote import _f32_round
+from test_torch_vote import _f32_round, _far_sphere
 
 torch.set_num_threads(2)
 
@@ -202,20 +203,23 @@ def test_pad_columns_never_vote():
 
 def test_plain_sphere3d_vote_rounds_each_fma_once_on_band_edge_points():
     # The sphere3d kernel and its plain version count a cell where |e| < 1,
-    # e = fma(a4, |p|^2, fma(a2, z, fma(a1, y, fma(a0, x, a3)))) in float32
-    # on P's rows.  Held here against that chain with each FMA rounded once
-    # from its exact rational value, on points placed at distance r +- delta
-    # from each centre (the band edge, |e| = 1, where one rounding decides
-    # the count) and on padding columns, which never count.
+    # e = fma(a4, |p'|^2, fma(a2, z', fma(a1, y', fma(a0, x', a3)))) in
+    # float32 on the points relative to P's column 0, c0 (p' = p - c0), with
+    # the band rows about it, a = [w(-2c'), w|c'|^2 + o, w] for c' = c - c0.
+    # Held here against that chain with each FMA rounded once from its exact
+    # rational value, on points placed at distance r +- delta from each
+    # centre (the band edge, |e| = 1, where one rounding decides the count)
+    # and on padding columns, which never count.
     rng = np.random.default_rng(35)
+    f32 = np.float32
     pts = torch.as_tensor(_cloud(36, 256))
     perms = fs.draw_slot_perms(256, 4, torch.Generator().manual_seed(5))
     samples = fs.reference_samples("sphere3d", pts, perms, 1)
-    params, degenerate, a_rows = fs._sphere3d_rows(
+    params, degenerate, vote_rows = fs._sphere3d_rows(
         [[samples[:, j, c] for c in range(3)] for j in range(4)], 1.0)
     keep = (~degenerate & (params[3] < 60.0)).nonzero()[:, 0][:8]
     assert len(keep) == 8
-    rows = [a[keep] for a in a_rows]
+    rows = [a[keep] for a in vote_rows]                       # [c, w, o]
     centres = torch.stack(params[:3], 1)[keep].double().numpy()
     radii = params[3][keep].double().numpy()
     edge = []
@@ -232,14 +236,48 @@ def test_plain_sphere3d_vote_rounds_each_fma_once_on_band_edge_points():
         return _f32_round(Fraction(float(a)) * Fraction(float(b)) + Fraction(float(c)))
 
     cells = p.numpy()
-    hyp = torch.stack(rows, 1).numpy()
+    c0 = cells[0:3, 0]
+    rel = cells[0:3] - c0[:, None]                            # float32 throughout
+    pp = (rel[0] * rel[0] + rel[1] * rel[1]) + rel[2] * rel[2]
     want, near_edge = [], 0
-    for a0, a1, a2, a3, a4 in hyp:
+    for cx, cy, cz, w, o in torch.stack(rows, 1).numpy():
+        c = [cx - c0[0], cy - c0[1], cz - c0[2]]
+        cc = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]
+        a0, a1, a2, a3, a4 = w * (f32(-2.0) * c[0]), w * (f32(-2.0) * c[1]), \
+            w * (f32(-2.0) * c[2]), w * cc + o, w
         count = 0
-        for x, y, z, one, pp in cells.T:
-            e = fma(a4, pp, fma(a2, z, fma(a1, y, fma(a0, x, a3))))
+        for x, y, z, one, p2 in zip(*rel, cells[3], pp):
+            e = fma(a4, p2, fma(a2, z, fma(a1, y, fma(a0, x, a3))))
             count += bool(abs(e) < 1.0) and one != 0
             near_edge += bool(one != 0 and abs(abs(float(e)) - 1.0) <= 1e-3)
         want.append(count)
     np.testing.assert_array_equal(got, np.array(want))
     assert near_edge >= 6 * len(want)          # the edge points really sit on the edge
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e3, 1e4])
+def test_plain_sphere3d_vote_holds_far_from_the_origin(offset):
+    # The sphere3d vote expands |p - c|^2 about P's column 0: on the same f32
+    # fits every hypothesis's count stays within 2 of the float64 `agree`
+    # count, and the sweep's best within 1 of the float64 maximum over the
+    # same samples, wherever the cloud lies (about the origin the best fell
+    # to 706 of 823 at 1e4).
+    pts = torch.as_tensor(_far_sphere(offset))
+    perms = fs.draw_slot_perms(1024, 4, torch.Generator().manual_seed(1))
+    samples = fs.reference_samples("sphere3d", pts, perms, 2)
+    params, degenerate, vote_rows = fs._sphere3d_rows(
+        [[samples[:, j, c] for c in range(3)] for j in range(4)], 1.0)
+    rows = [r[~degenerate] for r in vote_rows]
+    got = fs._sphere3d_vote(fs.pack_feature_rows(pts, True), rows, 1.0)
+    est = SphereEstimator(1.0, 3)
+    fits = torch.stack(params, 1)[~degenerate].double()
+    want = est.agree(fits, pts.double()).sum(-1)
+    assert len(rows[0]) > 2000
+    assert int((got - want).abs().max()) <= 2
+
+    coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, None, perms=perms)
+    count, _, _ = fs.sweep_plain("sphere3d", coords, p, nf, 2, cols, 1.0)
+    p64, valid = est.minimal_fit(samples.double())
+    best = int(torch.where(valid, est.agree(p64, pts.double()).sum(-1), 0).max())
+    assert best > 800
+    assert abs(int(count) - best) <= 1

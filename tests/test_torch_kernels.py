@@ -20,6 +20,7 @@ from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, LineEstimator, SphereEst
 from lsqrrecipes_tpu_torch.geometry import Frame, Ray3D, rotations
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ops import phantom_qr, sphere_lm, sphere_ransac, us_fast, vote
+from lsqrrecipes_tpu_torch.tree import tree_map
 
 torch.set_num_threads(2)
 
@@ -152,9 +153,10 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
 _SPLIT_LAYOUT = "constexpr int kSplitHypPerThread = 4;"   # sweep_common.cuh
 
 # kernel: (the layout constant, whether its source holds FMAs).  B2, the
-# sphere3d, line3d, crosswire and pointer sweeps fuse their votes into FMAs
-# (their plain versions round each one as CUDA does); B4 keeps separate
-# multiplies and adds, as JAX's counts.
+# sphere3d, line3d, crosswire, pointer, dense_linear6 and
+# absolute_orientation sweeps fuse their votes into FMAs (their plain
+# versions round each one as CUDA does); B4 keeps separate multiplies and
+# adds, as JAX's counts.
 _REDESIGNED = {
     "phantom_qr": ("constexpr int kGroup = 16;", None),
     "sphere_mega": ("constexpr int kMegaHypPerThread = 4;", None),
@@ -164,6 +166,8 @@ _REDESIGNED = {
     "fused_sweep_line3d": (_SPLIT_LAYOUT, True),
     "fused_sweep_crosswire": (_SPLIT_LAYOUT, True),
     "fused_sweep_pointer": (_SPLIT_LAYOUT, True),
+    "fused_sweep_dense_linear6": ("split_sweep_kernel<DenseLinear6>", True),
+    "fused_sweep_absolute_orientation": ("split_sweep_kernel<AbsoluteOrientation>", True),
 }
 
 
@@ -454,6 +458,7 @@ def test_estimator_vote_counts_launch_the_kernel_at_any_b_on_card(cuda_device, b
 
 
 RIGID_SIZES = {"pivot": (512, 480)}   # (n, a size that is not 128 * 2^k)
+SPLIT_RIGID = ("absolute_orientation", "dense_linear6")   # split_sweep_kernel families
 RAY_DELTA = (1.0, float(np.sin(0.05) ** 2))
 
 
@@ -515,6 +520,8 @@ def test_rigid_sweep_kernels_match_plain_on_card(cuda_device, family, case, gps,
     assert kp.shape == (fs._FAMILIES[family][2],)
     if int(ki) == int(pi):
         assert torch.equal(kp, pp)
+    if family in SPLIT_RIGID:                  # FMA votes rounded alike: the same winner
+        assert int(kc) == int(pc) and int(ki) == int(pi)
 
 
 @pytest.mark.cuda
@@ -549,6 +556,22 @@ def test_rigid_kernel_pad_columns_never_vote_on_card(cuda_device, family):
         assert int(kc) >= n - 1
     if int(ki) == int(pi):
         assert torch.equal(kp, pp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", SPLIT_RIGID)
+@pytest.mark.parametrize("groups,vote_cols", [(63, 1), (5, 300), (3, 1000), (2, 2100)])
+def test_split_rigid_kernels_ragged_shapes_equal_plain_on_card(cuda_device, family, groups,
+                                                              vote_cols):
+    # vote_cols 1, 300, 1,000 and past two 1,024-point tiles: slot planes of
+    # the first 1,024 observations, votes on up to 2,100.
+    data = _rigid_data(family, 70 + groups, 2100, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(groups)
+    coords, _, nf, _ = fs.sweep_inputs(family, tree_map(lambda x: x[:1024], data), gen)
+    p = fs.pack_p(family, data)
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, groups, vote_cols, 1.0)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, vote_cols, 1.0)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
 
 
 def _euler(w):
@@ -669,6 +692,88 @@ def test_line3d_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, off
     params, valid = est.minimal_fit(fs.reference_samples("line3d", pts, perms, 8).double())
     best = int(torch.where(valid, est.agree(params, pts.double()).sum(-1), 0).max())
     assert abs(int(kc) - best) <= 1
+
+
+def _far_sphere(offset, device, n=1024):
+    """80% of ``n`` points on the radius-10 sphere about (1, 2, -3) with
+    N(0, 0.2) radial noise, the rest uniform in [-40, 40]^3, every
+    coordinate offset by ``offset``, f32 (``tests/test_torch_vote.py``'s
+    far-cloud model)."""
+    rng = np.random.default_rng(41)
+    n_in = n * 4 // 5
+    d = rng.normal(size=(n_in, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inl = np.array([1.0, 2.0, -3.0]) + (10.0 + 0.2 * rng.normal(size=(n_in, 1))) * d
+    pts = np.concatenate([inl, rng.uniform(-40.0, 40.0, size=(n - n_in, 3))]) + offset
+    return torch.as_tensor(pts.astype(np.float32), device=device)
+
+
+def _f64_best(samples, pts):
+    """The float64 ``minimal_fit`` + ``agree`` maximum over ``samples``."""
+    est = SphereEstimator(1.0, 3)
+    params, valid = est.minimal_fit(samples.double())
+    return int(torch.where(valid, est.agree(params, pts.double()).sum(-1), 0).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+def test_vote_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, offset):
+    # B2 expands |p - c|^2 about the packed points' column 0: on a cloud far
+    # from the origin it counts as its plain version, the best within 1 of
+    # the float64 `agree` maximum over the same hypotheses.
+    pts = _far_sphere(offset, cuda_device)
+    rng = np.random.default_rng(43)
+    params = np.concatenate([np.array([1.0, 2.0, -3.0]) + offset + rng.normal(0, 0.3, (4096, 3)),
+                             10.0 + rng.normal(0, 0.3, (4096, 1))], 1)
+    params = torch.as_tensor(params.astype(np.float32), device=cuda_device)
+    tt, vt, _ = vote.pack_points(pts)
+    got = vote.sphere_vote_counts_cuda(params, tt, vt, 1.0)
+    assert torch.equal(got, vote.sphere_vote_counts_plain(params, tt, vt, 1.0))
+    want = SphereEstimator(1.0, 3).agree(params.double(), pts.double()).sum(-1)
+    assert abs(int(got.max()) - int(want.max())) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+def test_sphere3d_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, offset):
+    pts = _far_sphere(offset, cuda_device)
+    perms = fs.draw_slot_perms(1024, 4, torch.Generator(device=cuda_device).manual_seed(2),
+                               device=cuda_device)
+    coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, None, perms=perms)
+    kc, kp, ki = fs.sweep_cuda("sphere3d", coords, p, nf, 8, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("sphere3d", coords, p, nf, 8, cols, 1.0)
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
+    assert abs(int(kc) - _f64_best(fs.reference_samples("sphere3d", pts, perms, 8), pts)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+def test_sphere_mega_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, offset):
+    pts = _far_sphere(offset, cuda_device)
+    points_t, valid, _ = vote.pack_points(pts)
+    coords2 = sphere_ransac._slot_planes(pts, torch.Generator(device=cuda_device).manual_seed(3),
+                                         1024)
+    shifts = torch.as_tensor(sphere_ransac.mega_group_shifts(8, 1024), dtype=torch.int32,
+                             device=cuda_device)
+    counts, params_t = sphere_ransac.megakernel_call_cuda(shifts, coords2, points_t, valid, 1.0)
+    pcounts, pparams = sphere_ransac.megakernel_call_plain(shifts, coords2, points_t, valid, 1.0)
+    assert torch.equal(counts, pcounts) and torch.equal(params_t, pparams)
+    samples = sphere_ransac.reference_mega_samples(pts, None, 8, coords2=coords2)
+    assert abs(int(counts.max()) - _f64_best(samples, pts)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1e3, 1e4])
+def test_sphere_planar_vote_kernel_far_from_the_origin_equals_plain_on_card(cuda_device, offset):
+    pts = _far_sphere(offset, cuda_device)
+    points_t, valid, _ = vote.pack_points(pts)
+    sxyz = sphere_ransac.planar_sphere_samples(
+        torch.Generator(device=cuda_device).manual_seed(4), pts, 8)
+    counts, params_t = sphere_ransac.sphere_fit_and_vote_planar_cuda(sxyz, points_t, valid, 1.0)
+    pcounts, pparams = sphere_ransac.sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, 1.0)
+    assert torch.equal(counts, pcounts) and torch.equal(params_t, pparams)
+    samples = torch.stack([sxyz[0:4].T, sxyz[4:8].T, sxyz[8:12].T], dim=-1)
+    assert abs(int(counts.max()) - _f64_best(samples, pts)) <= 1
 
 
 def _us_chunks_equal_plain(family, monkeypatch, device, chunk, n, groups, vote_cols):
@@ -845,10 +950,12 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
                                             ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20),
                                             ("FUSED_SWEEP_LINE3D", 1 << 22),
                                             ("FUSED_SWEEP_SPHERE3D", 1 << 22),
+                                            ("dense_linear6", 1 << 21),
+                                            ("absolute_orientation", 1 << 20),
                                             ("crosswire", 1 << 20), ("crosswire fit", 1 << 20),
                                             ("pointer", 1 << 20), ("pointer fit", 1 << 20)])
 def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
-    if kernel.split()[0] in kernels.US_FAMILIES:
+    if kernel.split()[0] in kernels.FUSED_SWEEPS:
         query = "fit_shape" if kernel.endswith("fit") else "shape"
         shape = kernels.FUSED_SWEEPS[kernel.split()[0]].shape(num_hyp, query)
     else:

@@ -31,6 +31,7 @@ from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, SphereEstimator
 from lsqrrecipes_tpu_torch.linalg.small import fma_f32
 from lsqrrecipes_tpu_torch.ops import sphere_ransac as sr
 from lsqrrecipes_tpu_torch.ops import vote
+from test_torch_vote import _far_sphere
 
 torch.set_num_threads(2)
 
@@ -342,6 +343,45 @@ def test_planar_matches_minimal_fit_and_vote_counts():
     assert int((counts - cref).abs().max()) <= 1
     assert int(counts.max()) == int(cref.max())
     assert torch.equal(params_t[4] != 0, ~v_ref)
+
+
+def _holds_far_from_the_origin(counts, params_t, samples, pts):
+    """Every non-degenerate count within 2 of the float64 `agree` count of
+    the same f32 fit, the best within 1 of the float64 maximum over the same
+    samples (``minimal_fit`` + ``agree``)."""
+    est = SphereEstimator(1.0, 3)
+    fit = params_t[4] == 0
+    want = est.agree(params_t[:4, fit].T.double(), pts.double()).sum(-1)
+    assert int(fit.sum()) > 1500
+    assert int((counts[fit] - want).abs().max()) <= 2
+    p64, valid = est.minimal_fit(samples.double())
+    best = int(torch.where(valid, est.agree(p64, pts.double()).sum(-1), 0).max())
+    assert best > 800
+    assert abs(int(counts.max()) - best) <= 1
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e3, 1e4])
+def test_plain_megakernel_holds_far_from_the_origin(offset):
+    # B7 expands |p - c|^2 about the packed points' column 0, so a cloud far
+    # from the origin counts as one near it.
+    pts = torch.as_tensor(_far_sphere(offset))
+    points_t, valid, _ = vote.pack_points(pts)
+    coords2 = sr._slot_planes(pts, torch.Generator().manual_seed(1), 1024)
+    counts, params_t = sr.megakernel_call_plain(torch.as_tensor(sr.mega_group_shifts(2, 1024)),
+                                                coords2, points_t, valid, 1.0)
+    samples = sr.reference_mega_samples(pts, None, 2, coords2=coords2)
+    _holds_far_from_the_origin(counts, params_t, samples, pts)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e3, 1e4])
+def test_plain_planar_vote_holds_far_from_the_origin(offset):
+    # B8's two bounds on |p - c|^2, expanded about the packed points' column 0.
+    pts = torch.as_tensor(_far_sphere(offset))
+    points_t, valid, _ = vote.pack_points(pts)
+    sxyz = sr.planar_sphere_samples(torch.Generator().manual_seed(2), pts, 2)
+    counts, params_t = sr.sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, 1.0)
+    samples = torch.stack([sxyz[0:4].T, sxyz[4:8].T, sxyz[8:12].T], dim=-1)
+    _holds_far_from_the_origin(counts, params_t, samples, pts)
 
 
 def test_invalid_columns_never_vote():

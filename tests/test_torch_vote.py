@@ -151,11 +151,12 @@ def _f32_round(exact):
 
 
 def test_plain_vote_rounds_each_fma_once_on_band_edge_points():
-    # B2 and its plain version take d2 = fma(-2cz, z, fma(-2cy, y, fma(-2cx,
-    # x, |p|^2))) + |c|^2 in float32.  Held here against that chain with each
-    # FMA rounded once from its exact rational value, on points placed on the
-    # band edges r +- delta of every hypothesis, where one rounding decides
-    # the count.
+    # B2 and its plain version take, about the centre c0 = the packed
+    # points' column 0 (p' = p - c0, c' = c - c0), d2 = fma(-2c'z, z',
+    # fma(-2c'y, y', fma(-2c'x, x', |p'|^2))) + |c'|^2 in float32.  Held here
+    # against that chain with each FMA rounded once from its exact rational
+    # value, on points placed on the band edges r +- delta of every
+    # hypothesis, where one rounding decides the count.
     rng = np.random.default_rng(25)
     f32 = np.float32
     delta = f32(1.0)
@@ -171,14 +172,16 @@ def test_plain_vote_rounds_each_fma_once_on_band_edge_points():
     got = vote.sphere_vote_counts_plain(torch.as_tensor(params), tt, vt, float(delta)).numpy()
 
     want, near_edge = [], 0
-    pp = [(x * x + y * y) + z * z for x, y, z in pts]           # float32 throughout
+    rel = pts - pts[0]                                          # float32 throughout
+    pp = [(x * x + y * y) + z * z for x, y, z in rel]
     for c0, c1, c2, r in params:
-        m = [f32(-2.0) * c0, f32(-2.0) * c1, f32(-2.0) * c2]
-        cc = (c0 * c0 + c1 * c1) + c2 * c2
+        c = [c0 - pts[0, 0], c1 - pts[0, 1], c2 - pts[0, 2]]
+        m = [f32(-2.0) * ck for ck in c]
+        cc = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]
         rp, rm = r + delta, r - delta
         hi2, lo2 = rp * rp, (rm * rm if rm >= 0 else f32(-np.inf))
         count = 0
-        for (x, y, z), p2 in zip(pts, pp):
+        for (x, y, z), p2 in zip(rel, pp):
             t = p2
             for mk, v in zip(m, (x, y, z)):
                 t = _f32_round(Fraction(float(mk)) * Fraction(float(v)) + Fraction(float(t)))
@@ -188,6 +191,39 @@ def test_plain_vote_rounds_each_fma_once_on_band_edge_points():
         want.append(count)
     np.testing.assert_array_equal(got, np.array(want, np.int32))
     assert near_edge >= len(params)           # the edges are really probed
+
+
+def _far_sphere(offset, n=1024):
+    """The far-cloud data model: 80% of ``n`` points on the radius-10 sphere
+    about (1, 2, -3) with N(0, 0.2) radial noise, the rest uniform in [-40,
+    40]^3 (``default_rng(41)``), every coordinate offset by ``offset``, f32."""
+    rng = np.random.default_rng(41)
+    n_in = n * 4 // 5
+    d = rng.normal(size=(n_in, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    inl = np.array([1.0, 2.0, -3.0]) + (10.0 + 0.2 * rng.normal(size=(n_in, 1))) * d
+    out = rng.uniform(-40.0, 40.0, size=(n - n_in, 3))
+    return (np.concatenate([inl, out]) + offset).astype(np.float32)
+
+
+@pytest.mark.parametrize("offset", [0.0, 1e3, 1e4])
+def test_plain_sphere_vote_holds_far_from_the_origin(offset):
+    # Expanded about the origin, |p|^2 - 2 c.p + |c|^2 loses the band to
+    # ulp(|p|^2) (32 at 1e4, against (r + 1)^2 - (r - 1)^2 = 40 at r = 10):
+    # the uncentred vote counted 525 of 819-820 there.  About the packed
+    # points' column 0 every count stays within 2 of the float64 `agree`
+    # count and the best within 1 of the float64 maximum.
+    pts = torch.as_tensor(_far_sphere(offset))
+    rng = np.random.default_rng(42)
+    params = np.concatenate([np.array([1.0, 2.0, -3.0]) + offset + rng.normal(0, 0.1, (64, 3)),
+                             10.0 + rng.uniform(-0.1, 0.1, (64, 1))], 1)
+    params = torch.as_tensor(params.astype(np.float32))
+    tt, vt, _ = vote.pack_points(pts)
+    got = vote.sphere_vote_counts_plain(params, tt, vt, 1.0)
+    want = SphereEstimator(1.0, 3).agree(params.double(), pts.double()).sum(-1)
+    assert int(want.max()) > 800
+    assert int((got - want).abs().max()) <= 2
+    assert abs(int(got.max()) - int(want.max())) <= 1
 
 
 def test_plain_vote_equals_literal_agree_away_from_edges():
