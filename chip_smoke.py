@@ -17,9 +17,9 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
 
   1. device: card name and power limit;
   2. build: every kernel, one ``nvcc`` per source, all in parallel; the
-     sphere3d, line3d, dense_linear6 and absolute_orientation kernels' and
-     the crosswire and pointer vote and fit kernels' registers, spills,
-     blocks per SM and waves at the main path's shapes;
+     sphere3d, line3d and four rigid kernels' and the crosswire and pointer
+     vote and fit kernels' registers, spills, blocks per SM and waves at the
+     main path's shapes;
   3. kernel ``sphere_vote`` vs its plain version (B = 65,536 x n = 1,024;
      equal counts) and vs an f64 literal ``agree`` oracle, its registers,
      blocks per SM and waves; then on the cloud 1e4 from the origin
@@ -56,13 +56,13 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      launch shape (and at 2^20 the SM clock and power while it runs);
  12. kernels ``fused_sweep_pivot``, ``fused_sweep_absolute_orientation``,
      ``fused_sweep_ray3d`` and ``fused_sweep_dense_linear6`` vs their plain
-     versions on phase 4's cases (pivot at n = 512 and 480;
-     absolute_orientation and dense_linear6, whose votes are FMA chains
-     rounded alike, with equal counts and winner indices);
+     versions on phase 4's cases (pivot at n = 512 and 480), whose votes
+     are FMA chains rounded alike: equal counts and winner indices,
+     bit-equal params;
  13. per rigid family, ``ransac_fused_sweep`` through its estimator at the
      JAX family record's width (one launch), the ground truth recovered,
-     then the kernel vs its plain version at that shape (with the launch
-     shape of the split-vote families and their time on 1 column);
+     then the kernel vs its plain version at that shape, as in phase 12,
+     with its launch shape and its time on 1 column;
  14. ``ransac`` with pivot calibration at 65,536 gathered hypotheses (the
      tree gather and the batched f64 9x6 SVD, no kernel);
  15. kernels ``fused_sweep_crosswire`` and ``fused_sweep_pointer`` vs their
@@ -200,8 +200,8 @@ VOTE_OPS_PER_CELL = 10
 POINT_SWEEP_OPS = {"plane3d": (11, 34), "line3d": (16, 31), "line2d": (9, 15)}
 # The sweeps whose plain versions round FMAs through fma_f32 in float64 take
 # seconds a call at the main path's shapes: their plain time is one call.
-PLAIN_ONCE = ("sphere3d", "line3d", "crosswire", "pointer", "absolute_orientation",
-              "dense_linear6")
+PLAIN_ONCE = ("sphere3d", "line3d", "crosswire", "pointer", "pivot", "absolute_orientation",
+              "ray3d", "dense_linear6")
 # plane_vote: d multiplies + d - 1 adds, subtract, multiply, compare, add.
 PLANE_VOTE_OPS_PER_CELL = {2: 7, 3: 9}
 
@@ -240,14 +240,12 @@ EXACT_POINT_SWEEPS = ("line3d",)
 # every axis (phase 8 a line3d cloud, the others the bench's sphere), where
 # the votes' |p|^2 - 2a.p expansion would cancel badly about the origin.
 FAR_OFFSET = 1e4
-# The rigid sweeps in split_sweep_kernel (FMA votes, rounded alike by the
-# plain versions): held to equal counts and winner indices (phases 12, 13).
-SPLIT_RIGID = ("absolute_orientation", "dense_linear6")
 
 # The rigid families (csrc/fused_sweep_rigid.cu): estimator registry name,
 # data size n and groups of the main path (the JAX family record,
 # docs/FAMILY_PERF.json), and f32 operations (per cell, per hypothesis)
-# counted from each family's vote and fit: pivot 3 x (3 mul + 2 add + add +
+# counted from each family's vote and fit, the function's work whatever the
+# kernel fuses (its FMAs count two): pivot 3 x (3 mul + 2 add + add +
 # sub) + 3 mul + 2 add + compare + count per cell, the sums, Schur matrix,
 # Cramer solve and back-substitution per hypothesis; absolute_orientation
 # the same per cell, two frames and R, t per hypothesis; ray3d 3 sub +
@@ -885,7 +883,7 @@ def main(argv=None):
                 print(f"    {k.name}: {line.strip()}")
     for k in (kernels.FUSED_SWEEP_SPHERE3D, kernels.FUSED_SWEEP_LINE3D):
         print(f"    {k.name} at {H_FUSED}: {launch_shape(k, H_FUSED)}")
-    for family in SPLIT_RIGID:
+    for family in RIGID:
         k = kernels.FUSED_SWEEPS[family]
         hyp2 = RIGID[family][2] * fs.fit_size(RIGID[family][1], fs._FAMILIES[family][0])
         print(f"    {k.name} at {hyp2}: {launch_shape(k, hyp2)}")
@@ -1327,7 +1325,7 @@ def main(argv=None):
             family_err[family] = max(family_err[family], compare_sweep(
                 fs, family, est_f, coords, p, n_fit, num_groups, vote_cols, voters,
                 f"[12] fused_sweep_{family} n={n_case} groups={total_groups} gps={gps} "
-                f"subsample={subsample}", delta_f, exact=family in SPLIT_RIGID))
+                f"subsample={subsample}", delta_f, exact=True))
 
     # 13. main path per rigid family: ransac_fused_sweep, one launch ---------
     for family, (_, n13, groups13, (per_cell, per_hyp)) in RIGID.items():
@@ -1370,16 +1368,14 @@ def main(argv=None):
         family_times[family] = (ms13, plain_ms13, bound13, by13)
         print(f"    kernel ms: {name_f} {ms13:.4f}, plain {plain_ms13:.4f}, "
               f"bound {bound13:.4f} ({by13}) [{smi}]")
-        if family in SPLIT_RIGID:
-            # The same launch on one column: the fit, the staging and the publishing.
-            one13 = timer.ms(lambda: fs.sweep_cuda(family, coords13, p13, nfit13, groups13, 1,
-                                                   delta_f), reps=20)
-            print(f"    {name_f} at {hyp13}: {launch_shape(kernels.FUSED_SWEEPS[family], hyp13)}; "
-                  f"on 1 column {one13:.4f} ms")
+        # The same launch on one column: the fit, the staging and the publishing.
+        one13 = timer.ms(lambda: fs.sweep_cuda(family, coords13, p13, nfit13, groups13, 1,
+                                               delta_f), reps=20)
+        print(f"    {name_f} at {hyp13}: {launch_shape(kernels.FUSED_SWEEPS[family], hyp13)}; "
+              f"on 1 column {one13:.4f} ms")
         family_err[family] = max(family_err[family], compare_sweep(
             fs, family, est_f, coords13, p13, nfit13, groups13, cols13, data13_t,
-            f"    {name_f} at this shape ({groups13} groups)", delta_f,
-            exact=family in SPLIT_RIGID))
+            f"    {name_f} at this shape ({groups13} groups)", delta_f, exact=True))
 
     # 14. gathered pivot calibration (tree gather, f64 9x6 SVD, no kernel) ----
     pivot_est = rigid_est("pivot")

@@ -5,10 +5,9 @@
 // Replaces lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel with the
 // pivot_fit_vote, absolute_orientation_fit_vote, ray3d_fit_vote and
 // dense_linear6_fit_vote closures (the pallas_call in _sweep_call): one C
-// launch symbol per family; pivot and ray3d instantiate sweep_common.cuh's
-// sweep_kernel, absolute_orientation and dense_linear6 its split-vote
-// split_sweep_kernel.  Each family computes what its closure computes, in the
-// closure's operation order:
+// launch symbol per family, each instantiating sweep_common.cuh's split-vote
+// split_sweep_kernel.  Each family computes what its closure computes, in
+// the closure's operation order:
 //   * pivot (k = 3 frames, slot features [vec(R) 9, t 3, R^T t 3]): S = sum R,
 //     v = sum t, u = sum R^T t; N = 9I - S S^T, rhs = 3v - S u; Cramer solve
 //     for t_W, degenerate when |det N| < 1e-6; t_D = (S^T t_W - u) / 3;
@@ -34,17 +33,21 @@
 // neither reason holds, so every cell is computed in f32 from the staged
 // rows, in the order the plain versions repeat (each FMA rounded once by
 // linalg.small.fma_f32 there):
-//   * pivot: e_j = (sum_k R[j][k] t_D[k] + t_j) - t_W[j], |e|^2 < delta^2
-//     (the residual components, not the quadratic expansion whose ~1e4 terms
-//     cancel: 3 x (3 mul + 2 add + add + sub) + 3 mul + 2 add + compare +
-//     count = 28 f32 operations), unfused;
+//   * pivot: e_j = fma(R_j2, t_D2, fma(R_j1, t_D1, fma(R_j0, t_D0, t_j))) -
+//     t_W[j], |e|^2 = fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2 (the
+//     residual components, not the quadratic expansion whose ~1e4 terms
+//     cancel; the function's 3 x (3 mul + 2 add + add + sub) + 3 mul + 2 add
+//     + compare + count = 28 operations in 9 + 2 FMAs, 3 subtractions, a
+//     multiply, a compare and a count);
 //   * absolute_orientation: e_j = fma(R_j2, z1, fma(R_j1, y1, fma(R_j0, x1,
-//     t_j))) - p2_j, |e|^2 = fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2
-//     (the subtraction last, as pointer's; the function's 28 operations in
-//     9 + 2 FMAs, 3 subtractions, a multiply, a compare and a count);
-//   * ray3d: v = x - p, t = n.v >= 0 and |v|^2 - t^2 (2 - |n|^2) < delta^2,
-//     the last term exact for directions that are not unit (3 sub, 8 mul,
-//     4 add, 2 sub, 2 compares, and, count = 21 operations), unfused;
+//     t_j))) - p2_j, |e|^2 as pivot's (the subtraction last, as pointer's;
+//     the function's 28 operations likewise);
+//   * ray3d: v = x - p, t = fma(n_z, v_z, fma(n_y, v_y, n_x v_x)) >= 0 and
+//     fma(-(t t), w, |v|^2) < delta^2 with |v|^2 as t and w = 2 - |n|^2
+//     formed once per point, the last term exact for directions that are not
+//     unit (the function's 3 sub, 8 mul, 4 add, 2 sub, 2 compares, and,
+//     count = 21 operations in 3 subtractions, 3 multiplies, 5 FMAs, two
+//     compares and a count);
 //   * dense_linear6: |e| < delta, e = fma(a5, x5, ... fma(a0, x0, -b)) (the
 //     function's 15 operations in six FMAs, an abs-compare and a count).
 // Padding columns (the ones row of P is 0) are staged with a NaN in the first
@@ -56,28 +59,30 @@
 // votes are 1.4e10-3.2e10 f32 operations against < 1 MB of input, 0.2-0.5 ms
 // at 67 TFLOP/s; the fits (70-470 operations per hypothesis) add under 2%.
 // Every cell runs on the FP32 pipes, and nothing per hypothesis is written
-// to device memory.  sweep_kernel keeps four hypotheses' vote rows per
-// thread in registers, so one staged column feeds four hypotheses, with P
-// staged row by row in shared memory and read as scalar broadcasts (pivot
-// stages 12 rows, so its tiles are 512 columns wide, 24 KB, under the 48 KB
-// static limit; ray3d 7 rows in 1,024-column tiles).  split_sweep_kernel
-// gives a block 32 k hypotheses (k per thread) whose 8 warps split the
-// points, stages a point as two float4s read as 16-byte broadcasts, adds
+// to device memory.  split_sweep_kernel gives a block 32 k hypotheses (k per
+// thread, their vote rows in registers) whose 8 warps split the points,
+// stages a point as two or three float4s read as 16-byte broadcasts, adds
 // the warps' counts exactly in shared memory and votes in FMA chains:
 // absolute_orientation at k = 4 (96 registers, 2 blocks per SM) ~17.75
-// instructions per cell against ~29.5 in sweep_kernel; dense_linear6 at k =
-// 8 ~8.5 against ~16.5, every thread fitting one hypothesis, which halves
-// the blocks and with them the fit's share of the sweep (its Cholesky takes
-// 6 square roots and 27 divisions per hypothesis).
+// instructions per cell against ~29.5 in the row-by-row sweep_kernel it
+// replaced; dense_linear6 at k = 8 ~8.5 against ~16.5, every thread
+// fitting one hypothesis, which halves the blocks and with them the fit's
+// share of the sweep (its Cholesky takes 6 square roots and 27 divisions
+// per hypothesis); ray3d at k = 8 (80 registers, 3 blocks per SM) ~14.4
+// against ~21 + 7 scalar shared loads per point; pivot (three float4s, 682
+// points per 32 KB tile) at k = 8 (104 registers, 2 blocks per SM), every
+// thread fitting one of the 480-point sweep's hypotheses, ~17.7 against
+// ~29.5 + 12 scalar shared loads per point.  At k = 4 both ran 3% slower
+// on an H100 80GB HBM3 at 700 W (scripts/time_rigid_layouts.py).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py) sweep_kernel took 1.3149 ms
-// for dense_linear6 and 1.1800 ms for absolute_orientation.
+// for dense_linear6, 1.1800 ms for absolute_orientation, 0.9053 ms for
+// ray3d and 0.5914 ms for pivot.
 
 #include "sweep_common.cuh"
 
 namespace {
 
 using lsq_sweep::Consts;
-using lsq_sweep::kTile;
 using lsq_sweep::rsqrt_rn;
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
@@ -102,13 +107,12 @@ __device__ __forceinline__ float live_or_nan(const float* __restrict__ p, long l
 }
 
 struct Pivot {
-  static constexpr int kSlots = 3, kDim = 15, kParams = 6, kTileRows = 12, kTileCols = 512;
+  static constexpr int kSlots = 3, kDim = 15, kParams = 6, kVoteRows = 6;
+  static constexpr int kHypPerThread = 8;
+  using Point = lsq_sweep::Float4x3;
   struct Fit {
     float td[3], tw[3];
     bool degenerate;
-  };
-  struct Band {
-    float td[3], tw[3], delta_sq;
   };
 
   static __device__ __forceinline__ Fit fit(const float s[3][15], const Consts&) {
@@ -150,37 +154,40 @@ struct Pivot {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
+  // Vote rows: t_D, then t_W.
+  static __device__ __forceinline__ void vote_rows(const Fit& f, float r[kVoteRows]) {
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      b.td[c] = f.td[c];
-      b.tw[c] = f.tw[c];
+      r[c] = f.td[c];
+      r[3 + c] = f.tw[c];
     }
-    b.delta_sq = k.delta_sq;
-    return b;
   }
 
-  // P rows: t 0-2, R^T t 3-5, vec(R) 6-14, ones 15, guard 16.  Tile rows:
-  // vec(R) 0-8, t 9-11 (t_x NaN on padding columns).
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTileCols], int i) {
-#pragma unroll
-    for (int r = 0; r < 9; ++r) tile[r][i] = p[(6 + r) * stride + col];
-    tile[9][i] = live_or_nan(p, stride, col, 0, 15);
-    tile[10][i] = p[stride + col];
-    tile[11][i] = p[2 * stride + col];
+  // P rows: t 0-2, R^T t 3-5, vec(R) 6-14, ones 15, guard 16; staged [R_j0,
+  // R_j1, R_j2, t_j] for j = 0, 1, 2 (t_0 NaN on padding columns).
+  static __device__ __forceinline__ Point stage(const float* __restrict__ p, long long stride,
+                                                int col) {
+    const float* c = p + col;
+    return {make_float4(c[6 * stride], c[7 * stride], c[8 * stride],
+                        live_or_nan(p, stride, col, 0, 15)),
+            make_float4(c[9 * stride], c[10 * stride], c[11 * stride], c[stride]),
+            make_float4(c[12 * stride], c[13 * stride], c[14 * stride], c[2 * stride])};
   }
 
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTileCols], int i) {
+  // e_j = fma(R_j2, td_2, fma(R_j1, td_1, fma(R_j0, td_0, t_j))) - tw_j,
+  // counted where fma(e_2, e_2, fma(e_1, e_1, e_0 e_0)) < delta^2.
+  static __device__ __forceinline__ void vote(int& count, const float (&r)[kVoteRows],
+                                              const Point& pt, const Consts& k) {
+    const float4 row[3] = {pt.a, pt.b, pt.c};
     float e[3];
 #pragma unroll
     for (int j = 0; j < 3; ++j) {
-      const float rt = add3(mul(tile[3 * j][i], b.td[0]), mul(tile[3 * j + 1][i], b.td[1]),
-                            mul(tile[3 * j + 2][i], b.td[2]));
-      e[j] = sub(add(rt, tile[9 + j][i]), b.tw[j]);
+      e[j] = __fsub_rn(
+          __fmaf_rn(row[j].z, r[2], __fmaf_rn(row[j].y, r[1], __fmaf_rn(row[j].x, r[0], row[j].w))),
+          r[3 + j]);
     }
-    return dot3(e, e) < b.delta_sq;
+    lsq_sweep::count_below(
+        count, __fmaf_rn(e[2], e[2], __fmaf_rn(e[1], e[1], __fmul_rn(e[0], e[0]))), k.delta_sq);
   }
 
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
@@ -291,13 +298,12 @@ struct AbsoluteOrientation {
 };
 
 struct Ray3D {
-  static constexpr int kSlots = 2, kDim = 6, kParams = 3, kTileRows = 7;
+  static constexpr int kSlots = 2, kDim = 6, kParams = 3, kVoteRows = 3;
+  static constexpr int kHypPerThread = 8;
+  using Point = lsq_sweep::Float4x2;
   struct Fit {
     float x[3];
     bool degenerate;
-  };
-  struct Band {
-    float x[3], delta_sq;
   };
 
   static __device__ __forceinline__ Fit fit(const float s[2][6], const Consts& k) {
@@ -325,31 +331,29 @@ struct Ray3D {
     return f;
   }
 
-  static __device__ __forceinline__ Band band(const Fit& f, const Consts& k) {
-    Band b;
+  static __device__ __forceinline__ void vote_rows(const Fit& f, float r[kVoteRows]) {
 #pragma unroll
-    for (int c = 0; c < 3; ++c) b.x[c] = f.x[c];
-    b.delta_sq = k.delta_sq;
-    return b;
+    for (int c = 0; c < 3; ++c) r[c] = f.x[c];
   }
 
-  // P rows: p 0-2, n 3-5, n.p 6, ones 7, |n|^2 8, |p|^2 9; tile rows p, n,
-  // |n|^2 (p_x NaN on padding columns).
-  static __device__ __forceinline__ void stage(const float* __restrict__ p, long long stride,
-                                               int col, float (*tile)[kTile], int i) {
-    tile[0][i] = live_or_nan(p, stride, col, 0, 7);
-#pragma unroll
-    for (int r = 1; r < 6; ++r) tile[r][i] = p[r * stride + col];
-    tile[6][i] = p[8 * stride + col];
+  // P rows: p 0-2, n 3-5, n.p 6, ones 7, |n|^2 8, |p|^2 9; staged [p, n_x],
+  // [n_y, n_z, w = 2 - |n|^2, 0] (p_x NaN on padding columns).
+  static __device__ __forceinline__ Point stage(const float* __restrict__ p, long long stride,
+                                                int col) {
+    const float* c = p + col;
+    return {make_float4(live_or_nan(p, stride, col, 0, 7), c[stride], c[2 * stride],
+                        c[3 * stride]),
+            make_float4(c[4 * stride], c[5 * stride], sub(2.f, c[8 * stride]), 0.f)};
   }
 
-  static __device__ __forceinline__ int vote(const Band& b, float (*tile)[kTile], int i) {
-    float v[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) v[c] = sub(b.x[c], tile[c][i]);
-    const float t = add3(mul(tile[3][i], v[0]), mul(tile[4][i], v[1]), mul(tile[5][i], v[2]));
-    const float q = mul(mul(t, t), sub(2.f, tile[6][i]));
-    return (t >= 0.f) & (sub(dot3(v, v), q) < b.delta_sq);
+  // v = x - p, t = fma(n_z, v_z, fma(n_y, v_y, n_x v_x)), |v|^2 likewise,
+  // counted where t >= 0 and fma(-(t t), w, |v|^2) < delta^2.
+  static __device__ __forceinline__ void vote(int& count, const float (&x)[kVoteRows],
+                                              const Point& pt, const Consts& k) {
+    const float vx = sub(x[0], pt.a.x), vy = sub(x[1], pt.a.y), vz = sub(x[2], pt.a.z);
+    const float t = __fmaf_rn(pt.b.y, vz, __fmaf_rn(pt.b.x, vy, __fmul_rn(pt.a.w, vx)));
+    const float d2 = __fmaf_rn(vz, vz, __fmaf_rn(vy, vy, __fmul_rn(vx, vx)));
+    lsq_sweep::count_below_if(count, __fmaf_rn(-__fmul_rn(t, t), pt.b.z, d2), k.delta_sq, t);
   }
 
   static __device__ __forceinline__ void params(const Fit& f, float* out) {
@@ -469,9 +473,16 @@ extern "C" int fused_sweep_pivot_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return lsq_sweep::launch_sweep<Pivot>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
+  return lsq_sweep::launch_split<Pivot>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
                                         num_groups, b, m, mask, consts(delta, delta_sq, cross_eps),
                                         best_key, best_out, best_index, stream);
+}
+
+// Each family's kernel's launch shape at num_hyp hypotheses on the current
+// device, as lsq_sweep::kernel_shape gives it.
+extern "C" int fused_sweep_pivot_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<Pivot>, lsq_sweep::kSplitThreads,
+                                 32 * Pivot::kHypPerThread, num_hyp, out);
 }
 
 extern "C" int fused_sweep_absolute_orientation_launch(
@@ -484,8 +495,6 @@ extern "C" int fused_sweep_absolute_orientation_launch(
       consts(delta, delta_sq, cross_eps), best_key, best_out, best_index, stream);
 }
 
-// The absolute_orientation kernel's launch shape at num_hyp hypotheses on
-// the current device, as lsq_sweep::kernel_shape gives it.
 extern "C" int fused_sweep_absolute_orientation_shape(int num_hyp, int* out) {
   return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<AbsoluteOrientation>,
                                  lsq_sweep::kSplitThreads, 32 * AbsoluteOrientation::kHypPerThread,
@@ -497,9 +506,14 @@ extern "C" int fused_sweep_ray3d_launch(
     int vote_cols, int n_fit, long long num_groups, int b, int m, unsigned mask, float delta,
     float delta_sq, float cross_eps, unsigned long long* best_key, float* best_out,
     long long* best_index, void* stream) {
-  return lsq_sweep::launch_sweep<Ray3D>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
+  return lsq_sweep::launch_split<Ray3D>(coords, coords_stride, p, p_stride, vote_cols, n_fit,
                                         num_groups, b, m, mask, consts(delta, delta_sq, cross_eps),
                                         best_key, best_out, best_index, stream);
+}
+
+extern "C" int fused_sweep_ray3d_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<Ray3D>, lsq_sweep::kSplitThreads,
+                                 32 * Ray3D::kHypPerThread, num_hyp, out);
 }
 
 extern "C" int fused_sweep_dense_linear6_launch(
@@ -512,8 +526,6 @@ extern "C" int fused_sweep_dense_linear6_launch(
       consts(delta, delta_sq, cross_eps), best_key, best_out, best_index, stream);
 }
 
-// The dense_linear6 kernel's launch shape at num_hyp hypotheses on the
-// current device, as lsq_sweep::kernel_shape gives it.
 extern "C" int fused_sweep_dense_linear6_shape(int num_hyp, int* out) {
   return lsq_sweep::kernel_shape(lsq_sweep::split_sweep_kernel<DenseLinear6>,
                                  lsq_sweep::kSplitThreads, 32 * DenseLinear6::kHypPerThread,

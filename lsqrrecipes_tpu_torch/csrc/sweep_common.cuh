@@ -3,11 +3,11 @@
 // A family F supplies its minimal fit and its per-cell vote; this header
 // supplies what every family does alike, as the TPU kernel
 // lsqrrecipes_tpu/ops/fused_sweep.py::_make_kernel does for every fit_vote
-// closure (dense_linear6 and absolute_orientation instantiate
-// split_sweep_kernel, the split-vote layout below; sphere3d, line3d,
-// crosswire and pointer use the shift hash, the finalize kernel and that
-// layout with kernels of their own; the other families instantiate
-// sweep_kernel):
+// closure (the four rigid families, pivot, absolute_orientation, ray3d and
+// dense_linear6, instantiate split_sweep_kernel, the split-vote layout
+// below; sphere3d, line3d, crosswire and pointer use the shift hash, the
+// finalize kernel and that layout with kernels of their own; plane3d and
+// line2d instantiate sweep_kernel):
 //   * the shift hash: hypothesis h = g * n_fit + lane takes, for slot j, the
 //     point at column shift_units(g, j) * 128 + lane of rows
 //     F::kDim * j .. F::kDim * j + kDim - 1 of the four-permutation
@@ -24,26 +24,22 @@
 //     "earliest group, then lowest lane"); a one-thread finalize kernel
 //     decodes it and refits the winner for its parameters.
 //
-// A family F provides:
+// A sweep_kernel family F provides:
 //   kSlots, kDim, kParams, kTileRows  — sample slots, features per sampled
 //                                       observation, parameters, staged rows;
-//   optionally kTileCols              — columns per shared-memory tile where
-//                                       kTileRows x kTile floats would pass
-//                                       the 48 KB static limit (else kTile);
 //   struct Fit { bool degenerate; ... };  struct Band { ... };
 //   static Fit fit(const float s[kSlots][kDim], const Consts&);
 //   static Band band(const Fit&, const Consts&);
 //   static void stage(const float* p, long long p_stride, int col,
-//                     float (*tile)[TileCols<F>::value], int i);
-//   static int vote(const Band&, float (*tile)[TileCols<F>::value], int i);
+//                     float (*tile)[kTile], int i);
+//   static int vote(const Band&, float (*tile)[kTile], int i);
 //   static void params(const Fit&, float* out);
+// (split_sweep_kernel's families: see there.)
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace lsq_sweep {
 
@@ -62,17 +58,6 @@ struct Consts {
   float delta_sq;
   float delta;
   float cross_eps;
-};
-
-// Columns of P per shared-memory tile for family F: F::kTileCols if the
-// family declares it, else kTile.
-template <class F, class = void>
-struct TileCols {
-  static constexpr int value = kTile;
-};
-template <class F>
-struct TileCols<F, std::void_t<decltype(F::kTileCols)>> {
-  static constexpr int value = F::kTileCols;
 };
 
 constexpr int kHypPerBlock = kThreads * kHypPerThread;
@@ -113,9 +98,8 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
              const float* __restrict__ p, long long p_stride, int vote_cols,
              unsigned n_fit, unsigned num_hyp, int b, int m, unsigned mask, Consts k,
              unsigned long long* __restrict__ best_key) {
-  constexpr int kCols = TileCols<F>::value;
   constexpr int kHyp = kHypPerThread;
-  __shared__ float tile[F::kTileRows][kCols];
+  __shared__ float tile[F::kTileRows][kTile];
   __shared__ unsigned long long warp_best[kThreads / 32];
 
   const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
@@ -136,8 +120,8 @@ sweep_kernel(const float* __restrict__ coords, long long coords_stride,
     }
   }
 
-  for (int t0 = 0; t0 < vote_cols; t0 += kCols) {
-    const int len = min(kCols, vote_cols - t0);
+  for (int t0 = 0; t0 < vote_cols; t0 += kTile) {
+    const int len = min(kTile, vote_cols - t0);
     __syncthreads();  // the previous tile is no longer read
     for (int i = threadIdx.x; i < len; i += kThreads) F::stage(p, p_stride, t0 + i, tile, i);
     __syncthreads();
@@ -192,8 +176,8 @@ __global__ void finalize_kernel(const float* __restrict__ coords, long long coor
 }
 
 // ---------------------------------------------------------------------------
-// The split-vote layout (split_sweep_kernel below; sphere3d, line3d,
-// crosswire and pointer with kernels of their own).  A block of
+// The split-vote layout (split_sweep_kernel below, the rigid families;
+// sphere3d, line3d, crosswire and pointer with kernels of their own).  A block of
 // kSplitThreads threads owns kSplitHypPerBlock consecutive hypotheses: lane l
 // of every warp holds the vote rows of hypotheses l + 32 q (q <
 // kSplitHypPerThread) in registers, and warp w votes on points w, w +
@@ -218,6 +202,18 @@ __device__ __forceinline__ void count_below(int& count, float x, float lim) {
       "@p add.s32 %0, %0, 1;\n\t}"
       : "+r"(count)
       : "f"(x), "f"(lim));
+}
+
+// count + 1 where t >= 0 and x < lim: the second compare ands the first's
+// predicate, then one predicated add.  Both compares are ordered, so a NaN
+// in either never counts.
+__device__ __forceinline__ void count_below_if(int& count, float x, float lim, float t) {
+  asm("{\n\t.reg .pred q, p;\n\t"
+      "setp.ge.f32 q, %3, 0f00000000;\n\t"
+      "setp.lt.and.f32 p, %1, %2, q;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(count)
+      : "f"(x), "f"(lim), "f"(t));
 }
 
 // The block's end: add the warps' partial counts of its hypotheses h_first +
@@ -267,11 +263,11 @@ __device__ __forceinline__ void split_publish(const int (&count)[kHyp], int* par
 // sweep_kernel's families), F provides:
 //   kVoteRows   — vote rows per hypothesis, held in registers;
 //   Point       — one staged point, a struct of float4s read as 16-byte
-//                 warp broadcasts (Float4x2 below);
+//                 warp broadcasts (Float4x2 or Float4x3 below);
 //   static void vote_rows(const Fit&, float r[kVoteRows]);
 //   static Point stage(const float* p, long long p_stride, int col);
 //   static void vote(int& count, const float (&r)[kVoteRows], const Point&,
-//                    const Consts&);   // count_below on the cell's value
+//                    const Consts&);   // count_below(_if) on the cell's value
 //   kHypPerThread — hypotheses per thread, 4 or 8: a block owns 32 x that
 //                 many, and at 8 every thread fits one.
 // The kernel asks for two resident blocks per SM (at most 128 registers a
@@ -279,10 +275,13 @@ __device__ __forceinline__ void split_publish(const int (&count)[kHyp], int* par
 // The first 32 kHypPerThread threads fit one hypothesis each and leave its
 // vote rows in shared memory; every thread then takes the rows of its
 // kHypPerThread (l + 32 q for lane l), and warp w votes on points w,
-// w + kSplitWarps, ... of 32 KB tiles.  The family's vote is all that runs
-// per cell, so ray3d or pivot take this kernel by supplying theirs.
+// w + kSplitWarps, ... of 32 KB tiles (1,024 points of two float4s, 682 of
+// three).  The family's vote is all that runs per cell.
 struct Float4x2 {
   float4 a, b;
+};
+struct Float4x3 {
+  float4 a, b, c;
 };
 
 constexpr int kSplitTileBytes = 32768;

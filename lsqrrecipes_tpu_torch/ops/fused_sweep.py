@@ -57,9 +57,9 @@ Degenerate lanes count 0 outright.  On CUDA tensors :func:`sweep` launches
 the family's hand-written kernel (``csrc/fused_sweep_sphere3d.cu``,
 ``csrc/fused_sweep_points.cu``, ``csrc/fused_sweep_rigid.cu``,
 ``csrc/fused_sweep_us.cu``); on CPU tensors it runs :func:`sweep_plain`,
-which repeats the kernels' fits and votes operation by operation (the
-sphere3d, line3d, dense_linear6, absolute_orientation, crosswire and pointer
-votes' FMAs through ``linalg.small.fma_f32``).
+which repeats the kernels' fits and votes operation by operation (every
+vote's FMAs through ``linalg.small.fma_f32``, but plane3d's and line2d's,
+whose plain votes are one matrix product).
 """
 
 import ctypes
@@ -104,7 +104,7 @@ _FAMILIES = {
 # (float64 ones in the families whose votes round FMAs through fma_f32).
 _PLAIN_CELLS = 1 << 25
 _PLAIN_CELLS_FMA = dict.fromkeys(("sphere3d", "line3d", "crosswire", "pointer", "dense_linear6",
-                                  "absolute_orientation"), 1 << 22)
+                                  "pivot", "absolute_orientation", "ray3d"), 1 << 22)
 
 # Hypotheses per fit-and-vote chunk of the ultrasound kernels, and the rows
 # of their workspace f32[rows, chunk] (crosswire's 54.5 MB at 2^20,
@@ -739,23 +739,21 @@ def _live(p_vote, row):
     return (p_vote[row] != 0)[:, None]
 
 
-def _component_vote(p_vote, e_rows, delta_sq, live_row):
-    """``#{live columns: e0^2 + e1^2 + e2^2 < delta^2}``."""
-    e0, e1, e2 = e_rows
-    dist2 = _sum3(e0 * e0, e1 * e1, e2 * e2)
-    return ((dist2 < scalar_like(delta_sq, dist2)) & _live(p_vote, live_row)).sum(dim=0)
-
-
 def _pivot_vote(p_vote, rows, delta):
-    """``|R t_D + t - t_W|^2 < delta^2`` from the residual components
-    ``e_j = (sum_k R[j,k] t_D[k] + t_j) - t_W[j]`` per cell (rows of P: t
-    0-2, vec(R) 6-14, ones 15)."""
+    """``|R t_D + t - t_W|^2 < delta^2`` per cell in the kernel's
+    arithmetic, each FMA rounded once as CUDA's ``__fmaf_rn`` (``fma_f32``):
+    ``e_j = fma(R_j2, td_2, fma(R_j1, td_1, fma(R_j0, td_0, t_j))) -
+    tw_j``, the subtraction last, and ``|e|^2`` as :func:`_fma_norm_vote`
+    (rows of P: t 0-2, vec(R) 6-14, ones 15)."""
     td, tw = rows[:3], rows[3:]
     col = [p_vote[r][:, None] for r in range(15)]
-    e = [_sum3(col[6 + 3 * j] * td[0], col[7 + 3 * j] * td[1], col[8 + 3 * j] * td[2])
-         + col[j] - tw[j] for j in range(3)]
-    d = float(delta)
-    return _component_vote(p_vote, e, d * d, 15)
+    e = []
+    for j in range(3):
+        acc = col[j]
+        for k in range(3):
+            acc = fma_f32(col[6 + 3 * j + k], td[k], acc)
+        e.append(acc - tw[j])
+    return _fma_norm_vote(p_vote, e, delta, 15)
 
 
 def _absor_vote(p_vote, rows, delta):
@@ -776,13 +774,18 @@ def _absor_vote(p_vote, rows, delta):
 
 def _ray3d_vote(p_vote, rows, delta):
     """``t = n.(x - p) >= 0`` and ``|x - p|^2 - t^2 (2 - |n|^2) < delta^2``
-    per cell (rows of P: p 0-2, n 3-5, ones 7, |n|^2 8)."""
+    per cell in the kernel's arithmetic, each FMA rounded once as CUDA's
+    ``__fmaf_rn`` (``fma_f32``): ``v = x - p``, ``t = fma(n_z, v_z, fma(n_y,
+    v_y, n_x v_x))``, ``|v|^2`` likewise, ``w = 2 - |n|^2`` and the test
+    ``fma(-(t t), w, |v|^2) < delta^2`` (rows of P: p 0-2, n 3-5, ones 7,
+    |n|^2 8)."""
     d = _split_delta(delta)[0]
     v = [rows[c] - p_vote[c][:, None] for c in range(3)]
     n = [p_vote[3 + c][:, None] for c in range(3)]
-    t = _dot3(n, v)
-    q = (t * t) * (2.0 - p_vote[8][:, None])
-    inside = (t >= 0) & (_dot3(v, v) - q < scalar_like(d * d, t))
+    t = fma_f32(n[2], v[2], fma_f32(n[1], v[1], n[0] * v[0]))
+    d2 = fma_f32(v[2], v[2], fma_f32(v[1], v[1], v[0] * v[0]))
+    e = fma_f32(-(t * t), (2.0 - p_vote[8])[:, None], d2)
+    inside = (t >= 0) & (e < scalar_like(d * d, t))
     return (inside & _live(p_vote, 7)).sum(dim=0)
 
 

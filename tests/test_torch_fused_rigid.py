@@ -336,3 +336,106 @@ def test_plain_absor_vote_rounds_each_fma_once_on_band_edge_points():
         want.append(count)
     np.testing.assert_array_equal(got.numpy(), np.array(want))
     assert near_edge >= 6 * len(want)          # the edge pairs really sit on the edge
+
+
+def test_plain_ray3d_vote_rounds_each_fma_once_on_band_edge_points():
+    # The ray3d kernel and its plain version count a cell where t >= 0 and
+    # fma(-(t t), w, |v|^2) < delta^2, v = x - p, t = fma(n_z, v_z, fma(n_y,
+    # v_y, n_x v_x)), |v|^2 likewise, w = 2 - |n|^2, in float32.  Held here
+    # against that chain with each FMA rounded once from its exact rational
+    # value, on rays passing at distance delta from each hypothesis (the band
+    # edge), on rays whose point lies a hair past the hypothesis along their
+    # direction (t just below 0, where the front gate decides) and on padding
+    # columns, which never count.
+    rng = np.random.default_rng(63)
+    f32 = np.float32
+    delta = 1.0
+    p = rng.uniform(-60, 60, (16, 2, 3))
+    d = np.array([20.0, -10.0, 35.0]) - p + 0.05 * rng.normal(size=p.shape)
+    n = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    samples = torch.as_tensor(np.concatenate([p, n], -1).astype(np.float32))
+    x, degenerate, _ = fs.ray3d_fit([[samples[:, j, c] for c in range(6)] for j in range(2)],
+                                    _delta("ray3d"))
+    hyp = torch.stack([r[~degenerate][:8] for r in x], 1).numpy()
+    assert hyp.shape == (8, 3)
+    points, dirs = [], []
+    for xh in hyp.astype(np.float64):
+        for i in range(8):
+            u = rng.normal(size=3)
+            u /= np.linalg.norm(u)
+            perp = rng.normal(size=3)
+            perp -= (perp @ u) * u
+            perp /= np.linalg.norm(perp)
+            if i < 6:                                   # distance delta, x in front
+                points.append(xh - rng.uniform(2, 20) * u + delta * perp)
+            else:                                       # x a hair behind the point
+                points.append(xh + rng.uniform(0, 4e-6) * u + 0.3 * delta * perp)
+            dirs.append(u)
+    p = fs._ray_p(Ray3D(torch.as_tensor(np.array(points, np.float32)),
+                        torch.as_tensor(np.array(dirs, np.float32))))
+    assert p.shape == (10, 128)                               # 64 rays, 64 padding columns
+    got = fs._ray3d_vote(p, [torch.as_tensor(hyp[:, c]) for c in range(3)], delta)
+
+    limit = f32(delta * delta)
+    want, near_edge, gated = [], 0, 0
+    for xh in hyp:
+        count = 0
+        for col in p.numpy().T:
+            v = [xh[c] - col[c] for c in range(3)]              # f32 subtract
+            t = _fma(col[5], v[2], _fma(col[4], v[1], col[3] * v[0]))
+            d2 = _fma(v[2], v[2], _fma(v[1], v[1], v[0] * v[0]))
+            e = _fma(-(t * t), f32(2.0) - col[8], d2)
+            count += bool(t >= 0 and e < limit) and col[7] != 0
+            near_edge += bool(col[7] != 0 and t > 1 and abs(float(e) - float(limit)) <= 1e-3)
+            gated += bool(col[7] != 0 and t < 0 and e < limit)
+        want.append(count)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge rays really sit on the edge
+    assert gated >= len(want)                  # and the front gate refuses some in the band
+
+
+def test_plain_pivot_vote_rounds_each_fma_once_on_band_edge_points():
+    # The pivot kernel and its plain version count a cell where fma(e_2, e_2,
+    # fma(e_1, e_1, e_0 e_0)) < delta^2, e_j = fma(R_j2, td_2, fma(R_j1, td_1,
+    # fma(R_j0, td_0, t_j))) - tw_j in float32.  Held here against that chain
+    # with each FMA rounded once from its exact rational value, on frames
+    # whose R t_D + t - t_W has norm delta for each hypothesis (the band edge)
+    # and on padding columns, which never count.
+    rng = np.random.default_rng(64)
+    f32 = np.float32
+    delta = 1.0
+    r = _rotations(rng, 48).reshape(16, 3, 3, 3)
+    t = (np.array([100.0, 50.0, -30.0]) - r @ np.array([10.0, -5.0, 2.0])
+         + 0.05 * rng.normal(size=(16, 3, 3)))
+    samples = fs._pivot_features(Frame(torch.as_tensor(r.reshape(48, 3, 3)),
+                                       torch.as_tensor(t.reshape(48, 3))))
+    samples = samples.to(torch.float32).reshape(16, 3, 15)
+    rows, degenerate, _ = fs.pivot_fit([[samples[:, j, c] for c in range(15)] for j in range(3)],
+                                       delta)
+    hyp = torch.stack([x[~degenerate][:8] for x in rows], 1).numpy()
+    assert hyp.shape == (8, 6)
+    frames_r, frames_t = [], []
+    for h in hyp.astype(np.float64):
+        for rot in _rotations(rng, 6):
+            e = rng.normal(size=3)
+            frames_r.append(rot)
+            frames_t.append(h[3:6] - rot @ h[0:3] + delta * e / np.linalg.norm(e))
+    p = fs._pivot_p(Frame(torch.as_tensor(np.array(frames_r, np.float32)),
+                          torch.as_tensor(np.array(frames_t, np.float32))))
+    assert p.shape == (17, 128)                               # 48 frames, 80 padding columns
+    got = fs._pivot_vote(p, [torch.as_tensor(hyp[:, i]) for i in range(6)], delta)
+
+    limit = f32(delta * delta)
+    want, near_edge = [], 0
+    for h in hyp:
+        count = 0
+        for col in p.numpy().T:
+            e = [_fma(col[8 + 3 * j], h[2], _fma(col[7 + 3 * j], h[1], _fma(col[6 + 3 * j], h[0],
+                                                                           col[j])))
+                 - h[3 + j] for j in range(3)]                  # f32 subtract
+            d2 = _fma(e[2], e[2], _fma(e[1], e[1], e[0] * e[0]))
+            count += bool(d2 < limit) and col[15] != 0
+            near_edge += bool(col[15] != 0 and abs(float(d2) - float(limit)) <= 1e-3)
+        want.append(count)
+    np.testing.assert_array_equal(got.numpy(), np.array(want))
+    assert near_edge >= 6 * len(want)          # the edge frames really sit on the edge

@@ -168,6 +168,8 @@ _REDESIGNED = {
     "fused_sweep_pointer": (_SPLIT_LAYOUT, True),
     "fused_sweep_dense_linear6": ("split_sweep_kernel<DenseLinear6>", True),
     "fused_sweep_absolute_orientation": ("split_sweep_kernel<AbsoluteOrientation>", True),
+    "fused_sweep_pivot": ("split_sweep_kernel<Pivot>", True),
+    "fused_sweep_ray3d": ("split_sweep_kernel<Ray3D>", True),
 }
 
 
@@ -458,7 +460,6 @@ def test_estimator_vote_counts_launch_the_kernel_at_any_b_on_card(cuda_device, b
 
 
 RIGID_SIZES = {"pivot": (512, 480)}   # (n, a size that is not 128 * 2^k)
-SPLIT_RIGID = ("absolute_orientation", "dense_linear6")   # split_sweep_kernel families
 RAY_DELTA = (1.0, float(np.sin(0.05) ** 2))
 
 
@@ -516,12 +517,9 @@ def test_rigid_sweep_kernels_match_plain_on_card(cuda_device, family, case, gps,
     pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, cols, delta)
     assert kernel.launches == before + 1
     assert int(kc) > 0
-    assert abs(int(kc) - int(pc)) <= 1
     assert kp.shape == (fs._FAMILIES[family][2],)
-    if int(ki) == int(pi):
-        assert torch.equal(kp, pp)
-    if family in SPLIT_RIGID:                  # FMA votes rounded alike: the same winner
-        assert int(kc) == int(pc) and int(ki) == int(pi)
+    # FMA votes rounded alike: the same winner, bit for bit.
+    assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
 
 
 @pytest.mark.cuda
@@ -559,18 +557,21 @@ def test_rigid_kernel_pad_columns_never_vote_on_card(cuda_device, family):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("family", SPLIT_RIGID)
-@pytest.mark.parametrize("groups,vote_cols", [(63, 1), (5, 300), (3, 1000), (2, 2100)])
+@pytest.mark.parametrize("family", kernels.RIGID_FAMILIES)
+@pytest.mark.parametrize("groups,vote_cols", [(63, 1), (5, 300), (3, 1000), (3, 1365),
+                                              (2, 2100)])
 def test_split_rigid_kernels_ragged_shapes_equal_plain_on_card(cuda_device, family, groups,
                                                               vote_cols):
-    # vote_cols 1, 300, 1,000 and past two 1,024-point tiles: slot planes of
-    # the first 1,024 observations, votes on up to 2,100.
+    # vote_cols 1, 300, 1,000, 1,365 (two 682-point tiles of three float4s
+    # and one point more) and past two 1,024-point tiles: slot planes of the
+    # first 1,024 observations, votes on up to 2,100.
     data = _rigid_data(family, 70 + groups, 2100, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(groups)
     coords, _, nf, _ = fs.sweep_inputs(family, tree_map(lambda x: x[:1024], data), gen)
     p = fs.pack_p(family, data)
-    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, groups, vote_cols, 1.0)
-    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, vote_cols, 1.0)
+    delta = RAY_DELTA if family == "ray3d" else 1.0
+    kc, kp, ki = fs.sweep_cuda(family, coords, p, nf, groups, vote_cols, delta)
+    pc, pp, pi = fs.sweep_plain(family, coords, p, nf, groups, vote_cols, delta)
     assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
 
 
@@ -952,6 +953,7 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
                                             ("FUSED_SWEEP_SPHERE3D", 1 << 22),
                                             ("dense_linear6", 1 << 21),
                                             ("absolute_orientation", 1 << 20),
+                                            ("pivot", 1 << 20), ("ray3d", 1 << 20),
                                             ("crosswire", 1 << 20), ("crosswire fit", 1 << 20),
                                             ("pointer", 1 << 20), ("pointer fit", 1 << 20)])
 def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kernel, num_hyp):
