@@ -82,7 +82,8 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
  18. kernel ``sphere_lm`` through ``sphere_lm_batch`` at the bench's LM
      shape (4,096 problems x 256 points, 30 iterations, gtol 1e-6) against
      its plain version and the float64 LM, with the iterations and the LM
-     iterations/s;
+     iterations/s, the kernel's time, its slowest problem's iterations and
+     its launch shape;
  19. kernel ``sphere_mega`` through ``fast_sphere_ransac_sweep`` at the
      bench's scan shape (n = 1,024, 128 groups, 100 steps: 13.1M
      hypotheses) on phase 5's cloud, the ground truth recovered by the
@@ -99,7 +100,7 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      ``sphere_fit_and_vote_planar`` at B = 131,072 (128 groups x n =
      1,024) against its plain version and ``minimal_fit`` + ``vote_counts``,
      and so on the cloud 1e4 from the origin, its best within 1 of the f64
-     maximum;
+     maximum, with the kernel's time and launch shape;
  21. the drivers that add no kernel: ``ransac_fused_sweep`` with the
      GEOMETRIC (Levenberg-Marquardt) refit at n = 1,024 and 2^22 hypotheses,
      the ground truth, the refit's iterations and time; ``ransac_batched``
@@ -295,15 +296,20 @@ MEGA_SMALL = (256, 4)            # n, groups of the estimator check
 FLEET_D, FLEET_N, FLEET_GROUPS = 4, 512, 4
 GENERIC_GROUPS = 8
 SPHERE_PHASES_BUDGET_S = 60.0    # phases 18-21 together
-# f32 operations counted from the kernels: sphere_lm 38 per observation in
-# the pass that forms the 13 sums and 12 in the trial cost, 12 in the start
-# cost; sphere_mega 4 multiply-adds (2 each) + abs + compare + count per cell
-# and the fit and band rows (SWEEP_OPS_PER_HYP) per hypothesis;
-# sphere_planar_vote 3 multiplies + 6 adds + 2 compares + and + count per
-# cell, ~111 per fit.
-LM_OPS_PER_OBS_ITER, LM_OPS_PER_OBS_START = 50, 12
+# f32 operations counted from the kernels: sphere_lm 40 per observation and
+# evaluation, once at the start and once per iteration (the one pass that
+# forms the cost and the 13 sums: 3 subtractions, s as 3 multiplies and 2
+# adds, sqrt, the reciprocal, d - r, s rd - r as 2, (d - r)^2 added as 2,
+# u as 3, the 12 products and sums of S_uu and S_uf, the 4 sums of u and f;
+# the two-pass kernel took 38 per observation and iteration for the sums
+# and 12 for the trial cost, 50, and 12 at the start); sphere_mega 4
+# multiply-adds (2 each) + abs + compare + count per cell and the fit and
+# band rows (SWEEP_OPS_PER_HYP) per hypothesis; sphere_planar_vote 3
+# multiply-adds (2 each) + 2 compares + count per cell (the unfused vote: 3
+# multiplies + 6 adds + 2 compares + and + count, 13), ~111 per fit.
+LM_OPS_PER_OBS_EVAL = 40
 MEGA_OPS_PER_CELL = 11
-PLANAR_OPS = (13, 111)
+PLANAR_OPS = (9, 111)
 # Phase 22, the plane phantom (k = 31) at the JAX bench's shape
 # (bench.py:457-484): n = 64, 10% of the poses shoved 20-60 along the plane
 # normal, delta 1.0, 1,024 groups (65,536 hypotheses); the f64 gate of the
@@ -1590,13 +1596,15 @@ def main(argv=None):
     lm_plain_ms = timer.ms(lambda: sphere_lm.sphere_lm_batch_plain(lm_pts, lm_x0, LM_ITERS,
                                                                    gtol=LM_GTOL),
                            reps=2, warmup=1)
-    lm_bound, lm_by = bound(
-        LM_M * (LM_OPS_PER_OBS_ITER * int(lm_it.sum()) + LM_OPS_PER_OBS_START * LM_B),
-        (lm_pts.numel() + lm_x0.numel() + 8 * LM_B) * 4, rates)
+    lm_bound, lm_by = bound(LM_M * LM_OPS_PER_OBS_EVAL * (int(lm_it.sum()) + LM_B),
+                            (lm_pts.numel() + lm_x0.numel() + 8 * LM_B) * 4, rates)
     print(f"    wall {lm_wall:.3f} ms median of {WALL_REPS}, "
           f"{LM_B * LM_ITERS / lm_wall * 1e3:.4g} LM iterations/s (B x max_iters / wall); "
           f"kernel ms {lm_ms:.4f}, plain {lm_plain_ms:.4f}, bound {lm_bound:.4f} ({lm_by}) "
           f"[{smi}]")
+    slowest = int(lm_it.max())
+    print(f"    slowest problem {slowest} iterations ({lm_ms / (slowest + 1) * 1e3:.2f} us per "
+          f"evaluation of it); {launch_shape(kernels.SPHERE_LM, LM_B)}")
 
     # 19. sphere_mega through the per-step sweep -------------------------------
     geo_est = SphereEstimator(DELTA)        # GEOMETRIC, the default
@@ -1764,7 +1772,8 @@ def main(argv=None):
     planar_bound, planar_by = bound(hyp20 * (N_MAIN * PLANAR_OPS[0] + PLANAR_OPS[1]),
                                     (sxyz20.numel() + 4 * pt19.shape[1] + 9 * hyp20) * 4, rates)
     print(f"    kernel ms: sphere_planar_vote {planar_ms:.4f}, plain {planar_plain_ms:.4f}, "
-          f"bound {planar_bound:.4f} ({planar_by}) [{smi}]")
+          f"bound {planar_bound:.4f} ({planar_by}) [{smi}]; "
+          f"{launch_shape(kernels.SPHERE_PLANAR_VOTE, hyp20)}")
 
     # 21. drivers without a new kernel -----------------------------------------
     kernels.reset_launch_counts()

@@ -73,7 +73,7 @@
 // points per 32 KB tile) at k = 8 (104 registers, 2 blocks per SM), every
 // thread fitting one of the 480-point sweep's hypotheses, ~17.7 against
 // ~29.5 + 12 scalar shared loads per point.  At k = 4 both ran 3% slower
-// on an H100 80GB HBM3 at 700 W (scripts/time_rigid_layouts.py).
+// on an H100 80GB HBM3 at 700 W (scripts/time_layouts.py).
 // On an H100 80GB HBM3 at 700 W (chip_smoke.py) sweep_kernel took 1.3149 ms
 // for dense_linear6, 1.1800 ms for absolute_orientation, 0.9053 ms for
 // ray3d and 0.5914 ms for pivot.

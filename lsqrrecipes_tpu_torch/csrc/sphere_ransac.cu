@@ -20,10 +20,13 @@
 // the planar fit-and-vote on given samples:
 //   * hypothesis h takes slot j, coordinate c from row 4c + j of sxyz[12, B];
 //   * the same circumsphere;
-//   * its own predicate, two K = 4 bounds closed at the lower edge:
-//     s = -2c'x x' - 2c'y y' - 2c'z z', e_hi = s + (|c'|^2 - hi + 1e30
-//     degenerate), e_lo = s + (|c'|^2 - lo); agree iff e_hi + |p'|^2 < 0 and
-//     e_lo + |p'|^2 >= 0, hi = (r + delta)^2, lo = max(r - delta, 0)^2.
+//   * its own predicate, two bounds on one value closed at the lower edge:
+//     t = fma(-2c'z, z', fma(-2c'y, y', fma(-2c'x, x', |p'|^2))), agree iff
+//     t < -((|c'|^2 - hi) + 1e30 degenerate) and t >= -(|c'|^2 - lo),
+//     hi = (r + delta)^2, lo = max(r - delta, 0)^2.  For finite values
+//     fl(t + a) < 0 iff t < -a and fl(t + a) >= 0 iff t >= -a, so against the
+//     TPU kernel's (s + a) + |p'|^2 with s = -2c'.p' unfused only the three
+//     FMAs round otherwise.
 //
 // Both expand |p - c|^2 about o = points_t's column 0 (sphere_fit.cuh's
 // vote_origin), p' = p - o and c' = c - o, where the TPU kernels expand it
@@ -35,9 +38,9 @@
 // no predicate holds there: the plain versions' "agree and valid".
 //
 // What bounds them on an H100: arithmetic.  A cell is four FMAs, an abs, a
-// compare and an add (B7; 3 multiplies + 6 adds + 2 compares + and + add for
-// B8), a fit ~115 operations; one step at 131,072 hypotheses x 1,024 columns
-// is ~1.5e9 operations against ~6 MB of input and output.  So:
+// compare and an add (B7; three FMAs, two compares and an add for B8), a fit
+// ~115 operations; one step at 131,072 hypotheses x 1,024 columns is ~1.5e9
+// operations against ~6 MB of input and output.  So:
 //   * the point columns are staged in 1,024-column shared-memory tiles as
 //     float4 (x, y, z, |p|^2) and read as warp-wide broadcasts;
 //   * B7 keeps the band of four hypotheses per thread in registers, so one
@@ -50,15 +53,21 @@
 //     back-to-back launches), against 0.065-0.066 ms with separate
 //     multiplies and adds and two hypotheses per thread, and 0.053-0.056 ms
 //     in 256 blocks of 128 threads;
-//   * B8 keeps two hypotheses per thread (256 threads) and separate
-//     multiplies and adds (__f*_rn), which costs the FMA rate but keeps its
-//     counts equal to its plain version's.
+//   * B8 takes the split-vote layout of B2 and the rigid sweeps
+//     (sweep_common.cuh): a block owns 32 x 8 hypotheses, 8 per thread (4
+//     was measured slower), every thread fits one and leaves its vote rows
+//     in shared memory, every thread keeps the rows of its hypotheses
+//     l + 32 k in registers, the 8 warps split the columns, and split_total
+//     adds the warps' exact partial counts.  A cell is 3 FFMA, 2 FSETP and
+//     one predicated add (count_in); its plain version rounds each FMA as
+//     the card does, so the counts stay equal.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "sphere_fit.cuh"
+#include "sweep_common.cuh"
 
 namespace {
 
@@ -69,9 +78,16 @@ using lsq_sphere::Hypothesis;
 using lsq_sphere::nan_max;
 
 constexpr int kThreads = 256;  // both kernels
-// B8: two hypotheses per thread.
-constexpr int kHypPerThread = 2;
-constexpr int kHypPerBlock = kThreads * kHypPerThread;
+constexpr int kWarps = kThreads / 32;
+// B8: hypotheses per thread; the vote rows a hypothesis keeps, -2c' (3),
+// -(|c'|^2 - hi + 1e30 degenerate) and -(|c'|^2 - lo); the resident blocks
+// per SM it asks for.  4 blocks (one wave at 131,072 hypotheses) cap it at
+// 64 registers and spill 40 bytes, and were measured slower than 3 at 80
+// registers (PERF.md, scripts/time_layouts.py).
+constexpr int kPlanarHypPerThread = 8;
+constexpr int kPlanarHypPerBlock = 32 * kPlanarHypPerThread;
+constexpr int kPlanarRows = 5;
+constexpr int kPlanarMinBlocks = 3;
 // B7: four hypotheses per thread.
 constexpr int kMegaHypPerThread = 4;
 constexpr int kMegaHypPerBlock = kThreads * kMegaHypPerThread;
@@ -155,23 +171,22 @@ sphere_mega_kernel(const int* __restrict__ shifts, const float* __restrict__ coo
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kPlanarMinBlocks)
 sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restrict__ points_t,
                           const float* __restrict__ valid, unsigned num_hyp, int n_pad,
                           float delta, int* __restrict__ counts,
                           float* __restrict__ params_t) {
+  constexpr int kHyp = kPlanarHypPerThread, kBlockHyp = kPlanarHypPerBlock;
+  static_assert(kWarps * kBlockHyp * sizeof(int) <= kTile * sizeof(float4),
+                "the partial counts reuse the tile");
   __shared__ float4 tile[kTile];
-  const unsigned base = blockIdx.x * kHypPerBlock + threadIdx.x;
+  __shared__ float rows[kPlanarRows][kBlockHyp];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned h_first = blockIdx.x * kBlockHyp;
   const float3 o = lsq_sphere::vote_origin(points_t, n_pad, n_pad);
-  // Per hypothesis: -2c' (3), |c'|^2 - hi + 1e30 degenerate, |c'|^2 - lo.
-  float a[kHypPerThread][5];
-  int count[kHypPerThread];
-#pragma unroll
-  for (int k = 0; k < kHypPerThread; ++k) {
-    const unsigned h = base + k * kThreads;
-    count[k] = 0;
-#pragma unroll
-    for (int q = 0; q < 5; ++q) a[k][q] = 0.f;
+  if (threadIdx.x < kBlockHyp) {
+    const unsigned h = h_first + threadIdx.x;
+    float v[kPlanarRows] = {};  // a slot past the last hypothesis votes on zeros, unstored
     if (h < num_hyp) {
       float p[4][3];
 #pragma unroll
@@ -188,13 +203,27 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
       const float hi = __fmul_rn(rp, rp);
       const float lo_root = nan_max(__fsub_rn(s.r, delta), 0.f);
       const float lo = __fmul_rn(lo_root, lo_root);
-      a[k][0] = __fmul_rn(-2.f, c.x);
-      a[k][1] = __fmul_rn(-2.f, c.y);
-      a[k][2] = __fmul_rn(-2.f, c.z);
-      a[k][3] = __fadd_rn(__fsub_rn(cc, hi), s.degenerate ? 1e30f : 0.f);
-      a[k][4] = __fsub_rn(cc, lo);
+      v[0] = __fmul_rn(-2.f, c.x);
+      v[1] = __fmul_rn(-2.f, c.y);
+      v[2] = __fmul_rn(-2.f, c.z);
+      // -((|c'|^2 - hi) + 1e30 deg) and -(|c'|^2 - lo), each difference
+      // taken the other way round: round to nearest is symmetric, so these
+      // are the negations bit for bit.
+      v[3] = __fsub_rn(__fsub_rn(hi, cc), s.degenerate ? 1e30f : 0.f);
+      v[4] = __fsub_rn(lo, cc);
       write_params(s, h, num_hyp, params_t);
     }
+#pragma unroll
+    for (int i = 0; i < kPlanarRows; ++i) rows[i][threadIdx.x] = v[i];
+  }
+  __syncthreads();
+  float a[kHyp][kPlanarRows];
+  int count[kHyp];
+#pragma unroll
+  for (int k = 0; k < kHyp; ++k) {
+#pragma unroll
+    for (int i = 0; i < kPlanarRows; ++i) a[k][i] = rows[i][32 * k + lane];
+    count[k] = 0;
   }
 
   for (int t0 = 0; t0 < n_pad; t0 += kTile) {
@@ -203,23 +232,19 @@ sphere_planar_vote_kernel(const float* __restrict__ sxyz, const float* __restric
     stage_tile(points_t, valid, n_pad, o, t0, len, tile);
     __syncthreads();
 #pragma unroll 4
-    for (int i = 0; i < len; ++i) {
+    for (int i = warp; i < len; i += kWarps) {
       const float4 q = tile[i];
 #pragma unroll
-      for (int k = 0; k < kHypPerThread; ++k) {
-        float s = __fadd_rn(__fmul_rn(a[k][0], q.x), __fmul_rn(a[k][1], q.y));
-        s = __fadd_rn(s, __fmul_rn(a[k][2], q.z));
-        const float e_hi = __fadd_rn(__fadd_rn(s, a[k][3]), q.w);
-        const float e_lo = __fadd_rn(__fadd_rn(s, a[k][4]), q.w);
-        count[k] += (e_hi < 0.f) & (e_lo >= 0.f);
+      for (int k = 0; k < kHyp; ++k) {
+        const float t = __fmaf_rn(a[k][2], q.z, __fmaf_rn(a[k][1], q.y,
+                        __fmaf_rn(a[k][0], q.x, q.w)));
+        lsq_sweep::count_in(count[k], t, a[k][4], a[k][3]);
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < kHypPerThread; ++k) {
-    const unsigned h = base + k * kThreads;
-    if (h < num_hyp) counts[h] = count[k];
-  }
+  const int total = lsq_sweep::split_total(count, reinterpret_cast<int*>(tile));
+  const unsigned h = h_first + threadIdx.x;
+  if (threadIdx.x < kBlockHyp && h < num_hyp) counts[h] = total;
 }
 
 unsigned blocks_for(unsigned long long num_hyp, int per_block) {
@@ -281,8 +306,15 @@ extern "C" int sphere_planar_vote_launch(const float* sxyz, const float* points_
                                          float delta, int* counts, float* params_t,
                                          void* stream) {
   if (num_hyp <= 0 || n_pad <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  sphere_planar_vote_kernel<<<blocks_for(num_hyp, kHypPerBlock), kThreads, 0,
+  sphere_planar_vote_kernel<<<blocks_for(num_hyp, kPlanarHypPerBlock), kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       sxyz, points_t, valid, static_cast<unsigned>(num_hyp), n_pad, delta, counts, params_t);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The planar fit-and-vote's launch shape at num_hyp hypotheses
+// (lsq_sweep::kernel_shape).
+extern "C" int sphere_planar_vote_shape(int num_hyp, int* out) {
+  return lsq_sweep::kernel_shape(sphere_planar_vote_kernel, kThreads, kPlanarHypPerBlock,
+                                 num_hyp, out);
 }

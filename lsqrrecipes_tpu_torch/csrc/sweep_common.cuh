@@ -204,6 +204,18 @@ __device__ __forceinline__ void count_below(int& count, float x, float lim) {
       : "f"(x), "f"(lim));
 }
 
+// count + 1 where lo <= x < hi, the lower-closed twin of count_below: two
+// compares and-ed into one predicated add.  Both are ordered, so a NaN never
+// counts.
+__device__ __forceinline__ void count_in(int& count, float x, float lo, float hi) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.ge.f32 p, %1, %2;\n\t"
+      "setp.lt.and.f32 p, %1, %3, p;\n\t"
+      "@p add.s32 %0, %0, 1;\n\t}"
+      : "+r"(count)
+      : "f"(x), "f"(lo), "f"(hi));
+}
+
 // count + 1 where t >= 0 and x < lim: the second compare ands the first's
 // predicate, then one predicated add.  Both compares are ordered, so a NaN
 // in either never counts.
@@ -256,6 +268,30 @@ __device__ __forceinline__ void split_publish(const int (&count)[kHyp], int* par
   if (lane == 0 && key > *reinterpret_cast<volatile unsigned long long*>(best_key)) {
     atomicMax(best_key, key);
   }
+}
+
+// split_publish's first half for a kernel that writes every hypothesis's
+// count (the planar fit-and-vote): the warps' partial counts stored in
+// `partial` as there, and thread t < 32 kHyp gets the total of the block's
+// hypothesis t, an integer sum, exact in any order (0 in the other
+// threads).  split_publish keeps its own copy, with the reads inside its
+// n_valid guard: calling this one added 8-16 instructions to each sweep it
+// ends.  Every thread of the block calls it.
+template <int kHyp>
+__device__ __forceinline__ int split_total(const int (&count)[kHyp], int* partial) {
+  constexpr int kBlockHyp = 32 * kHyp;
+  static_assert(kBlockHyp <= kSplitThreads, "one thread per hypothesis adds the partials");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // the caller's tile is no longer read
+#pragma unroll
+  for (int q = 0; q < kHyp; ++q) partial[warp * kBlockHyp + 32 * q + lane] = count[q];
+  __syncthreads();
+  int total = 0;
+  if (threadIdx.x < kBlockHyp) {
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) total += partial[w * kBlockHyp + threadIdx.x];
+  }
+  return total;
 }
 
 // split_sweep_kernel: the split-vote sweep of a family that supplies its

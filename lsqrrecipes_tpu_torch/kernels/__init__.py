@@ -141,9 +141,10 @@ class Kernel:
         """The launch shape at ``num_hyp`` hypotheses on the current device,
         from the source's ``<name>_<query>`` query (the redesigned kernels
         have ``<name>_shape``; the ultrasound sweeps' fit kernels
-        ``<name>_fit_shape``): registers and spill bytes per thread, threads
-        and hypotheses per block, blocks, resident blocks per SM, and waves =
-        blocks / (blocks per SM x SMs)."""
+        ``<name>_fit_shape``; B5's "hypotheses" are its problems):
+        registers and spill bytes per thread, threads and hypotheses per
+        block, blocks, resident blocks per SM, and waves = blocks / (blocks
+        per SM x SMs)."""
         self.load()
         query = getattr(self._lib, self.symbol.replace("_launch", f"_{query}"))
         query.argtypes = [ctypes.c_int, _P]
@@ -247,7 +248,7 @@ FUSED_SWEEPS = {
 
 SPHERE_LM = Kernel(
     "sphere_lm", "sphere_lm.cu", "sphere_lm_launch",
-    # rows, x0, num_problems, m, max_iters, init_lambda, max_lambda, gtol,
+    # points, x0, num_problems, m, max_iters, init_lambda, max_lambda, gtol,
     # out, stream
     [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
      ctypes.c_float, _P, _P],

@@ -22,7 +22,8 @@ iteration count stops.  These are the TPU kernel's rules, not
 floor on the Marquardt diagonal.
 
 On CUDA tensors :func:`sphere_lm_batch` launches the hand-written kernel
-(``csrc/sphere_lm.cu``, one warp per problem); on CPU tensors it runs
+(``csrc/sphere_lm.cu``, a group of lanes per problem, one evaluation per
+iteration); on CPU tensors it runs
 :func:`sphere_lm_batch_plain`, the same formulas in plain PyTorch.
 :func:`sphere_lm_batch_f64` is the float64 oracle: the general LM
 (:func:`~lsqrrecipes_tpu_torch.linalg.lm.lm_core`) batched over the
@@ -62,19 +63,40 @@ def pack_lm_problems(points, x0):
     return planar, x0.to(torch.float32).T
 
 
-def _cost(px, py, pz, cx, cy, cz, r):
-    """``0.5 sum_i (||p_i - c|| - r)^2`` per column of the ``[m, B]`` planes."""
+def _evaluate(px, py, pz, cx, cy, cz, r):
+    """``(cost[B], sums)`` at ``(cx, cy, cz, r)`` over the ``[m, B]`` planes:
+    ``0.5 sum_i (||p_i - c|| - r)^2`` and the 13 sums ``[S_xx, S_xy, S_xz,
+    S_yy, S_yz, S_zz, s_x, s_y, s_z, S_fx, S_fy, S_fz, s_f]`` with ``u_i =
+    (p_i - c) / sqrt(max(s_i, 1e-24))`` and ``f_i = s_i / sqrt(max(s_i,
+    1e-24)) - r`` (the kernel takes that value with one square root)."""
     dx, dy, dz = px - cx, py - cy, pz - cz
-    f = torch.sqrt(dx * dx + dy * dy + dz * dz) - r
-    return 0.5 * torch.sum(f * f, dim=0)
+    s = dx * dx + dy * dy + dz * dz
+    rd = rsqrt(torch.clamp_min(s, scalar_like(1e-24, s)))
+    fc = torch.sqrt(s) - r
+    f = s * rd - r
+    ux, uy, uz = dx * rd, dy * rd, dz * rd
+
+    def rsum(v):
+        return torch.sum(v, dim=0)
+
+    sums = [rsum(ux * ux), rsum(ux * uy), rsum(ux * uz), rsum(uy * uy), rsum(uy * uz),
+            rsum(uz * uz), rsum(ux), rsum(uy), rsum(uz), rsum(ux * f), rsum(uy * f),
+            rsum(uz * f), rsum(f)]
+    return 0.5 * rsum(fc * fc), sums
 
 
 def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda=1e12,
                           gtol=1e-6):
     """Plain PyTorch version of the kernel, formula for formula: ``points[B,
     m, 3], x0[B, 4] -> (x[B, 4], cost[B], iterations int32[B], converged
-    bool[B])`` in float32.  The sums are ``torch.sum`` over the observations,
-    so they add in another order than the kernel's warp sums."""
+    bool[B])`` in float32.  One evaluation per iteration, at the trial
+    point, gives its cost and its 13 sums; an accepted step carries them
+    into the next iteration (the new x is the trial point bit for bit), a
+    rejected one keeps the previous sums, NaN where ``x + 0 s`` made the
+    centre NaN (all 13) or only ``r`` (the four ``f`` sums), as sums
+    recomputed at that x would be.  The sums are ``torch.sum`` over the
+    observations, so they add in another order than the kernel's group
+    sums."""
     _check_lm_args(points, x0)
     m = points.shape[1]
     planar, x0_t = pack_lm_problems(points, x0)
@@ -85,7 +107,8 @@ def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda
         return scalar_like(value, cx)
 
     tiny, one, two, half = c(_EPS_TINY), c(1.0), c(2.0), c(0.5)
-    cost = _cost(px, py, pz, cx, cy, cz, r)
+    nan = c(float("nan"))
+    cost, sums = _evaluate(px, py, pz, cx, cy, cz, r)
     lam = torch.full_like(cx, init_lambda)
     nu = torch.full_like(cx, 2.0)
     conv = torch.zeros_like(cx)
@@ -93,21 +116,8 @@ def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda
     mm = torch.full_like(cx, float(m))
     for _ in range(int(max_iters)):
         active = one - conv
-        dx, dy, dz = px - cx, py - cy, pz - cz
-        s = dx * dx + dy * dy + dz * dz
-        rd = rsqrt(torch.clamp_min(s, c(1e-24)))
-        d = s * rd
-        ux, uy, uz = dx * rd, dy * rd, dz * rd
-        f = d - r
-
-        def rsum(v):
-            return torch.sum(v, dim=0)
-
-        sxx, sxy, sxz = rsum(ux * ux), rsum(ux * uy), rsum(ux * uz)
-        syy, syz, szz = rsum(uy * uy), rsum(uy * uz), rsum(uz * uz)
-        sx, sy, sz = rsum(ux), rsum(uy), rsum(uz)
-        gx, gy, gz = -rsum(ux * f), -rsum(uy * f), -rsum(uz * f)
-        gr = -rsum(f)
+        sxx, sxy, sxz, syy, syz, szz, sx, sy, sz = sums[:9]
+        gx, gy, gz, gr = (-v for v in sums[9:])
         gnorm = torch.maximum(torch.maximum(gx.abs(), gy.abs()),
                               torch.maximum(gz.abs(), gr.abs()))
 
@@ -131,7 +141,7 @@ def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda
         s1 = (y1 - l21 * s2 - l31 * s3) / l11
         s0 = (y0 - l10 * s1 - l20 * s2 - l30 * s3) / l00
 
-        cost_new = _cost(px, py, pz, cx + s0, cy + s1, cz + s2, r + s3)
+        cost_new, sums_new = _evaluate(px, py, pz, cx + s0, cy + s1, cz + s2, r + s3)
         jtj_s0 = sxx * s0 + sxy * s1 + sxz * s2 + sx * s3
         jtj_s1 = sxy * s0 + syy * s1 + syz * s2 + sy * s3
         jtj_s2 = sxz * s0 + syz * s1 + szz * s2 + sz * s3
@@ -149,6 +159,10 @@ def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda
         nu = torch.where(accept > 0, two, torch.where(active > 0, nu * two, nu))
         cx, cy, cz, r = cx + accept * s0, cy + accept * s1, cz + accept * s2, r + accept * s3
         cost = torch.where(accept > 0, cost_new, cost)
+        centre_nan = cx.isnan() | cy.isnan() | cz.isnan()
+        poisoned = [centre_nan] * 9 + [centre_nan | r.isnan()] * 4
+        sums = [torch.where(accept > 0, new, torch.where(bad, nan, old))
+                for new, old, bad in zip(sums_new, sums, poisoned)]
 
         newly = ((gnorm < c(gtol)) | (lam >= c(max_lambda))).to(cx.dtype)
         conv = torch.maximum(conv, newly * active)
@@ -161,14 +175,12 @@ def sphere_lm_batch_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda
 def sphere_lm_batch_cuda(points, x0, max_iters=30, init_lambda=1e-3, max_lambda=1e12,
                          gtol=1e-6):
     """Launch ``csrc/sphere_lm.cu`` on the current stream; same contract as
-    :func:`sphere_lm_batch_plain`.  The kernel reads each problem's
-    observations as one contiguous ``[3, m]`` row (``points`` transposed
-    to ``[B, 3, m]``).  Raises on a non-CUDA or non-f32 input and when the
-    build or the launch fails."""
+    :func:`sphere_lm_batch_plain`.  The kernel reads ``points[B, m, 3]`` as
+    it lies.  Raises on a non-CUDA, non-f32 or non-contiguous input, and
+    when the build or the launch fails."""
     _check_lm_args(points, x0)
-    rows = points.transpose(1, 2).contiguous()
     x0 = x0.contiguous()
-    kernels.check_inputs(points=rows, x0=x0)
+    kernels.check_inputs(points=points, x0=x0)
     b, m = points.shape[0], points.shape[1]
     if b >= 2**31 or 3 * m >= 2**31:
         raise ValueError("sphere_lm_batch supports fewer than 2^31 problems and observations")
@@ -177,7 +189,7 @@ def sphere_lm_batch_cuda(points, x0, max_iters=30, init_lambda=1e-3, max_lambda=
         with torch.cuda.device(points.device):
             stream = torch.cuda.current_stream().cuda_stream
             kernels.SPHERE_LM.launch(
-                rows.data_ptr(), x0.data_ptr(), b, m, int(max_iters),
+                points.data_ptr(), x0.data_ptr(), b, m, int(max_iters),
                 ctypes.c_float(float(init_lambda)), ctypes.c_float(float(max_lambda)),
                 ctypes.c_float(float(gtol)), out.data_ptr(), stream,
             )
@@ -198,8 +210,10 @@ def sphere_lm_batch(points, x0, max_iters: int = 30, init_lambda: float = 1e-3,
     """
     points = as_tensor(points, device, torch.float32)
     x0 = as_tensor(x0, points.device, torch.float32)
-    fn = sphere_lm_batch_cuda if points.is_cuda else sphere_lm_batch_plain
-    return fn(points, x0, max_iters, init_lambda, max_lambda, gtol)
+    if points.is_cuda:
+        return sphere_lm_batch_cuda(points.contiguous(), x0, max_iters, init_lambda,
+                                    max_lambda, gtol)
+    return sphere_lm_batch_plain(points, x0, max_iters, init_lambda, max_lambda, gtol)
 
 
 def sphere_lm_batch_f64(points, x0, config: LMConfig = LMConfig(max_iters=30, ftol=0.0,

@@ -7,8 +7,8 @@ Two fit-and-vote kernels with their host side:
     built by :func:`planar_sphere_samples` from one permutation and the
     structured shift table), fits each column's circumsphere and counts the
     points with ``lo <= |p - c|^2 < hi`` (``hi = (r + delta)^2``, ``lo =
-    max(r - delta, 0)^2``) as two K = 4 bounds on ``|p'|^2 - 2 c'.p'``;
-    degenerate lanes are pushed out by a 1e30 shift;
+    max(r - delta, 0)^2``) as two bounds on ``|p'|^2 - 2 c'.p'``, three
+    fused multiply-adds; degenerate lanes are pushed out by a 1e30 shift;
   * the per-step sweep (:func:`megakernel_call`) samples inside the kernel:
     hypothesis ``(g, i)`` takes slot ``j`` from column ``shifts[g, j] + i``
     of the doubled slot planes ``coords2[12, 2n]`` (four permutations, one per
@@ -26,8 +26,8 @@ centred.  Both return ``counts int32[B]`` and ``params_t f32[8, B]``
 (``[cx, cy, cz, r, degenerate, 0, 0, 0]``).  On CUDA tensors they launch the hand-written
 kernels (``csrc/sphere_ransac.cu``); on CPU tensors they run the plain
 versions, which repeat the kernels' arithmetic operation by operation (the
-per-step sweep's FMAs through :func:`~lsqrrecipes_tpu_torch.linalg.small.
-fma_f32`, the exact float32 FMA).
+FMAs through :func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`, the exact
+float32 FMA).
 """
 
 import ctypes
@@ -45,7 +45,7 @@ from lsqrrecipes_tpu_torch.ops.fused_sweep import (
     sphere_band_e,
     sphere_band_rows,
 )
-from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows, centre
+from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows, centre, sq_minus_2cp
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
 
 _BIG = 1e30          # degenerate lanes' shift of the upper bound
@@ -113,10 +113,13 @@ def sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, delta):
     """Plain PyTorch version of the planar fit-and-vote kernel: ``(counts
     int32[B], params_t f32[8, B])``, the kernel's arithmetic operation by
     operation: points and centres relative to the packed points' column 0,
-    ``c0`` (``p' = p - c0``, ``c' = c - c0``), ``s = -2c'x x' - 2c'y y' -
-    2c'z z'`` left to right, agree iff ``(s + (|c'|^2 - hi + 1e30 deg)) +
-    |p'|^2 < 0`` and ``(s + (|c'|^2 - lo)) + |p'|^2 >= 0`` on valid
-    columns."""
+    ``c0`` (``p' = p - c0``, ``c' = c - c0``), ``t = fma(-2c'z, z',
+    fma(-2c'y, y', fma(-2c'x, x', |p'|^2)))`` with each FMA rounded once as
+    on the card (:func:`~lsqrrecipes_tpu_torch.ops.vote.sq_minus_2cp`), agree
+    iff ``t < (hi - |c'|^2) - 1e30 deg`` and ``t >= lo - |c'|^2`` on valid
+    columns: the negations of ``(|c'|^2 - hi) + 1e30 deg`` and ``|c'|^2 -
+    lo`` bit for bit, so for finite values the JAX kernel's ``(s + a) +
+    |p'|^2 < 0`` and ``>= 0`` with ``s = -2c'.p'`` unfused."""
     _check_planar_args(sxyz, points_t, valid)
     sxyz = sxyz.to(torch.float32)
     c0, x, y, z, pp, live = _plain_points(points_t, valid)
@@ -135,11 +138,11 @@ def sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, delta):
         hi = rp * rp
         lo_root = torch.clamp_min(r - delta, 0.0)
         lo = lo_root * lo_root
-        a_hi = (cc - hi) + torch.where(degenerate, big, zero)
-        a_lo = cc - lo
-        s = (-2.0 * cx)[:, None] * x + (-2.0 * cy)[:, None] * y
-        s = s + (-2.0 * cz)[:, None] * z
-        agree = ((s + a_hi[:, None]) + pp < 0.0) & ((s + a_lo[:, None]) + pp >= 0.0) & live
+        upper = ((hi - cc) - torch.where(degenerate, big, zero))[:, None]
+        lower = (lo - cc)[:, None]
+        t = sq_minus_2cp((-2.0 * cx)[:, None], (-2.0 * cy)[:, None], (-2.0 * cz)[:, None],
+                         x, y, z, pp)
+        agree = (t < upper) & (t >= lower) & live
         counts.append(agree.sum(dim=1, dtype=torch.int32))
         params.append(_params_rows(center, r, degenerate))
     params_t = torch.cat(params, dim=1) if params else sxyz.new_zeros((8, 0))

@@ -69,6 +69,15 @@ def centre(points_t):
     return pts[:, 0:1]
 
 
+def sq_minus_2cp(mx, my, mz, x, y, z, pp):
+    """``|p'|^2 - 2 c'.p'`` as the sphere votes' three fused multiply-adds,
+    ``fma(mz, z', fma(my, y', fma(mx, x', |p'|^2)))`` with ``m = -2c'``, each
+    rounded once as CUDA's ``__fmaf_rn``
+    (:func:`~lsqrrecipes_tpu_torch.linalg.small.fma_f32`); the hypotheses'
+    and the points' rows broadcast together."""
+    return fma_f32(mz, z, fma_f32(my, y, fma_f32(mx, x, pp)))
+
+
 def sphere_vote_counts_plain(params, points_t, valid, delta):
     """Plain PyTorch version of the kernel: ``int32[B]`` counts of valid
     columns with ``lo2 < |p - c|^2 < (r + delta)^2``.
@@ -96,9 +105,7 @@ def sphere_vote_counts_plain(params, points_t, valid, delta):
         c = prm[:, 0:3] - c0.T
         r = prm[:, 3]
         m = -2.0 * c                            # exact
-        t = fma_f32(m[:, 0:1], rel[0], pp)
-        t = fma_f32(m[:, 1:2], rel[1], t)
-        t = fma_f32(m[:, 2:3], rel[2], t)
+        t = sq_minus_2cp(m[:, 0:1], m[:, 1:2], m[:, 2:3], rel[0], rel[1], rel[2], pp)
         d2 = t + _sum_sq_rows(c.T)[:, None]
         rp = r + delta
         rm = r - delta

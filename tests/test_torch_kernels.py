@@ -9,6 +9,7 @@ card and no JAX it runs alone:
 """
 
 import ctypes
+import subprocess
 
 import numpy as np
 import pytest
@@ -170,6 +171,8 @@ _REDESIGNED = {
     "fused_sweep_absolute_orientation": ("split_sweep_kernel<AbsoluteOrientation>", True),
     "fused_sweep_pivot": ("split_sweep_kernel<Pivot>", True),
     "fused_sweep_ray3d": ("split_sweep_kernel<Ray3D>", True),
+    "sphere_lm": ("constexpr int kLanes = 16;", None),
+    "sphere_planar_vote": ("constexpr int kPlanarHypPerThread = 8;", True),
 }
 
 
@@ -827,8 +830,12 @@ def _lm_problems(seed, b, m):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,m", [(4096, 256), (100, 37)])
+@pytest.mark.parametrize("b,m", [(4096, 256), (100, 37), (1, 1), (7, 37), (4097, 256),
+                                 (7, 300), (1, 600)])
 def test_sphere_lm_kernel_matches_plain_on_card(cuda_device, b, m):
+    # B = 1, 7 and 4,097 leave a warp's second problem empty; m = 300 and
+    # 600 pass the 256 points a problem keeps in registers and read the rest
+    # from global memory.
     pts, x0 = _lm_problems(80 + m, b, m)
     pts_d, x0_d = torch.as_tensor(pts, device=cuda_device), torch.as_tensor(x0, device=cuda_device)
     before = kernels.SPHERE_LM.launches
@@ -838,6 +845,93 @@ def test_sphere_lm_kernel_matches_plain_on_card(cuda_device, b, m):
     assert bool(conv.all()) and torch.equal(conv, pconv)
     assert float((x - px).abs().max()) < 1e-3
     assert int(it.max()) <= 30
+
+
+@pytest.mark.cuda
+def test_sphere_lm_entry_point_takes_a_non_contiguous_view_on_card(cuda_device):
+    # The kernel reads points[B, m, 3] as it lies; sphere_lm_batch makes a
+    # strided view contiguous first, so every other column of a [B, m, 6]
+    # array gives what its copy gives.
+    pts, x0 = _lm_problems(83, 33, 64)
+    wide = torch.zeros((33, 64, 6), device=cuda_device)
+    wide[..., ::2] = torch.as_tensor(pts, device=cuda_device)
+    view = wide[..., ::2]
+    assert not view.is_contiguous()
+    x0_d = torch.as_tensor(x0, device=cuda_device)
+    got = sphere_lm.sphere_lm_batch(view, x0_d)
+    want = sphere_lm.sphere_lm_batch(view.contiguous(), x0_d)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert bool(got[3].all())
+
+
+@pytest.mark.cuda
+def test_sphere_lm_kernel_non_finite_step_matches_plain_on_card(cuda_device):
+    # A point at 1e20 overflows s: the f sums and the step are NaN, x + 0 NaN
+    # poisons the centre, and the problem stops when lam reaches max_lambda,
+    # with the plain version's iteration count; its neighbours are untouched.
+    pts, x0 = _lm_problems(77, 40, 64)
+    pts[5, 3] = 1e20
+    pts[22, 0, 1] = -1e20
+    pts_d, x0_d = torch.as_tensor(pts, device=cuda_device), torch.as_tensor(x0, device=cuda_device)
+    x, cost, it, conv = sphere_lm.sphere_lm_batch_cuda(pts_d, x0_d)
+    px, pcost, pit, pconv = sphere_lm.sphere_lm_batch_plain(pts_d, x0_d)
+    bad = torch.zeros(40, dtype=torch.bool, device=cuda_device)
+    bad[[5, 22]] = True
+    assert torch.equal(x.isnan(), px.isnan()) and bool(x[bad].isnan().all())
+    assert torch.equal(it[bad], pit[bad]) and bool(conv.all()) and torch.equal(conv, pconv)
+    assert float((x[~bad] - px[~bad]).abs().max()) < 1e-3
+
+
+_SQRT_RCP_CHECK = r"""
+// Every float bit pattern through B5's branch-free sqrt_rn against sqrtf,
+// and through rcp_rn against 1.f / x on the inputs the kernel gives it.
+#include <cstdio>
+#include "sphere_lm.cu"
+
+__global__ void check(unsigned long long* bad) {
+  unsigned long long b_sqrt = 0, b_rcp = 0;
+  for (unsigned long long i = blockIdx.x * 256ull + threadIdx.x; i < (1ull << 32);
+       i += gridDim.x * 256ull) {
+    const float x = __uint_as_float(static_cast<unsigned>(i));
+    const float a = sqrt_rn(x), b = sqrtf(x);
+    b_sqrt += !((a != a && b != b) || __float_as_uint(a) == __float_as_uint(b));
+    if ((x >= 1e-12f && x < 0x1p126f) || x == INFINITY || x != x) {
+      const float c = rcp_rn(x), d = 1.f / x;
+      b_rcp += !((c != c && d != d) || __float_as_uint(c) == __float_as_uint(d));
+    }
+  }
+  atomicAdd(bad, b_sqrt);
+  atomicAdd(bad + 1, b_rcp);
+}
+
+int main() {
+  unsigned long long* bad;
+  cudaMallocManaged(&bad, 2 * sizeof(unsigned long long));
+  bad[0] = bad[1] = 0;
+  check<<<132 * 16, 256>>>(bad);
+  const cudaError_t err = cudaDeviceSynchronize();
+  printf("%d %llu %llu\n", static_cast<int>(err), bad[0], bad[1]);
+  return err != cudaSuccess;
+}
+"""
+
+
+@pytest.mark.cuda
+def test_sphere_lm_square_root_and_reciprocal_round_as_ieee_on_every_float_on_card(
+        cuda_device, tmp_path):
+    # sqrt_rn and rcp_rn are nvcc's correctly rounded sequences with selects
+    # in place of the branch to its slow path: equal to sqrtf on all 2^32
+    # floats, and to 1.f / x on +inf, NaN and [1e-12, 2^126), every value the
+    # kernel takes a reciprocal of (d = sqrt(s) where s >= 1e-24).
+    src = tmp_path / "check.cu"
+    src.write_text(_SQRT_RCP_CHECK)
+    exe = tmp_path / "check"
+    subprocess.run([kernels.nvcc_path(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+                    "-I", str(kernels.CSRC_DIR), "-o", str(exe), str(src)], check=True)
+    err, bad_sqrt, bad_rcp = subprocess.run(
+        [str(exe)], check=True, capture_output=True, text=True).stdout.split()
+    assert (int(err), int(bad_sqrt), int(bad_rcp)) == (0, 0, 0)
 
 
 def _step_inputs(device, n, seed):
@@ -863,16 +957,22 @@ def test_sphere_mega_kernel_equals_plain_on_card(cuda_device, n, groups):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,groups", [(1024, 128), (200, 3)])
-def test_sphere_planar_vote_kernel_equals_plain_on_card(cuda_device, n, groups):
+@pytest.mark.parametrize("n,groups,drop", [(1024, 128, 0), (200, 3, 0), (1000, 3, 5),
+                                           (1500, 2, 7), (2100, 1, 2000)])
+def test_sphere_planar_vote_kernel_equals_plain_on_card(cuda_device, n, groups, drop):
+    # Dropping the last `drop` samples leaves a partial block (100
+    # hypotheses, fewer than one block, at n = 2,100), and n = 1,500 and
+    # 2,100 are not multiples of the 1,024-point tile or of the 8 warps.
     pts, points_t, valid = _step_inputs(cuda_device, n, 95 + groups)
     gen = torch.Generator(device=cuda_device).manual_seed(groups)
     sxyz = sphere_ransac.planar_sphere_samples(gen, pts, groups)
+    sxyz = sxyz[:, : sxyz.shape[1] - drop].contiguous()
     before = kernels.SPHERE_PLANAR_VOTE.launches
     counts, params_t = sphere_ransac.sphere_fit_and_vote_planar(sxyz, points_t, valid, 1.0)
     pcounts, pparams = sphere_ransac.sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, 1.0)
     assert kernels.SPHERE_PLANAR_VOTE.launches == before + 1
     assert torch.equal(counts, pcounts) and torch.equal(params_t, pparams)
+    assert int(counts.max()) > n // 2
 
 
 @pytest.mark.cuda
@@ -946,7 +1046,8 @@ def test_phantom_qr_kernel_degenerate_samples_on_card(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel,num_hyp", [("PHANTOM_QR", 4352), ("PHANTOM_QR", 65536),
-                                            ("SPHERE_MEGA", 131072),
+                                            ("SPHERE_MEGA", 131072), ("SPHERE_LM", 4096),
+                                            ("SPHERE_PLANAR_VOTE", 131072),
                                             ("SPHERE_VOTE", 65536), ("SPHERE_VOTE", 1 << 20),
                                             ("PLANE_VOTE", 65536), ("PLANE_VOTE", 1 << 20),
                                             ("FUSED_SWEEP_LINE3D", 1 << 22),

@@ -24,6 +24,7 @@ from lsqrrecipes_tpu.linalg import LMConfig as JLMConfig
 from lsqrrecipes_tpu.linalg import levenberg_marquardt as jlm
 from lsqrrecipes_tpu.ops import sphere_lm as jsl
 from lsqrrecipes_tpu_torch.linalg import LMConfig
+from lsqrrecipes_tpu_torch.linalg.small import rsqrt, scalar_like
 from lsqrrecipes_tpu_torch.ops import sphere_lm as sl
 
 torch.set_num_threads(2)
@@ -153,3 +154,119 @@ def test_rejects_bad_shapes():
         sl.sphere_lm_batch(pts, x0[:3], device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         sl.sphere_lm_batch_cuda(torch.as_tensor(pts), torch.as_tensor(x0))
+
+
+def _two_pass_plain(points, x0, max_iters=30, init_lambda=1e-3, max_lambda=1e12, gtol=1e-6):
+    """The plain version's earlier two-pass form, kept as the reference of
+    the one-pass form: each iteration forms the 13 sums at x, then the cost
+    at the trial point, and carries nothing."""
+    m = points.shape[1]
+    planar, x0_t = sl.pack_lm_problems(points, x0)
+    px, py, pz = planar[0:m], planar[m : 2 * m], planar[2 * m :]
+    cx, cy, cz, r = x0_t[0], x0_t[1], x0_t[2], x0_t[3]
+
+    def c(value):
+        return scalar_like(value, cx)
+
+    def cost_at(cx, cy, cz, r):
+        dx, dy, dz = px - cx, py - cy, pz - cz
+        f = torch.sqrt(dx * dx + dy * dy + dz * dz) - r
+        return 0.5 * torch.sum(f * f, dim=0)
+
+    tiny, one, two, half = c(1e-30), c(1.0), c(2.0), c(0.5)
+    cost = cost_at(cx, cy, cz, r)
+    lam, nu = torch.full_like(cx, init_lambda), torch.full_like(cx, 2.0)
+    conv, iters = torch.zeros_like(cx), torch.zeros_like(cx)
+    mm = torch.full_like(cx, float(m))
+    for _ in range(max_iters):
+        active = one - conv
+        dx, dy, dz = px - cx, py - cy, pz - cz
+        s = dx * dx + dy * dy + dz * dz
+        rd = rsqrt(torch.clamp_min(s, c(1e-24)))
+        ux, uy, uz = dx * rd, dy * rd, dz * rd
+        f = s * rd - r
+
+        def rsum(v):
+            return torch.sum(v, dim=0)
+
+        sxx, sxy, sxz = rsum(ux * ux), rsum(ux * uy), rsum(ux * uz)
+        syy, syz, szz = rsum(uy * uy), rsum(uy * uz), rsum(uz * uz)
+        sx, sy, sz = rsum(ux), rsum(uy), rsum(uz)
+        gx, gy, gz, gr = -rsum(ux * f), -rsum(uy * f), -rsum(uz * f), -rsum(f)
+        gnorm = torch.maximum(torch.maximum(gx.abs(), gy.abs()),
+                              torch.maximum(gz.abs(), gr.abs()))
+        damp = one + lam
+        l00 = torch.sqrt(torch.clamp_min(sxx * damp, tiny))
+        l10, l20, l30 = sxy / l00, sxz / l00, sx / l00
+        l11 = torch.sqrt(torch.clamp_min(syy * damp - l10 * l10, tiny))
+        l21, l31 = (syz - l20 * l10) / l11, (sy - l30 * l10) / l11
+        l22 = torch.sqrt(torch.clamp_min(szz * damp - l20 * l20 - l21 * l21, tiny))
+        l32 = (sz - l30 * l20 - l31 * l21) / l22
+        l33 = torch.sqrt(torch.clamp_min(mm * damp - l30 * l30 - l31 * l31 - l32 * l32, tiny))
+        y0 = -gx / l00
+        y1 = (-gy - l10 * y0) / l11
+        y2 = (-gz - l20 * y0 - l21 * y1) / l22
+        y3 = (-gr - l30 * y0 - l31 * y1 - l32 * y2) / l33
+        s3 = y3 / l33
+        s2 = (y2 - l32 * s3) / l22
+        s1 = (y1 - l21 * s2 - l31 * s3) / l11
+        s0 = (y0 - l10 * s1 - l20 * s2 - l30 * s3) / l00
+        cost_new = cost_at(cx + s0, cy + s1, cz + s2, r + s3)
+        j0 = sxx * s0 + sxy * s1 + sxz * s2 + sx * s3
+        j1 = sxy * s0 + syy * s1 + syz * s2 + sy * s3
+        j2 = sxz * s0 + syz * s1 + szz * s2 + sz * s3
+        j3 = sx * s0 + sy * s1 + sz * s2 + mm * s3
+        predicted = -(s0 * gx + s1 * gy + s2 * gz + s3 * gr) - half * (
+            s0 * j0 + s1 * j1 + s2 * j2 + s3 * j3)
+        rho = (cost - cost_new) / torch.clamp_min(predicted, tiny)
+        accept = (torch.isfinite(cost_new) & (cost_new < cost)).to(cx.dtype) * active
+        t = two * rho - one
+        shrink = torch.clamp_min(one - t * (t * t), c(1.0 / 3.0))
+        lam_acc = torch.clamp_min(lam * shrink, c(1e-18))
+        lam_rej = torch.clamp_max(lam * nu, c(max_lambda))
+        lam = torch.where(accept > 0, lam_acc, torch.where(active > 0, lam_rej, lam))
+        nu = torch.where(accept > 0, two, torch.where(active > 0, nu * two, nu))
+        cx, cy, cz, r = cx + accept * s0, cy + accept * s1, cz + accept * s2, r + accept * s3
+        cost = torch.where(accept > 0, cost_new, cost)
+        newly = ((gnorm < c(gtol)) | (lam >= c(max_lambda))).to(cx.dtype)
+        conv = torch.maximum(conv, newly * active)
+        iters = iters + active
+        if bool((conv > 0).all()):
+            break
+    return torch.stack([cx, cy, cz, r], dim=1), cost, iters.to(torch.int32), conv > 0
+
+
+def _lm_case(kind):
+    """Problems that converge (noisy spheres), problems that freeze at once
+    beside them (exact spheres started at their truth), and problems whose
+    step goes non-finite (a point at 1e20 overflows s, so the f sums and the
+    step are NaN and x + 0 NaN poisons the centre)."""
+    pts, x0, centers, radii = _problems(10, 24, 40)
+    if kind == "frozen":
+        dirs = pts - centers[:, None, :]
+        exact = centers[:, None, :] + radii[:, None, None] * dirs / np.linalg.norm(
+            dirs, axis=-1, keepdims=True)
+        pts[:8] = exact[:8].astype(np.float32)
+        x0[:8] = np.concatenate([centers, radii[:, None]], axis=1)[:8].astype(np.float32)
+    if kind == "nan_step":
+        pts[3, 7] = 1e20
+        pts[11, 0, 2] = -1e20
+    return torch.as_tensor(pts), torch.as_tensor(x0)
+
+
+@pytest.mark.parametrize("kind", ["converging", "frozen", "nan_step"])
+def test_one_pass_plain_equals_the_two_pass_form_bit_for_bit(kind):
+    # The plain version evaluates once per iteration at the trial point and
+    # carries those sums on accept (NaN where x + 0 s poisons x): the same
+    # arithmetic as forming the sums at x every iteration.
+    pts, x0 = _lm_case(kind)
+    got = sl.sphere_lm_batch_plain(pts, x0)
+    want = _two_pass_plain(pts, x0)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0, equal_nan=True)
+    if kind == "nan_step":
+        assert bool(got[0][[3, 11]].isnan().all()) and bool(got[3][[3, 11]].all())
+        assert bool(torch.isfinite(got[0][:3]).all())
+    if kind == "frozen":   # the exact problems stop first and hold beside the others
+        assert float(got[1][:8].max()) < 1e-6 and bool(got[3].all())
+        assert int(got[2][:8].max()) < int(got[2][8:].max())

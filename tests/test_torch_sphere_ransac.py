@@ -6,10 +6,11 @@ Both packages get the same points and JAX's own slot planes, permutations
 and sample planes (the generators differ).  Tolerances: counts within 1 per
 hypothesis (the interpreted kernels sum the band products in XLA's order
 and may contract into FMAs; the plain versions round as the CUDA kernels do:
-the per-step sweep's vote as four exact FMAs, the planar vote's multiplies
-and adds apart) and the best count equal; the winner's rows within 1e-6
-relative.  ``linalg.small.fma_f32``, the per-step sweep's FMA, is held
-against an exact rational oracle.  The per-step sweep's independent slot permutations
+the per-step sweep's vote as four exact FMAs, the planar vote's as three)
+and the best count equal; the winner's rows within 1e-6 relative.
+``linalg.small.fma_f32``, the FMA of both, is held against an exact
+rational oracle, and so is the planar vote's whole chain on band-edge
+points.  The per-step sweep's independent slot permutations
 can put one point into two slots: such a sample's system is exactly
 singular, its rounding residue decides the fit in each package alike
 arbitrarily, and those lanes are left out of the per-lane comparisons.
@@ -343,6 +344,75 @@ def test_planar_matches_minimal_fit_and_vote_counts():
     assert int((counts - cref).abs().max()) <= 1
     assert int(counts.max()) == int(cref.max())
     assert torch.equal(params_t[4] != 0, ~v_ref)
+
+
+def _planar_edge_case():
+    """``(sxyz, points)``: 24 random circumspheres (four points on a sphere of
+    radius 5-30 about U(-20, 20)^3 each, N(0, 0.3) noise) and one exact one,
+    (+-5, 0, 0), (0, 5, 0), (0, 0, 5) about the origin; the points are the
+    origin first (so the votes' centre c0 is 0 and c' = c), six on each
+    random sphere's band edges r +- delta, and four on the exact sphere's:
+    (4, 0, 0) and (0, -4, 0) at r - delta, where t = |p'|^2 = lo exactly
+    (counted: the lower edge is closed), (6, 0, 0) and (0, 0, -6) at
+    r + delta, where t = hi (not counted)."""
+    rng = np.random.default_rng(27)
+    samples = []
+    for _ in range(24):
+        c, r = rng.uniform(-20, 20, 3), rng.uniform(5, 30)
+        u = rng.normal(size=(4, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        samples.append(c + r * u + 0.3 * rng.normal(size=(4, 3)))
+    samples.append(np.array([[5.0, 0, 0], [-5.0, 0, 0], [0, 5.0, 0], [0, 0, 5.0]]))
+    samples = np.asarray(samples, np.float32)                      # [B, 4, 3]
+    sxyz = torch.as_tensor(np.ascontiguousarray(samples.transpose(2, 1, 0).reshape(12, -1)))
+    _, params_t = sr.sphere_fit_and_vote_planar_plain(
+        sxyz, *vote.pack_points(torch.zeros((1, 3)))[:2], 1.0)
+    edge = [np.zeros((1, 3))]
+    for cx, cy, cz, r in params_t[:4, :-1].T.double().numpy():
+        u = rng.normal(size=(6, 3))
+        u /= np.linalg.norm(u, axis=1, keepdims=True)
+        edge.append(np.array([cx, cy, cz]) + np.array([r + 1.0, r - 1.0] * 3)[:, None] * u)
+    edge.append(np.array([[4.0, 0, 0], [0, -4.0, 0], [6.0, 0, 0], [0, 0, -6.0]]))
+    return sxyz, np.concatenate(edge).astype(np.float32)
+
+
+def test_planar_plain_vote_rounds_each_fma_once_on_band_edge_points():
+    # B8 and its plain version take, about c0 = the packed points' column 0,
+    # t = fma(-2c'z, z', fma(-2c'y, y', fma(-2c'x, x', |p'|^2))) and count
+    # where t < (hi - |c'|^2) - 1e30 deg and t >= lo - |c'|^2.  Held here
+    # against that chain with each FMA rounded once from its exact rational
+    # value, on points placed on every hypothesis's band edges.
+    f32 = np.float32
+    sxyz, pts = _planar_edge_case()
+    points_t, valid, _ = vote.pack_points(torch.as_tensor(pts))
+    counts, params_t = sr.sphere_fit_and_vote_planar_plain(sxyz, points_t, valid, 1.0)
+    delta = f32(1.0)
+    rel = pts - pts[0]                                           # float32 throughout
+    pp = [(x * x + y * y) + z * z for x, y, z in rel]
+    want, near_edge = [], 0
+    for cx, cy, cz, r, deg in params_t[:5].T.numpy():
+        c = [cx - pts[0, 0], cy - pts[0, 1], cz - pts[0, 2]]
+        m = [f32(-2.0) * ck for ck in c]
+        cc = (c[0] * c[0] + c[1] * c[1]) + c[2] * c[2]
+        hi, lo_root = (r + delta) * (r + delta), max(r - delta, f32(0.0))
+        upper = (hi - cc) - (f32(1e30) if deg else f32(0.0))
+        lower = lo_root * lo_root - cc
+        agree = []
+        for (x, y, z), p2 in zip(rel, pp):
+            t = p2
+            for mk, v in zip(m, (x, y, z)):
+                t = _f32_round(Fraction(float(mk)) * Fraction(float(v)) + Fraction(float(t)))
+            agree.append(bool(lower <= t < upper))
+            near_edge += bool(min(abs(t - upper), abs(t - lower)) <= 16 * np.spacing(hi))
+        want.append(sum(agree))
+    np.testing.assert_array_equal(counts.numpy(), np.array(want, np.int32))
+    assert near_edge >= params_t.shape[1]                   # the edges are really probed
+    # The exact sphere (r = 5, c = 0, so t = |p'|^2): its two r - delta points
+    # sit on the closed lower edge and count, its two r + delta points on the
+    # open upper edge do not.
+    assert params_t[:5, -1].tolist() == [0.0, 0.0, 0.0, 5.0, 0.0]
+    assert pp[-4:] == [f32(16.0), f32(16.0), f32(36.0), f32(36.0)]
+    assert agree[-4:] == [True, True, False, False]
 
 
 def _holds_far_from_the_origin(counts, params_t, samples, pts):
