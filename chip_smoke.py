@@ -122,7 +122,36 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      1 px noise) and of phase 22's: equal maxima, and the sweep's counts
      within 2 of f64 ``minimal_fit`` + ``agree`` on every sample with a
      unique null direction (sigma_30 / sigma_31 >= 4); ``ransac`` at 16,384
-     gathered hypotheses (the batched f64 31x31 SVD, no kernel).
+     gathered hypotheses (the batched f64 31x31 SVD, no kernel);
+ 23. the sufficient-statistics LM (``linalg.stats_lm``, no kernel) at the
+     bench's pointer shape (4,096 problems x 256 observations, 50
+     iterations, gtol 1e-6) through ``pointer_stats`` + ``feature_lm_planar``:
+     its wall (median of 10, each run's mean t3_x tracking a shift of p),
+     iterations and LM iterations/s; ``lsq_fit_stats_batched`` on 64
+     problems x 64 observations with strided and offset-block masks for the
+     three ultrasound kinds, card float64 against CPU float64 (max|dparam|
+     < 1e-5, every problem valid); and the crosswire refit of phase 16's
+     consensus by ``lsq_fit_stats_batched`` and by the full-LM ``lsq_fit``,
+     both timed;
+ 24. the sharded drivers (``parallel``) on a one-process NCCL group (NCCL
+     gives each process a card of its own; the multi-process semantics are
+     held on the CPU by gloo in the tests) and a ``(1, 1)`` mesh:
+     ``sharded_fused_sweep`` for the ten families at phases 5's, 9's, 13's
+     and 16's shapes with explicit permutations (B1, B3), equal in count and
+     params to ``fused_sweep``; ``sharded_us_sweep("plane_phantom")`` at
+     phase 22's 65,536 hypotheses (B6 once per chunk), equal to
+     ``structured_sweep`` on the same permutation; ``sharded_ransac`` on
+     phase 5's sphere at 65,536 hypotheses (B2), equal to
+     ``hypothesize_and_vote`` + ``lsq_fit`` on the same indices;
+     ``sharded_lsq_fit`` on phase 10's plane consensus and
+     ``sharded_us_feature_lm`` on phase 16's pointer consensus, equal to
+     their unsharded counterparts; each driver's wall beside its
+     single-device counterpart's;
+ 25. ``resumable_sweep`` on the bench's sphere, n = 1,024, 4 rounds of
+     65,536 gathered hypotheses (B2 per round), cut after 2 rounds and
+     resumed from its ``.npz``: equal to the uninterrupted sweep in
+     ``evaluated``, best count, mask, params and generator state (phases
+     23-25 under 90 s).
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -323,6 +352,20 @@ PHANTOM_LIMITS = (3.0, 5.0, 1.0)   # translation, rotation (degrees), scale
 PHANTOM_DUPLICATES = 512           # duplicate-row samples held against the plain version
 PHANTOM_GAP = 4.0                  # sigma_30 / sigma_31 of a sample with a unique null direction
 PHANTOM_BUDGET_S = 150.0           # phase 22
+# Phase 23, the sufficient-statistics LM at the bench's pointer shape
+# (bench.py:734-830): 4,096 problems x 256 observations with their own poses,
+# 0.5 px noise, the start truth + (1, 0.02 rad, 0.005), 50 iterations, gtol
+# 1e-6; the JAX chip check's card-vs-CPU case (scripts/chip_check.py:630-690)
+# at 64 problems x 64 observations with gtol 1e-9, for the three kinds.
+STATS_LM_B, STATS_LM_N = 4096, 256
+STATS_LM_CONFIG = {"max_iters": 50, "ftol": 0.0, "xtol": 0.0, "gtol": 1e-6}
+STATS_CHECK_B, STATS_CHECK_N = 64, 64
+STATS_CHECK_CONFIG = {"max_iters": 50, "ftol": 0.0, "xtol": 0.0, "gtol": 1e-9}
+STATS_CHECK_TOL = 1e-5
+# Phase 25: the resumable sweep on the bench's sphere, n = 1,024, in rounds of
+# 65,536 gathered hypotheses, cut after 2 of its 4 rounds.
+RESUME_N, RESUME_BATCH, RESUME_ROUNDS, RESUME_CUT = 1024, 65536, 4, 2
+SHARDED_PHASES_BUDGET_S = 90.0     # phases 23-25 together
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -475,11 +518,11 @@ def euler_np(wz, wy, wx):
     ], -2)
 
 
-def us_data(rng, family, n, geometry, exact=False):
+def us_data(rng, family, n, geometry, exact=False, outliers=True):
     """An ultrasound family's data model (see the module docstring), float64
     numpy leaves: ``(Frame, q)`` or ``(Frame, q, p)``.  ``exact``: no noise,
     no outliers and t3 = 0, so that all-zero padding columns would lie in
-    the band of the planted calibration."""
+    the band of the planted calibration; ``outliers=False``: no outliers."""
     r3 = euler_np(*US_R3_ANGLES)
     t3 = np.zeros(3) if exact else US_T3
     q = rng.uniform(size=(n, 2)) * np.array([640.0, 480.0])
@@ -487,7 +530,7 @@ def us_data(rng, family, n, geometry, exact=False):
     r2 = euler_np(w2[:, 2], w2[:, 1], w2[:, 0])
     mapped = np.einsum("nij,nj->ni", r2,
                        q[:, 0:1] * (US_MX * r3[:, 0]) + q[:, 1:2] * (US_MY * r3[:, 1]) + t3)
-    n_out = 0 if exact else n // 5
+    n_out = 0 if exact or not outliers else n // 5
     shift = (30.0 + 50.0 * rng.uniform(size=(n_out, 3))) * np.sign(rng.normal(size=(n_out, 3)))
     if family == "crosswire":
         t2 = US_T1 - mapped
@@ -840,6 +883,291 @@ def library_vote(torch, params, pts, delta, chunk=8192):
         lo = torch.where(r >= delta, (r - delta) ** 2, -torch.inf)[:, None]
         out.append(((d2 < ((r + delta) ** 2)[:, None]) & (d2 > lo)).sum(1))
     return torch.cat(out)
+
+
+def pointer_lm_problems(rng, b, n):
+    """The bench's pointer LM problems (``bench.py:772-790``): the gate's
+    calibration, per problem n poses with angles uniform in [0, pi) and
+    translations uniform in [-100, 100]^3, pixels in 640 x 480 with 0.5 px
+    noise -> float64 ``(r2 [b, n, 3, 3], t2, q, p)`` and the start ``[8]``."""
+    r3 = euler_np(*US_R3_ANGLES)
+    q = rng.uniform(size=(b, n, 2)) * np.array([640.0, 480.0])
+    w2 = rng.uniform(0.0, np.pi, (b, n, 3))
+    r2 = euler_np(w2[..., 2], w2[..., 1], w2[..., 0])
+    t2 = 200.0 * (rng.uniform(size=(b, n, 3)) - 0.5)
+    img = q[..., 0:1] * (US_MX * r3[:, 0]) + q[..., 1:2] * (US_MY * r3[:, 1]) + US_T3
+    p = np.einsum("bnij,bnj->bni", r2, img) + t2
+    q = q + 0.5 * rng.normal(size=q.shape)
+    x0 = np.concatenate([US_T3 + 1.0, np.array(US_R3_ANGLES) + 0.02,
+                         np.array([US_MX, US_MY]) + 0.005])
+    return (r2, t2, q, p), x0
+
+
+def stats_check_masks(n, b, k):
+    """``check_lm_stats``'s masks (``scripts/chip_check.py:650-658``): strided
+    ones and offset blocks, each holding the first k observations."""
+    idx = np.arange(n)
+    strided = [idx % max(2, i % 7) != 0 for i in range(b // 2)]
+    blocks = [np.roll(idx < n // 2 + i % 8, (i * n) // (b // 2)) for i in range(b - b // 2)]
+    return np.stack(strided + blocks) | (idx[None, :] < k)
+
+
+def phase_stats_lm(torch, dev, rng, timer, smi, cross):
+    """Phase 23: the sufficient-statistics LM.  ``cross`` = ``(estimator,
+    data tensors, consensus mask)`` of phase 16's crosswire run."""
+    from lsqrrecipes_tpu_torch import geometry, interop, kernels
+    from lsqrrecipes_tpu_torch.estimators import get
+    from lsqrrecipes_tpu_torch.linalg import LMConfig
+    from lsqrrecipes_tpu_torch.linalg import stats_lm
+
+    (r2, t2, q, p), x0 = pointer_lm_problems(rng, STATS_LM_B, STATS_LM_N)
+    r2, t2, q, p = (torch.as_tensor(a, device=dev) for a in (r2, t2, q, p))
+    x0s = torch.as_tensor(x0, device=dev).expand(STATS_LM_B, 8).contiguous()
+    config = LMConfig(**STATS_LM_CONFIG)
+    r2e1 = r2[..., :, 0]
+
+    def solve(shift):
+        # Shifting p by s R2 e1 moves the optimal t3_x by exactly s: the
+        # mean t3_x of every run tracks it (proof the timed work ran).
+        h = stats_lm.pointer_stats((geometry.Frame(r2, t2), q, p + shift * r2e1))
+        return stats_lm.feature_lm_planar(stats_lm.pointer_w, h, x0s, config)
+
+    kernels.reset_launch_counts()
+    res = solve(0.0)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(sum(counts.values()) == 0, "the stats LM launched a kernel")
+    check(bool(torch.isfinite(res.x).all()), "[23] the stats LM gave non-finite parameters")
+    err = (res.x[:, 0:3] - torch.as_tensor(US_T3, device=dev)).abs().max()
+    times, t3x, iters = [], [], []
+    solve(0.25)
+    for i in range(WALL_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(0.25 * (i + 1))
+        t3x.append(float(r.x[:, 0].mean()))
+        iters.append(int(r.iterations.max()))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    wall = float(np.median(times))
+    drift = np.diff(np.array(t3x))
+    print(f"[23] stats LM pointer B={STATS_LM_B} n={STATS_LM_N} ({STATS_LM_CONFIG}): launches "
+          f"{sum(counts.values())}; max |t3 - truth| {float(err):.3g}, converged "
+          f"{float(res.converged.float().mean()):.4f}; wall {wall:.3f} ms median of "
+          f"{WALL_REPS} (pointer_stats + feature_lm_planar), at most {max(iters)} iterations, "
+          f"{STATS_LM_B * max(iters) / wall * 1e3:.4g} LM iterations/s; mean t3_x steps "
+          f"{drift.min():.6f}..{drift.max():.6f} (0.25) [{smi}]")
+    check(bool(np.all(np.abs(drift - 0.25) < 1e-3)), "[23] the stats LM does not track the shift")
+    check(float(err) < 1.0, "[23] the stats LM missed the planted t3")
+
+    # The JAX chip check's case: card float64 against CPU float64.
+    for kind, reg, delta in (("pointer", "us_pointer", US_DELTA),
+                             ("crosswire", "us_crosswire", US_DELTA),
+                             ("plane_phantom", "us_plane_phantom", PHANTOM_DELTA)):
+        est = get(reg)(delta)
+        if kind == "plane_phantom":
+            data = phantom_data(rng, STATS_CHECK_N, geometry, sigma=1.0, shove=False)[0]
+        else:
+            data = us_data(rng, kind, STATS_CHECK_N, geometry, outliers=False)
+        masks = torch.as_tensor(stats_check_masks(STATS_CHECK_N, STATS_CHECK_B, est.k))
+        cpu = interop.data_to_torch(data, device="cpu")
+        card = interop.data_to_torch(data, device=dev)
+        # The phantom's null vector has no fixed sign: both sides start from
+        # the CPU's analytic fits, so the comparison is of the LM alone.
+        x0 = est._analytic(cpu, masks)[0][:, :11] if kind == "plane_phantom" else None
+        cfg = LMConfig(**STATS_CHECK_CONFIG)
+        p_card, v_card = est.lsq_fit_stats_batched(card, masks.to(dev), x0=None if x0 is None
+                                                   else x0.to(dev), config=cfg)
+        p_cpu, v_cpu = est.lsq_fit_stats_batched(cpu, masks, x0=x0, config=cfg)
+        d = float((p_card.cpu() - p_cpu).abs().max())
+        print(f"    lsq_fit_stats_batched {kind} B={STATS_CHECK_B} n={STATS_CHECK_N}: card f64 vs "
+              f"CPU f64 max|dparam|={d:.3g} (<{STATS_CHECK_TOL:g}), valid card "
+              f"{int(v_card.sum())}/{STATS_CHECK_B}, CPU {int(v_cpu.sum())}/{STATS_CHECK_B}")
+        check(bool(v_card.all()) and bool(v_cpu.all()), f"[23] {kind}: a stats refit is invalid")
+        check(d < STATS_CHECK_TOL, f"[23] {kind}: the card's stats refit departs from the CPU's")
+
+    est, data, mask = cross
+    p_stats, v_stats = est.lsq_fit_stats_batched(data, mask[None])
+    p_full, v_full = est.lsq_fit(data, mask)
+    stats_ms = timer.wall_ms(lambda: est.lsq_fit_stats_batched(data, mask[None]), reps=WALL_REPS)
+    full_ms = timer.wall_ms(lambda: est.lsq_fit(data, mask), reps=WALL_REPS)
+    print(f"    crosswire refit on phase 16's {int(mask.sum())} inliers: lsq_fit_stats_batched "
+          f"{stats_ms:.3f} ms, full-LM lsq_fit {full_ms:.3f} ms (medians of {WALL_REPS}); "
+          f"max|dparam| {float((p_stats[0] - p_full).abs().max()):.3g}, valid "
+          f"{bool(v_stats[0])}/{bool(v_full)} [{smi}]")
+    check(bool(v_stats[0]) and bool(v_full), "[23] a crosswire refit is invalid")
+
+
+def phase_sharded(torch, dev, timer, smi, add_launches, fused_cases, phantom, sphere, plane,
+                  pointer):
+    """Phase 24: the sharded drivers on a one-process group (NCCL on the card:
+    it gives each process a card of its own).  ``fused_cases``: ``(family,
+    data tensors, groups, delta)`` of phases 5, 9, 13 and 16; ``phantom``:
+    ``(estimator, data, groups, chunks)`` of phase 22; ``sphere``:
+    ``(estimator, points)`` of phase 5; ``plane``: ``(estimator, points,
+    mask)`` of phase 10; ``pointer``: ``(estimator, data, mask)`` of phase 16."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from lsqrrecipes_tpu_torch import kernels
+    from lsqrrecipes_tpu_torch.linalg import stats_lm
+    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+    from lsqrrecipes_tpu_torch.parallel import (
+        default_mesh,
+        initialize_distributed,
+        sharded_fused_sweep,
+        sharded_lsq_fit,
+        sharded_ransac,
+        sharded_us_sweep,
+    )
+    from lsqrrecipes_tpu_torch.parallel.sharded import sharded_us_feature_lm
+    from lsqrrecipes_tpu_torch.ransac import engine
+    from lsqrrecipes_tpu_torch.ransac.sampling import sample_k_subsets
+    from lsqrrecipes_tpu_torch.tree import n_obs
+
+    seeds = iter(range(24_000, 25_000))
+
+    def gen():
+        return torch.Generator(device=dev).manual_seed(next(seeds))
+
+    def launched(fn):
+        kernels.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        add_launches(counts)
+        return out, counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        initialize_distributed(f"file://{tmp}/store", 1, 0, device_type=dev.type)
+        try:
+            mesh = default_mesh(shape=(1, 1), device_type=dev.type)
+            print(f"[24] one-process {dist.get_backend()} group, mesh {tuple(mesh.shape)} "
+                  f"{tuple(mesh.mesh_dim_names)}")
+            for family, data, groups, delta in fused_cases:
+                name = f"fused_sweep_{family}"
+                k_slots = fs._FAMILIES[family][0]
+                n = n_obs(data)
+                perms = fs.draw_slot_perms(fs.fit_size(n, k_slots), k_slots, gen(), dev)
+                (count, params), counts = launched(lambda: sharded_fused_sweep(
+                    family, data, None, groups, delta, mesh, perms=perms[None]))
+                count1, params1 = fs.fused_sweep(family, data, None, groups, delta, perms=perms)
+                same = int(count) == int(count1) and torch.equal(params, params1)
+                wall = timer.wall_ms(lambda: sharded_fused_sweep(
+                    family, data, None, groups, delta, mesh, perms=perms[None]), reps=WALL_REPS)
+                wall1 = timer.wall_ms(lambda: fs.fused_sweep(family, data, None, groups, delta,
+                                                             perms=perms), reps=WALL_REPS)
+                print(f"    sharded_fused_sweep {family} n={n} groups={groups}: launches "
+                      f"{counts[name]}, count {int(count)}, equal to fused_sweep {same}; wall "
+                      f"{wall:.3f} ms vs {wall1:.3f} ms single-device (medians of {WALL_REPS}) "
+                      f"[{smi}]")
+                check(counts[name] > 0, f"sharded_fused_sweep did not launch {name}")
+                check(same, f"[24] sharded_fused_sweep {family} differs from fused_sweep")
+
+            ph_est, ph_data, ph_groups, ph_chunks = phantom
+            perm = torch.randperm(n_obs(ph_data), generator=gen(), device=dev)
+            (c_s, p_s), counts = launched(lambda: sharded_us_sweep(
+                "plane_phantom", ph_est, ph_data, None, ph_groups, mesh, perm=perm))
+            c_1, p_1 = ph_est.structured_sweep(ph_data, None, ph_groups, perm=perm)
+            same = torch.equal(c_s, c_1) and torch.equal(p_s, p_1)
+            wall = timer.wall_ms(lambda: sharded_us_sweep(
+                "plane_phantom", ph_est, ph_data, None, ph_groups, mesh, perm=perm), reps=WALL_REPS)
+            wall1 = timer.wall_ms(lambda: ph_est.structured_sweep(ph_data, None, ph_groups,
+                                                                  perm=perm), reps=WALL_REPS)
+            print(f"    sharded_us_sweep plane_phantom hypotheses={c_s.numel()}: launches "
+                  f"{counts['phantom_qr']} (chunks {ph_chunks}), equal to structured_sweep "
+                  f"{same}; wall {wall:.3f} ms vs {wall1:.3f} ms [{smi}]")
+            check(counts["phantom_qr"] == ph_chunks, "sharded_us_sweep did not launch B6 per chunk")
+            check(same, "[24] sharded_us_sweep differs from structured_sweep")
+
+            sph_est, pts = sphere
+            seed = next(seeds)
+            res, counts = launched(lambda: sharded_ransac(
+                sph_est, pts, torch.Generator(device=dev).manual_seed(seed), H_GATHER, mesh))
+            idx = sample_k_subsets(torch.Generator(device=dev).manual_seed(seed), pts.shape[0],
+                                   sph_est.k, H_GATHER, dev)
+            count1, mask1, _ = engine.hypothesize_and_vote(sph_est, pts, idx)
+            params1, valid1 = sph_est.lsq_fit(pts, mask1)
+            same = (int(res.best_count) == int(count1) and torch.equal(res.consensus, mask1)
+                    and torch.equal(res.params, params1) and bool(res.valid) == bool(valid1))
+            wall = timer.wall_ms(lambda: sharded_ransac(
+                sph_est, pts, torch.Generator(device=dev).manual_seed(seed), H_GATHER, mesh),
+                reps=WALL_REPS)
+            wall1 = timer.wall_ms(lambda: sph_est.lsq_fit(pts, engine.hypothesize_and_vote(
+                sph_est, pts, sample_k_subsets(torch.Generator(device=dev).manual_seed(seed),
+                                               pts.shape[0], sph_est.k, H_GATHER, dev))[1]),
+                reps=WALL_REPS)
+            print(f"    sharded_ransac sphere n={pts.shape[0]} hypotheses={H_GATHER}: launches "
+                  f"{counts['sphere_vote']}, count {int(res.best_count)}, equal to "
+                  f"hypothesize_and_vote + lsq_fit {same}; wall {wall:.3f} ms vs {wall1:.3f} ms "
+                  f"[{smi}]")
+            check(counts["sphere_vote"] > 0, "sharded_ransac did not launch sphere_vote")
+            check(same and bool(res.valid), "[24] sharded_ransac differs from the engine's step")
+
+            pl_est, pl_pts, pl_mask = plane
+            pl_s, ok_s = sharded_lsq_fit(pl_est, pl_pts, pl_mask, mesh)
+            pl_1, ok_1 = pl_est.lsq_fit(pl_pts, pl_mask)
+            same = torch.equal(pl_s, pl_1) and bool(ok_s) == bool(ok_1)
+            print(f"    sharded_lsq_fit plane3d on {int(pl_mask.sum())} inliers: equal to lsq_fit "
+                  f"{same}")
+            check(same and bool(ok_s), "[24] sharded_lsq_fit differs from lsq_fit")
+
+            pt_est, pt_data, pt_mask = pointer
+            x0 = pt_est._analytic(pt_data, pt_mask)[0][:8]
+            lm_s = sharded_us_feature_lm("pointer", pt_data, x0, pt_mask, pt_est.lm_config,
+                                         mesh=mesh)
+            lm_1 = stats_lm.us_feature_lm("pointer", pt_data, x0, pt_mask, pt_est.lm_config)
+            d = float((lm_s.x - lm_1.x).abs().max())
+            scale = float(lm_1.x.abs().max())
+            wall = timer.wall_ms(lambda: sharded_us_feature_lm(
+                "pointer", pt_data, x0, pt_mask, pt_est.lm_config, mesh=mesh), reps=WALL_REPS)
+            wall1 = timer.wall_ms(lambda: stats_lm.us_feature_lm(
+                "pointer", pt_data, x0, pt_mask, pt_est.lm_config), reps=WALL_REPS)
+            print(f"    sharded_us_feature_lm pointer on {int(pt_mask.sum())} inliers: "
+                  f"{int(lm_s.iterations)} iterations, max|dx| vs us_feature_lm {d:.3g}; wall "
+                  f"{wall:.3f} ms vs {wall1:.3f} ms [{smi}]")
+            check(bool(lm_s.converged) and bool(lm_1.converged) and d <= 1e-9 * scale,
+                  "[24] sharded_us_feature_lm differs from us_feature_lm")
+        finally:
+            dist.destroy_process_group()
+
+
+def phase_resume(torch, dev, rng, seed, add_launches, est):
+    """Phase 25: a sweep cut after ``RESUME_CUT`` rounds and resumed from its
+    ``.npz`` equals the uninterrupted one."""
+    import os
+    import tempfile
+
+    from lsqrrecipes_tpu_torch import kernels
+    from lsqrrecipes_tpu_torch.ransac.checkpoint import load_state, resumable_sweep
+
+    pts = torch.as_tensor(bench_cloud(rng, RESUME_N), device=dev)
+    total = RESUME_ROUNDS * RESUME_BATCH
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    full = resumable_sweep(est, pts, seed, total, RESUME_BATCH)
+    torch.cuda.synchronize()
+    full_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    add_launches(counts)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "sweep.npz")
+        resumable_sweep(est, pts, seed, RESUME_CUT * RESUME_BATCH, RESUME_BATCH,
+                        checkpoint_path=ckpt)
+        cut = load_state(ckpt).evaluated
+        resumed = resumable_sweep(est, pts, seed, total, RESUME_BATCH, checkpoint_path=ckpt)
+    same = (resumed.evaluated == full.evaluated == total and resumed.best_count == full.best_count
+            and torch.equal(resumed.best_mask, full.best_mask)
+            and torch.equal(resumed.best_params, full.best_params)
+            and torch.equal(resumed.rng_state, full.rng_state))
+    print(f"[25] resumable_sweep sphere n={RESUME_N} {RESUME_ROUNDS} x {RESUME_BATCH} hypotheses: "
+          f"launches {counts['sphere_vote']}, best count {full.best_count}, {full_s:.3f} s; cut "
+          f"at {cut}, resumed equal to uninterrupted {same}")
+    check(counts["sphere_vote"] > 0, "resumable_sweep did not launch sphere_vote")
+    check(cut == RESUME_CUT * RESUME_BATCH, "[25] the checkpoint holds the wrong round")
+    check(same, "[25] the resumed sweep differs from the uninterrupted one")
+    check(full.best_count > RESUME_N // 2, "[25] the sweep found no sphere")
 
 
 def main(argv=None):
@@ -1334,11 +1662,12 @@ def main(argv=None):
                 f"subsample={subsample}", delta_f, exact=True))
 
     # 13. main path per rigid family: ransac_fused_sweep, one launch ---------
+    rigid_data13 = {}
     for family, (_, n13, groups13, (per_cell, per_hyp)) in RIGID.items():
         est_f = rigid_est(family)
         delta_f = getattr(est_f, "fused_delta", DELTA)
         name_f = f"fused_sweep_{family}"
-        data13 = rigid_data(rng, family, n13, geometry)
+        data13 = rigid_data13[family] = rigid_data(rng, family, n13, geometry)
         kernels.reset_launch_counts()
         res13 = ransac_fused_sweep(est_f, data13, gen(), num_hypotheses=groups13 * n13,
                                    device=DEVICE)
@@ -1458,7 +1787,7 @@ def main(argv=None):
     from lsqrrecipes_tpu_torch.estimators import us_calibration
     from lsqrrecipes_tpu_torch.linalg import levenberg_marquardt
 
-    us_data16 = {}
+    us_data16, consensus16 = {}, {}
     for family, (reg_name, n16, groups16, per_cell) in US.items():
         est_f = get(reg_name)(US_DELTA)
         name_f = f"fused_sweep_{family}"
@@ -1473,6 +1802,7 @@ def main(argv=None):
               f"hypotheses={hyp16} ({est_f.ls_type}): launches {counts16}")
         check_us(res16, family, family, n16)
         check(counts16[name_f] > 0, f"main path did not launch {name_f}")
+        consensus16[family] = res16.consensus
         add_launches(counts16)
 
         def run16(est_f=est_f, data16=data16, groups16=groups16, n16=n16):
@@ -2035,7 +2365,33 @@ def main(argv=None):
     print(f"    phase 22 took {phantom_s:.1f} s (budget {PHANTOM_BUDGET_S:.0f} s)")
     check(phantom_s < PHANTOM_BUDGET_S, "phase 22 overran its budget")
 
-    # 23. kernels line, card line, result line --------------------------------
+    # 23-25. the stats LM, the sharded drivers, the resumable sweep ----------
+    t_sharded = time.perf_counter()
+    cross_est = get(US["crosswire"][0])(US_DELTA)
+    phase_stats_lm(torch, dev, rng, timer, smi, (
+        cross_est, interop.data_to_torch(us_data16["crosswire"], device=dev),
+        consensus16["crosswire"]))
+    fused_cases = [("sphere3d", torch.as_tensor(cloud5, device=dev), H_FUSED // N_MAIN, DELTA)]
+    fused_cases += [(f, torch.as_tensor(clouds9[f], device=dev), H_FUSED // N_MAIN, DELTA)
+                    for f in FAMILIES]
+    fused_cases += [(f, interop.data_to_torch(rigid_data13[f], device=dev), RIGID[f][2],
+                     getattr(rigid_est(f), "fused_delta", DELTA)) for f in RIGID]
+    fused_cases += [(f, interop.data_to_torch(us_data16[f], device=dev), US[f][2], US_DELTA)
+                    for f in US]
+    pointer_est = get(US["pointer"][0])(US_DELTA)
+    phase_sharded(
+        torch, dev, timer, smi, add_launches, fused_cases,
+        (ph_est, data22_t, PHANTOM_GROUPS, chunks22),
+        (est, torch.as_tensor(cloud5, device=dev)),
+        (plane_est, torch.as_tensor(cloud10, device=dev), res10.consensus),
+        (pointer_est, interop.data_to_torch(us_data16["pointer"], device=dev),
+         consensus16["pointer"]))
+    phase_resume(torch, dev, rng, args.seed + 25, add_launches, est)
+    sharded_s = time.perf_counter() - t_sharded
+    print(f"    phases 23-25 took {sharded_s:.1f} s (budget {SHARDED_PHASES_BUDGET_S:.0f} s)")
+    check(sharded_s < SHARDED_PHASES_BUDGET_S, "phases 23-25 overran their budget")
+
+    # 26. kernels line, card line, result line --------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",

@@ -6,6 +6,8 @@
     ``valid=False`` with finite garbage parameters;
   * ``lsq_fit(data, mask=None) -> (params[P], valid)`` — least squares over
     all data or the masked consensus;
+  * ``lsq_fit_batched(data, mask=None) -> (params[B, P], valid[B])`` — B
+    independent ``lsq_fit`` problems stacked on a leading axis;
   * ``agree(params, data) -> bool[..., n]`` — the inlier predicate;
   * ``k`` / ``nparams`` — static problem sizes.
 
@@ -17,6 +19,8 @@ valid)``, whose composition is its ``lsq_fit``.
 from typing import Any, Optional, Tuple
 
 import torch
+
+from lsqrrecipes_tpu_torch.tree import tree_leaves, tree_map
 
 
 class Estimator:
@@ -33,6 +37,22 @@ class Estimator:
 
     def agree(self, params, data) -> torch.Tensor:
         raise NotImplementedError
+
+    def lsq_fit_batched(self, data, mask: Optional[torch.Tensor] = None):
+        """B independent ``lsq_fit`` refits: ``data`` is the estimator's data
+        with a leading problem axis on every leaf (``[B, n, ...]``), ``mask``
+        an optional ``[B, n]``.  Returns ``(params [B, P], valid [B])``.
+
+        The JAX package vmaps ``lsq_fit``; here the default is a loop over
+        the problems (the iterative refits ask the device when they are
+        done, which ``torch.func.vmap`` cannot trace).  Estimators whose
+        refit takes leading axes override it."""
+        results = [
+            self.lsq_fit(tree_map(lambda leaf: leaf[i], data), None if mask is None else mask[i])
+            for i in range(tree_leaves(data)[0].shape[0])
+        ]
+        return (torch.stack([p for p, _ in results]),
+                torch.stack([torch.as_tensor(v) for _, v in results]))
 
     def lsq_stats(self, data, mask: Optional[torch.Tensor] = None) -> Any:
         raise NotImplementedError(

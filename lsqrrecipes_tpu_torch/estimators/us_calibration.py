@@ -110,10 +110,11 @@ def _orthonormalize_scaled_columns(c1, c2):
 
 
 def _pinv_solve_masked3(a, b, mask, eps):
-    """``pinv_solve`` where each observation contributes 3 stacked rows."""
+    """``pinv_solve`` where each observation contributes 3 stacked rows
+    (``mask [..., n]`` may add leading axes to ``a`` and ``b``)."""
     if mask is not None:
-        m = torch.repeat_interleave(mask, 3).to(a.dtype)
-        a = a * m[:, None]
+        m = torch.repeat_interleave(mask, 3, dim=-1).to(a.dtype)
+        a = a * m[..., None]
         b = b * m
     return pinv_solve(a, b, eps)
 
@@ -157,15 +158,52 @@ _pointer_jacobian = torch.func.jacfwd(_pointer_residual)
 
 
 def _pack_crosswire(x):
-    """Minimal 11 -> the 20-parameter layout."""
-    r = _euler_zyx_matrix(x[6], x[7], x[8])
-    return torch.cat([x, x[9] * r[:, 0], x[10] * r[:, 1], r[:, 2]])
+    """Minimal 11 -> the 20-parameter layout (leading axes allowed)."""
+    r = _euler_zyx_matrix(x[..., 6], x[..., 7], x[..., 8])
+    return torch.cat([x, _rotation_block(x[..., 9], x[..., 10], r)], dim=-1)
 
 
 def _pack_pointer(x):
-    """Minimal 8 -> the 17-parameter layout."""
-    r = _euler_zyx_matrix(x[3], x[4], x[5])
-    return torch.cat([x, x[6] * r[:, 0], x[7] * r[:, 1], r[:, 2]])
+    """Minimal 8 -> the 17-parameter layout (leading axes allowed)."""
+    r = _euler_zyx_matrix(x[..., 3], x[..., 4], x[..., 5])
+    return torch.cat([x, _rotation_block(x[..., 6], x[..., 7], r)], dim=-1)
+
+
+def _lsq_fit(est, residual_fn, jac_fn, pack_fn, n_min, rows, data, mask):
+    """The analytic fit, then (ITERATIVE) Levenberg-Marquardt from its first
+    ``n_min`` parameters on the masked residuals (``rows`` per observation);
+    with leading problem axes when ``residual_fn`` and ``jac_fn`` take them."""
+    params, valid = est._analytic(data, mask)
+    if est.ls_type == ANALYTIC:
+        return params, valid
+    x0 = params[..., :n_min]
+    lm_mask = None if mask is None else torch.repeat_interleave(mask, rows, dim=-1)
+    result = levenberg_marquardt(residual_fn, jac_fn, x0, data, mask=lm_mask, config=est.lm_config)
+    x = torch.where(valid[..., None], result.x, x0)
+    return pack_fn(x), valid & result.converged
+
+
+def _lsq_fit_stats_batched(est, kind, pack_fn, n_min, data, masks=None, x0=None, config=None):
+    """B ITERATIVE refits on SHARED data through the sufficient-statistics LM
+    (:mod:`lsqrrecipes_tpu_torch.linalg.stats_lm`): one observation set, B
+    inlier masks ``[B, n]`` and/or B starts ``x0 [B, n_min]``.  Each problem's
+    Gauss-Newton structure collapses onto its feature Gram, so the solves do
+    no per-iteration work in n, unlike :meth:`lsq_fit_batched`, which
+    re-evaluates every residual and Jacobian row.  The starts are the
+    analytic fit under each mask.  Returns ``(params [B, P_full], valid [B])``."""
+    from lsqrrecipes_tpu_torch.linalg import stats_lm
+
+    if x0 is None:
+        if masks is None:
+            raise ValueError("need masks and/or x0 to define the B problems")
+        params0, valid0 = est._analytic(data, masks)
+        x0 = params0[:, :n_min]
+    else:
+        valid0 = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
+    res = stats_lm.us_feature_lm_batched(kind, data, x0, masks,
+                                         config=est.lm_config if config is None else config)
+    x = torch.where(valid0[:, None], res.x, x0)
+    return pack_fn(x), valid0 & res.converged
 
 
 def _check_ls_type(ls_type):
@@ -246,17 +284,20 @@ class CrosswireUSCalibrationEstimator(Estimator):
         return self._analytic(samples)
 
     def lsq_fit(self, data, mask=None):
-        params, valid = self._analytic(data, mask)
-        if self.ls_type == ANALYTIC:
-            return params, valid
-        x0 = params[:11]
-        result = levenberg_marquardt(
-            _crosswire_residual, _crosswire_jacobian, x0, data,
-            mask=None if mask is None else torch.repeat_interleave(mask, 3),
-            config=self.lm_config,
-        )
-        x = torch.where(valid, result.x, x0)
-        return _pack_crosswire(x), valid & result.converged
+        return _lsq_fit(self, _crosswire_residual, _crosswire_jacobian, _pack_crosswire, 11, 3,
+                        data, mask)
+
+    def lsq_fit_batched(self, data, mask=None):
+        """``lsq_fit`` of B problems stacked on a leading axis (``data``
+        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
+        return _lsq_fit(self, torch.func.vmap(_crosswire_residual),
+                        torch.func.vmap(_crosswire_jacobian),
+                        _pack_crosswire, 11, 3, data, mask)
+
+    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
+        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
+        return _lsq_fit_stats_batched(self, "crosswire", _pack_crosswire, 11, data, masks, x0,
+                                      config)
 
     def agree(self, params, data):
         """``|T2 (R3 S q + t3) - t1|^2 < delta^2`` (``SinglePointTarget...cxx:74-107``)."""
@@ -332,17 +373,18 @@ class PointerUSCalibrationEstimator(Estimator):
         return self._analytic(samples)
 
     def lsq_fit(self, data, mask=None):
-        params, valid = self._analytic(data, mask)
-        if self.ls_type == ANALYTIC:
-            return params, valid
-        x0 = params[:8]
-        result = levenberg_marquardt(
-            _pointer_residual, _pointer_jacobian, x0, data,
-            mask=None if mask is None else torch.repeat_interleave(mask, 3),
-            config=self.lm_config,
-        )
-        x = torch.where(valid, result.x, x0)
-        return _pack_pointer(x), valid & result.converged
+        return _lsq_fit(self, _pointer_residual, _pointer_jacobian, _pack_pointer, 8, 3, data, mask)
+
+    def lsq_fit_batched(self, data, mask=None):
+        """``lsq_fit`` of B problems stacked on a leading axis (``data``
+        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
+        return _lsq_fit(self, torch.func.vmap(_pointer_residual),
+                        torch.func.vmap(_pointer_jacobian),
+                        _pack_pointer, 8, 3, data, mask)
+
+    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
+        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
+        return _lsq_fit_stats_batched(self, "pointer", _pack_pointer, 8, data, masks, x0, config)
 
     def agree(self, params, data):
         """``|T2 T3 q - p|^2 < delta^2`` (``SinglePointTarget...cxx:728-761``)."""
@@ -415,10 +457,10 @@ def _plane_phantom_derived(r1_row3, t3, r3, m_x, m_y):
 
 
 def _pack_phantom(x):
-    """Minimal 11 -> the 41-parameter layout."""
-    r3 = _euler_zyx_matrix(x[6], x[7], x[8])
-    return torch.cat([x, _plane_phantom_derived(_plane_normal(x[0], x[1]), x[3:6], r3,
-                                                x[9], x[10])])
+    """Minimal 11 -> the 41-parameter layout (leading axes allowed)."""
+    r3 = _euler_zyx_matrix(x[..., 6], x[..., 7], x[..., 8])
+    return torch.cat([x, _plane_phantom_derived(_plane_normal(x[..., 0], x[..., 1]), x[..., 3:6],
+                                                r3, x[..., 9], x[..., 10])], dim=-1)
 
 
 @register("us_plane_phantom")
@@ -493,14 +535,20 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
         return self._analytic(samples)
 
     def lsq_fit(self, data, mask=None):
-        params, valid = self._analytic(data, mask)
-        if self.ls_type == ANALYTIC:
-            return params, valid
-        x0 = params[:11]
-        result = levenberg_marquardt(_plane_phantom_residual, _plane_phantom_jacobian, x0, data,
-                                     mask=mask, config=self.lm_config)
-        x = torch.where(valid, result.x, x0)
-        return _pack_phantom(x), valid & result.converged
+        return _lsq_fit(self, _plane_phantom_residual, _plane_phantom_jacobian, _pack_phantom,
+                        11, 1, data, mask)
+
+    def lsq_fit_batched(self, data, mask=None):
+        """``lsq_fit`` of B problems stacked on a leading axis (``data``
+        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
+        return _lsq_fit(self, torch.func.vmap(_plane_phantom_residual),
+                        torch.func.vmap(_plane_phantom_jacobian),
+                        _pack_phantom, 11, 1, data, mask)
+
+    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
+        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
+        return _lsq_fit_stats_batched(self, "plane_phantom", _pack_phantom, 11, data, masks, x0,
+                                      config)
 
     def agree(self, params, data):
         """``err^2 < delta^2`` with the plane distance ``err = vec(R2) . (u m1

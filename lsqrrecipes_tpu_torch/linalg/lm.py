@@ -135,8 +135,10 @@ def levenberg_marquardt(
     mask: Optional[torch.Tensor] = None,
     config: LMConfig = LMConfig(),
 ) -> LMResult:
-    """Minimize ``0.5 * || mask * residual_fn(x, data) ||^2`` from ``x0[p]``;
-    ``jac_fn(x, data) -> J[m, p]``."""
+    """Minimize ``0.5 * || mask * residual_fn(x, data) ||^2`` from ``x0[..., p]``;
+    ``residual_fn(x, data) -> r[..., m]`` and ``jac_fn(x, data) -> J[..., m,
+    p]`` (problems batched over the leading axes of ``x0``, ``mask`` and what
+    the two functions return)."""
 
     def masked_residual(x):
         r = residual_fn(x, data)
@@ -150,7 +152,7 @@ def levenberg_marquardt(
         r = masked_residual(x)
         j = jac_fn(x, data)
         if mask is not None:
-            j = j * mask.to(j.dtype)[:, None]
-        return j.T @ j, j.T @ r
+            j = j * mask.to(j.dtype)[..., None]
+        return j.mT @ j, (j.mT @ r[..., None])[..., 0]
 
     return lm_core(normal_system, cost_of, x0, config)

@@ -95,13 +95,17 @@ def _agree_counts(est, params, data):
     return torch.cat(out)
 
 
-def _vote(est, params, valid, data):
-    """Counts of a hypothesis batch, -1 where the minimal fit is degenerate:
-    the estimator's ``vote_counts`` if it has one, else ``agree`` sums."""
+def vote_counts(est, params, data):
+    """Counts of a hypothesis batch: the estimator's ``vote_counts`` if it
+    has one, else ``agree`` sums."""
     if hasattr(est, "vote_counts"):
-        counts = est.vote_counts(params, data)
-    else:
-        counts = _agree_counts(est, params, data)
+        return est.vote_counts(params, data)
+    return _agree_counts(est, params, data)
+
+
+def _vote(est, params, valid, data):
+    """:func:`vote_counts`, -1 where the minimal fit is degenerate."""
+    counts = vote_counts(est, params, data)
     return torch.where(valid, counts, torch.full_like(counts, -1))
 
 

@@ -678,10 +678,13 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "lsqrrecipes_tpu"), f"{path}: imports {mod}"
-    # Importing the phantom slice in a fresh interpreter loads neither either.
+    # Importing the phantom slice, the stats LM, the sharded drivers and the
+    # checkpoints in a fresh interpreter loads neither either.
     code = ("import sys\n"
             "import lsqrrecipes_tpu_torch.ops.phantom_qr, lsqrrecipes_tpu_torch.ops.us_fast\n"
             "import lsqrrecipes_tpu_torch.estimators, lsqrrecipes_tpu_torch.interop\n"
+            "import lsqrrecipes_tpu_torch.linalg.stats_lm, lsqrrecipes_tpu_torch.parallel\n"
+            "import lsqrrecipes_tpu_torch.ransac.checkpoint\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsqrrecipes_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
