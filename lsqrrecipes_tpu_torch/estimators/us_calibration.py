@@ -177,7 +177,7 @@ def _lsq_fit(est, residual_fn, jac_fn, pack_fn, n_min, rows, data, mask):
     if est.ls_type == ANALYTIC:
         return params, valid
     x0 = params[..., :n_min]
-    lm_mask = None if mask is None else torch.repeat_interleave(mask, rows, dim=-1)
+    lm_mask = mask if mask is None or rows == 1 else torch.repeat_interleave(mask, rows, dim=-1)
     result = levenberg_marquardt(residual_fn, jac_fn, x0, data, mask=lm_mask, config=est.lm_config)
     x = torch.where(valid[..., None], result.x, x0)
     return pack_fn(x), valid & result.converged

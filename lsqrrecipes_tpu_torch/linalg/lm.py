@@ -153,6 +153,8 @@ def levenberg_marquardt(
         j = jac_fn(x, data)
         if mask is not None:
             j = j * mask.to(j.dtype)[..., None]
+        if j.dim() == 2:        # one problem: the matrix-vector product
+            return j.T @ j, j.T @ r
         return j.mT @ j, (j.mT @ r[..., None])[..., 0]
 
     return lm_core(normal_system, cost_of, x0, config)

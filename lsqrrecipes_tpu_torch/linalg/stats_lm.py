@@ -218,22 +218,38 @@ def _zero_at(m, const_idx):
     return m
 
 
-def _centered_problem(w_fn, h, wts, const_idx):
+def _centered_problem(w_fn, h, wts, const_idx, reduce=lambda t: t):
     """Exact feature centering against the constant column.
 
     The raw Gram mixes features of scale 1e2-1e3, so ``0.5 tr(W H W^T)``
     cancels 6-8 digits against a noise-scale cost.  ``h'_j = h_j - m_j
     h_const`` with ``W' = W S`` (``S = I + m e_const^T``) is an exact change
     of basis (``W' h' == W h``) that shrinks the Gram to the data's
-    variance; it is a convergence fix, not a device workaround."""
-    m = (wts @ h) / torch.clamp_min(torch.sum(wts), 1.0)
-    m = _zero_at(m, const_idx)
+    variance; it is a convergence fix, not a device workaround.
+
+    ``m`` is the weighted feature sum over its constant entry (the weight
+    total, the constant feature being 1).  ``reduce`` sums a tensor over the
+    processes holding the other observations: it is applied to the ``[F]``
+    feature sum and to the centered ``[F, F]`` Gram."""
+    s = reduce(wts @ h)
+    m = _zero_at(s / torch.clamp_min(s[const_idx], 1.0), const_idx)
     hc = h - m[None, :] * h[:, const_idx : const_idx + 1]
 
     def w_fn_c(x):
         return shift_constant(w_fn(x), m, const_idx)
 
-    return w_fn_c, _gram(hc, wts)
+    return w_fn_c, reduce(_gram(hc, wts))
+
+
+def centered_stats(kind, data, mask=None, reduce=lambda t: t):
+    """``(W', H')``: the centered coefficient map and Gram of ``kind``'s
+    objective on ``data`` (:func:`_centered_problem`), ``mask [n]``
+    optional.  With ``reduce``, a sum over the processes holding the rest of
+    the observations, ``data`` is one block of them and the result is the
+    problem of the whole."""
+    w_fn, _, feats_fn, const_idx = _OBJECTIVES[kind]
+    h = feats_fn(data)
+    return _centered_problem(w_fn, h, _weights(h, mask), const_idx, reduce)
 
 
 def centered_from_gram(w_fn, g_raw, const_idx):
@@ -267,9 +283,7 @@ def us_feature_lm(
     config: LMConfig = LMConfig(),
 ) -> LMResult:
     """One ultrasound-calibration LM refit from centered sufficient statistics."""
-    w_fn, _, feats_fn, const_idx = _OBJECTIVES[kind]
-    h = feats_fn(data)
-    w_fn_c, gram = _centered_problem(w_fn, h, _weights(h, mask), const_idx)
+    w_fn_c, gram = centered_stats(kind, data, mask)
     return feature_lm(w_fn_c, gram, x0, config)
 
 
@@ -287,12 +301,11 @@ def us_feature_lm_batched(
     the shared features; the B solves run in lockstep with no per-iteration
     work in n.
     """
+    if masks is None:
+        w_fn_c, gram = centered_stats(kind, data)
+        return feature_lm_planar(w_fn_c, gram.expand(x0.shape[0], *gram.shape), x0, config)
     w_fn, _, feats_fn, const_idx = _OBJECTIVES[kind]
     h = feats_fn(data)
-    b = x0.shape[0]
-    if masks is None:
-        w_fn_c, gram = _centered_problem(w_fn, h, _weights(h, None), const_idx)
-        return feature_lm_planar(w_fn_c, gram.expand(b, *gram.shape), x0, config)
 
     # Per-problem exact centering in two stages.  Stage 1 centers the
     # features on the global mean m_g (no raw-scale cancellation when the

@@ -44,7 +44,6 @@ def sharded_fused_sweep(
     vote_subsample: int = 0,
     *,
     perms=None,
-    vote_perms=None,
     device=None,
 ):
     """The whole fused sweep over a mesh -> ``(best_count int32[],
@@ -52,10 +51,11 @@ def sharded_fused_sweep(
 
     ``total_groups`` is the global budget: each of the H processes runs
     ``ceil(total_groups / H)`` groups.  Each process draws its slot-plane
-    permutations from a generator of its own (:func:`_rank_generator`), or
-    takes ``perms[rank]`` (``[H, 4 k_slots, n_fit]``) and, with
-    ``vote_subsample``, ``vote_perms[rank]`` (``[H, n]``).  On CPU tensors
-    each process runs the kernel's plain version, as ``fused_sweep`` does."""
+    permutations, and with ``vote_subsample`` its vote order, from a
+    generator of its own (:func:`_rank_generator`), or takes its slot-plane
+    permutations from ``perms[rank]`` (``[H, 4 k_slots, n_fit]``).  On CPU
+    tensors each process runs the kernel's plain version, as ``fused_sweep``
+    does."""
     from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 
     data = as_tensor(data, device)
@@ -63,11 +63,9 @@ def sharded_fused_sweep(
     mesh = mesh if mesh is not None else default_mesh((hypotheses_axis,), device_type=dev.type)
     h, rank = axis_size(mesh, hypotheses_axis), axis_rank(mesh, hypotheses_axis)
     group = axis_group(mesh, hypotheses_axis)
-    rank_gen = None if perms is not None else _rank_generator(generator, rank, dev)
     count, params = fs.fused_sweep(
-        family, data, rank_gen, -(-total_groups // h), delta, vote_subsample=vote_subsample,
-        perms=None if perms is None else perms[rank],
-        vote_perm=None if vote_perms is None else vote_perms[rank],
+        family, data, _rank_generator(generator, rank, dev), -(-total_groups // h), delta,
+        vote_subsample=vote_subsample, perms=None if perms is None else perms[rank],
     )
     counts = all_gather_cat(count.reshape(1), group, h)
     winner = torch.argmax(counts)                        # lowest rank wins ties

@@ -191,8 +191,9 @@ def sharded_us_feature_lm(kind, data, x0, mask=None, config=None, mesh=None,
     all-reduces, independent of the observation and iteration counts: the
     ``[F]`` weighted feature sum (the global centering mean), then the
     ``[F, F]`` Gram of the centered features; every process then runs the
-    same solve.  Centering the features before the Gram is built keeps the
-    local ``_centered_problem``'s precision (the one-reduction raw-Gram
+    same solve (:func:`stats_lm.centered_stats` with a Sum all-reduce).
+    Centering the features before the Gram is built keeps the unsharded
+    refit's precision (the one-reduction raw-Gram
     congruence, ``stats_lm.centered_from_gram``, perturbs it by
     ``eps * (raw scale)``).  Returns a replicated ``LMResult``."""
     data = as_tensor(data, device)
@@ -221,23 +222,13 @@ def build_sharded_us_feature_lm(kind, x0, config=None, mesh=None, data_axis: str
     size, rank, group = axis_size(mesh, data_axis), axis_rank(mesh, data_axis), \
         axis_group(mesh, data_axis)
     n_leaves = len(tree_leaves(data_tree))
-    w_fn, _, feats_fn, const_idx = stats_lm._OBJECTIVES[kind]
 
     def run(data, mask=None):
         if len(tree_leaves(data)) != n_leaves:
             raise ValueError("data does not have the structure of data_tree")
-        h = feats_fn(_block(data, rank, size))
-        wts = stats_lm._weights(h, None if mask is None else _block(mask, rank, size))
-        # The global weighted mean: the constant feature is 1, so the weight
-        # total is the summed sum's constant entry.
-        s = all_reduce_sum(wts @ h, group)
-        m = stats_lm._zero_at(s / torch.clamp_min(s[const_idx], 1.0), const_idx)
-        hc = h - m[None, :] * h[:, const_idx : const_idx + 1]
-        gram = all_reduce_sum(stats_lm._gram(hc, wts), group)
-
-        def w_fn_c(x):
-            return stats_lm.shift_constant(w_fn(x), m, const_idx)
-
-        return stats_lm.feature_lm(w_fn_c, gram, as_tensor(x0, h.device, h.dtype), config)
+        w_fn_c, gram = stats_lm.centered_stats(
+            kind, _block(data, rank, size), None if mask is None else _block(mask, rank, size),
+            lambda t: all_reduce_sum(t, group))
+        return stats_lm.feature_lm(w_fn_c, gram, as_tensor(x0, gram.device, gram.dtype), config)
 
     return run

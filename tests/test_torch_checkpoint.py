@@ -4,13 +4,16 @@ of ``tests/multiprocess_worker.py``).
 
 The two packages' random streams differ (a threefry key there, a
 ``torch.Generator`` state here), so these tests hold the port to the JAX
-package's contract rather than to its numbers: an interrupted sweep resumed
-from its ``.npz`` equals the uninterrupted one in ``evaluated``,
-``best_count``, mask and params; the carried stream after r rounds does not
-depend on the batch size; in a two-process gloo group only rank 0 writes
-and both processes resume to the uninterrupted result; and a checkpoint
-written by the JAX package is refused.  The worker function lives at module
-level and this module imports JAX only inside the test that needs it.
+package's contract and, on the indices the port draws, to its vote: an
+interrupted sweep resumed from its ``.npz`` equals the uninterrupted one in
+``evaluated``, ``best_count``, mask and params; both equal the JAX
+package's ``hypothesize_and_vote`` on each round's indices, folded round by
+round with the first round of the highest count winning; the carried
+stream after r rounds does not depend on the batch size; in a two-process
+gloo group only rank 0 writes and both processes resume to the
+uninterrupted result; and a checkpoint written by the JAX package is
+refused.  The worker function lives at module level and this module
+imports JAX only inside the tests that need it.
 """
 
 import datetime
@@ -89,6 +92,56 @@ def test_sweep_resume_equivalence(tmp_path, case):
     assert torch.equal(full.best_mask, est.agree(full.best_params, pts))
     params, ok = engine.consensus_refit(est, pts, resumed.best_mask)
     assert bool(ok) and bool(torch.isfinite(params).all())
+
+
+def jax_fold(case, pts, rounds):
+    """The JAX package's ``hypothesize_and_vote`` on each round's indices,
+    folded as its ``resumable_sweep`` folds rounds: the first round with the
+    highest count keeps its count, mask and params."""
+    import jax.numpy as jnp
+
+    from lsqrrecipes_tpu import estimators as jestimators
+    from lsqrrecipes_tpu.ransac import engine as jengine
+
+    est = {"line2d": lambda: jestimators.Line2DEstimator(1.5),
+           "sphere": lambda: jestimators.SphereEstimator(1.0, 3)}[case]()
+    best = (-1, None, None)
+    for idx in rounds:
+        count, mask, params = jengine.hypothesize_and_vote(est, jnp.asarray(pts.numpy()),
+                                                           jnp.asarray(idx.numpy()))
+        if int(count) > best[0]:
+            best = (int(count), np.asarray(mask), np.asarray(params))
+    return best
+
+
+@pytest.mark.parametrize("resumed", [False, True], ids=["uninterrupted", "resumed"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_sweep_result_matches_the_jax_package_on_its_indices(monkeypatch, tmp_path, case,
+                                                            resumed):
+    """The streams differ, so the ``[b, k]`` indices the port draws each
+    round are recorded and the JAX package's vote is folded over them: the
+    port's best count and mask are equal to that fold, its params within the
+    JAX parity tests' tolerance (1e-10 in f64, 1e-5 in f32)."""
+    make_est, make_data, total, batch = CASES[case]
+    est, pts = make_est(), make_data()
+    rounds, sample = [], engine._sample
+    monkeypatch.setattr(engine, "_sample",
+                        lambda *args, **kw: rounds.append(sample(*args, **kw)) or rounds[-1])
+    gen = torch.Generator().manual_seed(7)
+    if resumed:
+        ckpt = str(tmp_path / "sweep.npz")
+        resumable_sweep(est, pts, gen, total_hypotheses=2 * batch, batch_size=batch,
+                        checkpoint_path=ckpt)
+        state = resumable_sweep(est, pts, gen, total_hypotheses=total, batch_size=batch,
+                                checkpoint_path=ckpt)
+    else:
+        state = resumable_sweep(est, pts, gen, total_hypotheses=total, batch_size=batch)
+    assert [tuple(idx.shape) for idx in rounds] == [(batch, est.k)] * (total // batch)
+    count, mask, params = jax_fold(case, pts, rounds)
+    assert state.best_count == count
+    np.testing.assert_array_equal(state.best_mask.numpy(), mask)
+    tol = 1e-10 if pts.dtype == torch.float64 else 1e-5
+    np.testing.assert_allclose(state.best_params.numpy(), params, rtol=tol, atol=tol)
 
 
 def test_state_roundtrip(tmp_path):

@@ -41,7 +41,7 @@ US_KINDS = ("crosswire", "pointer", "plane_phantom")
 FEATURES = {"pointer": 6, "crosswire": 15, "plane_phantom": 31}
 N_US = 64
 US_GROUPS = 8
-FUSED_N, FUSED_GROUPS = 256, 8
+FUSED_N, FUSED_GROUPS, FUSED_SUBSAMPLE = 256, 8, 128
 JOIN_TIMEOUT_S = 240
 
 
@@ -225,6 +225,16 @@ def _four_rank_worker(rank, world, store, inputs, out_dir):
         per_rank = fs.fused_sweep("sphere3d", torch.as_tensor(pts), None, FUSED_GROUPS // world,
                                   1.0, perms=perms[rank])
         out["fused"] = (int(count), params.numpy(), int(per_rank[0]), per_rank[1].numpy())
+        subsampled = [fused.sharded_fused_sweep(
+            "sphere3d", torch.as_tensor(pts), torch.Generator().manual_seed(5), FUSED_GROUPS,
+            1.0, hyp_mesh, vote_subsample=FUSED_SUBSAMPLE, perms=perms) for _ in range(2)]
+        rank_gen = fused._rank_generator(torch.Generator().manual_seed(5), rank,
+                                         torch.device("cpu"))
+        per_rank = fs.fused_sweep("sphere3d", torch.as_tensor(pts), rank_gen,
+                                  FUSED_GROUPS // world, 1.0, vote_subsample=FUSED_SUBSAMPLE,
+                                  perms=perms[rank])
+        out["fused/subsample"] = ([(int(c), p.numpy()) for c, p in subsampled],
+                                  int(per_rank[0]), per_rank[1].numpy())
     out["audit"] = (audit.reduces, audit.gathers, ransac_reduces)
     torch.distributed.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
@@ -514,6 +524,21 @@ def test_sharded_fused_sweep_matches_per_rank_sweeps_and_jax(four):
     gap = np.abs(fits - pj).max(axis=1)
     assert int(np.argmin(gap)) == port_index
     assert gap[port_index] <= 1e-4 * np.abs(pj).max()
+
+
+def test_sharded_fused_sweep_subsample_votes_in_the_rank_generators_order(four):
+    """With ``vote_subsample``, explicit slot-plane ``perms`` leave the vote
+    order to each rank's generator: a generator seeded alike repeats the
+    sweep, and the winner is the best of the per-rank sweeps with that
+    rank's generator, the lowest rank first."""
+    _, results = four
+    per_rank = [res["fused/subsample"][1:] for res in results]
+    winner = int(np.argmax([c for c, _ in per_rank]))
+    assert per_rank[winner][0] > FUSED_SUBSAMPLE // 2
+    for res in results:
+        for count, params in res["fused/subsample"][0]:
+            assert count == per_rank[winner][0]
+            np.testing.assert_array_equal(params, per_rank[winner][1])
 
 
 def test_collectives_are_sum_reduces_and_gathers(four):
