@@ -151,7 +151,21 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      65,536 gathered hypotheses (B2 per round), cut after 2 rounds and
      resumed from its ``.npz``: equal to the uninterrupted sweep in
      ``evaluated``, best count, mask, params and generator state (phases
-     23-25 under 90 s).
+     23-25 under 90 s);
+ 26. the host layers: ``cli.main(["info"])`` (the card's name, all eleven
+     estimators); ``cli.main(["bench", ...])`` at phase 5's 2^22 hypotheses
+     on n = 1,024 (exactly two sphere3d launches, warm and timed, the
+     centre within 1.0, inlier fraction >= 0.75; then the bench's call on
+     its cloud, median wall of 10 and a profile), and once more inside
+     ``utils.profiling.trace``, whose Chrome trace must name
+     ``sphere3d_kernel``; the three ``synthetic`` generators on a CUDA
+     generator at n = 1,024, each clean set's ANALYTIC fit within the JAX
+     tests' limits; every example through ``main(["--device", "cuda",
+     ...])`` in a temporary directory, the three data-reading ones on
+     reference-format files with 20% outliers, their ``.iv`` and XML
+     artifacts checked as ``tests/test_examples.py`` checks them, the
+     showcase launching B1 sphere3d, B3 pivot and B3 absolute_orientation
+     and ``sphere_estimation`` B2 (under 60 s).
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -366,6 +380,22 @@ STATS_CHECK_TOL = 1e-5
 # 65,536 gathered hypotheses, cut after 2 of its 4 rounds.
 RESUME_N, RESUME_BATCH, RESUME_ROUNDS, RESUME_CUT = 1024, 65536, 4, 2
 SHARDED_PHASES_BUDGET_S = 90.0     # phases 23-25 together
+# Phase 26: the host layers.  The CLI's bench at phase 5's width; the three
+# synthetic generators at n = 1,024 (their ANALYTIC fits held to the JAX
+# tests' limits, tests/test_us_calibration.py:34-36, 153: translations 1.0
+# (phantom 3.0), rotation 1 degree (5), scales 1.0); every example, the
+# data-reading three on reference-format files with 20% outliers, their
+# estimates held to the truth of those files (examples/common.py).  Every
+# kernel launch of the CLI's first bench and of the examples is checked
+# against its plain version on the same card tensors, on a budget of its own.
+HOST_N = 1024
+HOST_LIMITS = {"crosswire": (1.0, 1.0, 1.0), "pointer": (1.0, 1.0, 1.0),
+               "plane_phantom": (3.0, 5.0, 1.0)}
+EXAMPLE_KERNELS = {"fused_sweep_showcase": ("fused_sweep_sphere3d", "fused_sweep_pivot",
+                                            "fused_sweep_absolute_orientation"),
+                   "sphere_estimation": ("sphere_vote",)}
+HOST_PHASE_BUDGET_S = 60.0         # phase 26, without the plain versions
+HOST_COMPARE_BUDGET_S = 120.0      # phase 26's plain versions
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -708,25 +738,31 @@ def bound(ops, nbytes, rates):
 
 
 def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, voters, label,
-                  delta=DELTA, exact=False):
+                  delta=DELTA, exact=False, kernel=None):
     """One launch of the family's sweep kernel against its plain version on
     the same inputs: best count within 1, the kernel's winner re-achieving
     its count under ``agree`` within 1, and, where the winner indices match,
     the parameters equal bit for bit (``exact``: equal counts and indices
     as well).  Returns the largest absolute error.  ``voters`` is the data
     (a tensor or a tree of tensors) the kernel voted on; a family's kernel
-    rows are converted as ``fused_sweep`` does."""
-    kc, kp, ki = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta)
+    rows are converted as ``fused_sweep`` does.  ``kernel``: the result of
+    a launch already made on these inputs, checked in place of a new one;
+    with ``est`` None the re-achieve check is left out."""
+    if kernel is None:
+        kernel = fs.sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta)
+    kc, kp, ki = kernel
     pc, pp_, pi = fs.sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta)
     kc, pc, ki, pi = int(kc), int(pc), int(ki), int(pi)
     from lsqrrecipes_tpu_torch.tree import tree_leaves
 
     post = fs._POSTPROCESS.get(family, lambda rows: rows)
-    regain = int(est.agree(post(kp).to(tree_leaves(voters)[0].dtype), voters).sum())
+    regain = (kc if est is None
+              else int(est.agree(post(kp).to(tree_leaves(voters)[0].dtype), voters).sum()))
     d_count = abs(kc - pc)
     params_err = float((kp - pp_).abs().max()) if ki == pi else None
-    print(f"{label}: count kernel={kc} plain={pc} agree={regain}; "
-          f"index kernel={ki} plain={pi}"
+    print(f"{label}: count kernel={kc} plain={pc}"
+          + (f" agree={regain}" if est is not None else "")
+          + f"; index kernel={ki} plain={pi}"
           + (f"; params max|d|={params_err:.3g}" if params_err is not None else ""))
     check(d_count <= 1, f"{label}: fused sweep count disagrees with its plain version")
     check(abs(regain - kc) <= 1, f"{label}: fused sweep winner does not re-achieve its count")
@@ -1168,6 +1204,256 @@ def phase_resume(torch, dev, rng, seed, add_launches, est):
     check(cut == RESUME_CUT * RESUME_BATCH, "[25] the checkpoint holds the wrong round")
     check(same, "[25] the resumed sweep differs from the uninterrupted one")
     check(full.best_count > RESUME_N // 2, "[25] the sweep found no sphere")
+
+
+def synthetic_errors(kind, params, truth):
+    """(max translation error, rotation error in degrees, max scale error)
+    of an ANALYTIC fit against a synthetic generator's truth."""
+    x = params.double().cpu().numpy()
+    t = {k: v.double().cpu().numpy() for k, v in truth.items()}
+    if kind == "plane_phantom":
+        return phantom_errors(x, {"normal": t["r1_row3"], "t1_z": float(t["t1_z"]),
+                                  "t3": t["t3"], "r3": t["r3"]})
+    trans = [x[0:3] - t["t1"]] if kind == "crosswire" else []
+    if kind == "crosswire":
+        x = x[3:]
+    trans.append(x[0:3] - t["t3"])
+    cos = (np.trace(euler_np(*x[3:6]).T @ t["r3"]) - 1.0) / 2.0
+    angle = float(np.degrees(np.arccos(np.clip(cos, -1.0, 1.0))))
+    return (float(np.abs(np.concatenate(trans)).max()), angle,
+            float(np.abs(x[6:8] - [US_MX, US_MY]).max()))
+
+
+def run_captured(fn, *args):
+    """``fn(*args)`` with its standard output captured -> (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    return result, buf.getvalue()
+
+
+class LaunchRecorder:
+    """While active, keeps every fused sweep and sphere vote launch made
+    through the wrappers (``fused_sweep.sweep_cuda``,
+    ``vote.sphere_vote_counts_cuda``): copies of its inputs and the
+    kernel's result, for :meth:`compare` to hold against the plain
+    versions once the path has run."""
+
+    def __init__(self):
+        from lsqrrecipes_tpu_torch.ops import fused_sweep, vote
+
+        self.fs, self.vote = fused_sweep, vote
+        self.sweeps, self.votes = [], []
+
+    def __enter__(self):
+        self.saved = (self.fs.sweep_cuda, self.vote.sphere_vote_counts_cuda)
+        sweep_cuda, vote_cuda = self.saved
+
+        def record_sweep(family, coords, p, n_fit, num_groups, vote_cols, delta):
+            out = sweep_cuda(family, coords, p, n_fit, num_groups, vote_cols, delta)
+            self.sweeps.append((family, coords.clone(), p.clone(), n_fit, num_groups,
+                                vote_cols, delta, tuple(t.clone() for t in out)))
+            return out
+
+        def record_vote(params, points_t, valid, delta):
+            out = vote_cuda(params, points_t, valid, delta)
+            self.votes.append((params.clone(), points_t.clone(), valid.clone(), delta,
+                               out.clone()))
+            return out
+
+        self.fs.sweep_cuda, self.vote.sphere_vote_counts_cuda = record_sweep, record_vote
+        return self
+
+    def __exit__(self, *exc):
+        self.fs.sweep_cuda, self.vote.sphere_vote_counts_cuda = self.saved
+
+    def recorded(self):
+        """Launches kept, by kernel name."""
+        counts = {}
+        for rec in self.sweeps:
+            counts[f"fused_sweep_{rec[0]}"] = counts.get(f"fused_sweep_{rec[0]}", 0) + 1
+        if self.votes:
+            counts["sphere_vote"] = len(self.votes)
+        return counts
+
+    def compare(self, label):
+        """Every launch kept against its plain version on the same card
+        tensors, as phases 3, 4, 12 and 13 hold them: sweeps by
+        :func:`compare_sweep` (exact where those phases are), votes equal
+        count for count.  Clears the record; returns the largest error by
+        kernel name."""
+        from lsqrrecipes_tpu_torch import kernels
+
+        errs = {}
+        for family, coords, p, n_fit, num_groups, vote_cols, delta, out in self.sweeps:
+            name = f"fused_sweep_{family}"
+            exact = (family == "sphere3d" or family in kernels.RIGID_FAMILIES
+                     or family in EXACT_POINT_SWEEPS)
+            err = compare_sweep(self.fs, family, None, coords, p, n_fit, num_groups, vote_cols,
+                                None, f"    {label} {name} {num_groups * n_fit} hypotheses "
+                                f"n_fit={n_fit}", delta=delta, exact=exact, kernel=out)
+            errs[name] = max(errs.get(name, 0.0), err)
+        for params, points_t, valid, delta, out in self.votes:
+            plain = self.vote.sphere_vote_counts_plain(params, points_t, valid, delta)
+            err = int((out.long() - plain.long()).abs().max()) if out.numel() else 0
+            print(f"    {label} sphere_vote B={params.shape[0]} n={points_t.shape[1]}: "
+                  f"max|kernel-plain|={err} (must be 0)")
+            check(err == 0, f"[26] {label}: sphere_vote disagrees with its plain version")
+            errs["sphere_vote"] = max(errs.get("sphere_vote", 0), err)
+        self.sweeps, self.votes = [], []
+        return errs
+
+
+def phase_host_layers(torch, dev, seed, add_launches, name, timer, smi):
+    """Phase 26: the CLI (``info``, ``bench`` at phase 5's width, once inside
+    ``utils.profiling.trace``, and the bench's call timed and profiled), the
+    synthetic generators on a CUDA generator and every example on the card,
+    in a temporary directory.  Each kernel launch of the first bench and of
+    the examples is held against its plain version on the same inputs, and
+    the data-reading examples' estimates against the truth of their files.
+    Returns the largest kernel-vs-plain error by kernel name."""
+    import contextlib
+    import importlib
+    import os
+    import tempfile
+
+    from lsqrrecipes_tpu_torch import cli, kernels, synthetic
+    from lsqrrecipes_tpu_torch.estimators import ANALYTIC, get
+    from lsqrrecipes_tpu_torch.examples.common import (
+        EXAMPLE_ARTIFACTS,
+        READS_DATA,
+        check_iv,
+        check_xml,
+        estimate_errors,
+        reference_format_truth,
+        write_reference_format_data,
+    )
+    from lsqrrecipes_tpu_torch.utils.profiling import trace
+
+    recorder, plain_errs, compare_s = LaunchRecorder(), {}, 0.0
+
+    def compare(label, counts):
+        """Check that the recorder kept every launch counted, then hold
+        them against the plain versions, off the phase's clock."""
+        nonlocal compare_s
+        launched = {k: v for k, v in counts.items() if v}
+        check(recorder.recorded() == launched,
+              f"[26] {label}: launches {launched}, recorded {recorder.recorded()}")
+        t0 = time.perf_counter()
+        for k, e in recorder.compare(label).items():
+            plain_errs[k] = max(plain_errs.get(k, 0), e)
+        compare_s += time.perf_counter() - t0
+
+    t_host = time.perf_counter()
+    rc, out = run_captured(cli.main, ["info"])
+    registry = [line for line in out.splitlines() if line.startswith("  ")]
+    print(f"[26] cli info: rc {rc}, {len(registry)} estimators; "
+          f"{out.splitlines()[1] if len(out.splitlines()) > 1 else ''}")
+    check(rc == 0 and name in out and len(registry) == 11, "[26] cli info is incomplete")
+
+    bench_args = ["bench", "--hypotheses", str(H_FUSED), "--n", str(N_MAIN)]
+    kernels.reset_launch_counts()
+    with recorder:
+        rc, out = run_captured(cli.main, bench_args)
+    counts = kernels.launch_counts()
+    add_launches(counts)
+    payload = json.loads(out.strip().splitlines()[-1])
+    print(f"    cli bench --hypotheses {H_FUSED} --n {N_MAIN}: {json.dumps(payload)}; "
+          f"fused_sweep_sphere3d launches {counts['fused_sweep_sphere3d']}")
+    check(rc == 0, "[26] cli bench failed")
+    check(counts["fused_sweep_sphere3d"] == 2, "[26] cli bench did not launch the sphere "
+          "sweep exactly twice (warm and timed)")
+    check(payload["center_error"] < 1.0 and payload["inlier_fraction"] >= 0.75,
+          "[26] cli bench did not recover the sphere")
+    compare("cli bench", counts)
+    # The bench's timed call on its own cloud: median wall and one profile.
+    from lsqrrecipes_tpu_torch.estimators import SphereEstimator
+    from lsqrrecipes_tpu_torch.ransac import ransac_fused_sweep
+
+    pts, _ = cli.bench_cloud(torch.Generator(device=dev).manual_seed(0), N_MAIN, dev)
+    bench_est = SphereEstimator(delta=0.5, dim=3)
+
+    def bench_call():
+        return ransac_fused_sweep(bench_est, pts, torch.Generator(device=dev).manual_seed(7),
+                                  num_hypotheses=H_FUSED)
+
+    wall = timer.wall_ms(bench_call, reps=WALL_REPS)
+    print(f"    the bench's call: wall {wall:.3f} ms median of {WALL_REPS}, "
+          f"{H_FUSED / wall * 1e3:.4g} hypotheses/s [{smi}]")
+    breakdown(torch, bench_call, "cli bench")
+    with tempfile.TemporaryDirectory() as tmp:
+        kernels.reset_launch_counts()
+        with trace(os.path.join(tmp, "trace")) as where:
+            rc, out = run_captured(cli.main, bench_args)
+        add_launches(kernels.launch_counts())
+        with open(os.path.join(where, "trace.json")) as f:
+            text = f.read()
+        hits = text.count("sphere3d_kernel")
+        print(f"    cli bench inside utils.profiling.trace: rc {rc}, trace {len(text)} bytes, "
+              f"{hits} events name sphere3d_kernel; {json.loads(out.strip().splitlines()[-1])}")
+        check(rc == 0 and hits > 0, "[26] the trace does not name the B1 sphere3d kernel")
+
+    makes = {"crosswire": synthetic.make_crosswire_data, "pointer": synthetic.make_pointer_data,
+             "plane_phantom": synthetic.make_plane_phantom_data}
+    estimators = {"crosswire": "us_crosswire", "pointer": "us_pointer",
+                  "plane_phantom": "us_plane_phantom"}
+    for i, (kind, make) in enumerate(makes.items()):
+        noisy, clean, truth = make(torch.Generator(device=dev).manual_seed(seed + i), n=HOST_N)
+        check(all(leaf.is_cuda for leaf in (noisy[0].r, clean[1], *truth.values())),
+              f"[26] make_{kind}_data left the card")
+        params, valid = get(estimators[kind])(1.0, ls_type=ANALYTIC).lsq_fit(clean)
+        errs = synthetic_errors(kind, params, truth)
+        print(f"    make_{kind}_data n={HOST_N} on a CUDA generator, ANALYTIC fit of the "
+              f"clean set: valid {bool(valid)}, errors (translation, degrees, scale) "
+              f"{', '.join(f'{e:.3g}' for e in errs)}")
+        check(bool(valid) and all(e < lim for e, lim in zip(errs, HOST_LIMITS[kind])),
+              f"[26] the clean {kind} set does not recover its truth")
+
+    truth = reference_format_truth(seed)
+    with tempfile.TemporaryDirectory() as tmp, contextlib.chdir(tmp):
+        data_dir = str(write_reference_format_data(os.path.join(tmp, "data"), seed=seed))
+        for example, (scenes, xmls) in EXAMPLE_ARTIFACTS.items():
+            argv = ["--device", "cuda"] + (["--data-dir", data_dir] if example in READS_DATA
+                                           else [])
+            module = importlib.import_module(f"lsqrrecipes_tpu_torch.examples.{example}")
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            with recorder:
+                rc, out = run_captured(module.main, argv)
+                torch.cuda.synchronize()
+            took = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            add_launches(counts)
+            launched = {k: v for k, v in counts.items() if v}
+            print(f"    example {example}: rc {rc}, {took:.2f} s, launches {launched}; "
+                  f"{out.strip().splitlines()[-1]}")
+            check(rc == 0 and ("RANSAC" in out or "ransac" in out)
+                  and "nothing to do" not in out, f"[26] example {example} failed")
+            for artifact in scenes:
+                check(os.path.exists(artifact), f"[26] {example} did not write {artifact}")
+                check_iv(artifact)
+            for artifact in xmls:
+                check(os.path.exists(artifact), f"[26] {example} did not write {artifact}")
+                check_xml(artifact)
+            for k in EXAMPLE_KERNELS.get(example, ()):
+                check(counts[k] >= 1, f"[26] example {example} did not launch {k}")
+            if example in READS_DATA:
+                found = estimate_errors(example, out, truth, xml_path=xmls[0] if xmls else None)
+                print(f"    {example} against the truth of its files: "
+                      + ", ".join(f"{what} {err:.3g} (< {limit:g})"
+                                  for what, err, limit in found))
+                check(all(err < limit for _, err, limit in found),
+                      f"[26] example {example} did not recover the truth of its files")
+            compare(example, counts)
+    host_s = time.perf_counter() - t_host - compare_s
+    print(f"    phase 26 took {host_s:.1f} s (budget {HOST_PHASE_BUDGET_S:.0f} s), and its "
+          f"plain versions {compare_s:.1f} s (budget {HOST_COMPARE_BUDGET_S:.0f} s)")
+    check(host_s < HOST_PHASE_BUDGET_S, "phase 26 overran its budget")
+    check(compare_s < HOST_COMPARE_BUDGET_S, "phase 26's plain versions overran their budget")
+    return plain_errs
 
 
 def main(argv=None):
@@ -2391,7 +2677,15 @@ def main(argv=None):
     print(f"    phases 23-25 took {sharded_s:.1f} s (budget {SHARDED_PHASES_BUDGET_S:.0f} s)")
     check(sharded_s < SHARDED_PHASES_BUDGET_S, "phases 23-25 overran their budget")
 
-    # 26. kernels line, card line, result line --------------------------------
+    # 26. the CLI, synthetic data and the examples -----------------------------
+    errs26 = phase_host_layers(torch, dev, args.seed + 26, add_launches, name, timer, smi)
+    sweep_err = max(sweep_err, errs26.pop("fused_sweep_sphere3d", 0.0))
+    vote_err = max(vote_err, errs26.pop("sphere_vote", 0))
+    for k, e in errs26.items():
+        family = k.removeprefix("fused_sweep_")
+        family_err[family] = max(family_err.get(family, 0), e)
+
+    # kernels line, card line, result line -----------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):
         source = kernels.ALL[[k.name for k in kernels.ALL].index(name)].source
         return {"name": name, "route": "cuda",

@@ -68,3 +68,13 @@ def generator_device(generator, device) -> torch.device:
     """Where random draws are made: on the generator's own device when one
     is given (a CPU generator may drive CUDA work), else on ``device``."""
     return generator.device if generator is not None else torch.device(device)
+
+
+def draw_devices(generator, device=None):
+    """``(draw device, output device)`` of a sampler: ``device=None`` means
+    the generator's device, or CUDA (:func:`resolve_device`, which raises
+    without it) when there is no generator."""
+    if device is None:
+        device = generator.device if generator is not None else resolve_device()
+    dev = torch.device(device)
+    return generator_device(generator, dev), dev

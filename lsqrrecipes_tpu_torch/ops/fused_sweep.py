@@ -68,7 +68,7 @@ import torch
 
 from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.config import SPHERE_EPS
-from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
+from lsqrrecipes_tpu_torch.device import as_tensor, draw_devices, generator_device
 from lsqrrecipes_tpu_torch.estimators.us_calibration import _extract_euler_plus
 from lsqrrecipes_tpu_torch.geometry import rotations
 from lsqrrecipes_tpu_torch.linalg.small import fma_f32, qr_solve_lanes, scalar_like
@@ -169,14 +169,15 @@ def slot_planes(points, perms, k_slots: int):
     return torch.cat(rows, dim=0)
 
 
-def draw_slot_perms(n: int, k_slots: int, generator=None, device="cpu"):
+def draw_slot_perms(n: int, k_slots: int, generator=None, device=None):
     """The ``4 * k_slots`` random permutations of ``range(n)`` that
-    :func:`slot_planes` takes, drawn from ``generator`` -> int64 ``[4k, n]``."""
-    gdev = generator_device(generator, device)
+    :func:`slot_planes` takes, drawn from ``generator`` -> int64 ``[4k, n]``.
+    ``device=None``: the generator's device, else CUDA."""
+    gdev, dev = draw_devices(generator, device)
     return torch.stack([
         torch.randperm(n, generator=generator, device=gdev)
         for _ in range(4 * k_slots)
-    ]).to(device)
+    ]).to(dev)
 
 
 def _pad_features(feats, n_fit: int):

@@ -16,6 +16,7 @@ from lsqrrecipes_tpu_torch.ransac.sampling import (
     choose,
     num_tries,
     sample_k_subsets,
+    sample_k_subsets_chunked,
     sample_k_with_replacement,
     structured_samples,
     structured_shift_table,
@@ -33,6 +34,7 @@ __all__ = [
     "hypothesize_and_vote_structured",
     "consensus_refit",
     "sample_k_subsets",
+    "sample_k_subsets_chunked",
     "sample_k_with_replacement",
     "structured_samples",
     "structured_shift_table",

@@ -47,7 +47,7 @@ _EXACT_SAMPLING_CELLS = 1 << 24
 _AGREE_CELLS = 1 << 24
 
 
-def _sample(generator, n, k, num_hypotheses, sampler="auto", device="cpu"):
+def _sample(generator, n, k, num_hypotheses, sampler="auto", device=None):
     if sampler == "auto":
         sampler = (
             "with_replacement" if num_hypotheses * n > _EXACT_SAMPLING_CELLS else "exact"

@@ -12,27 +12,42 @@ import math
 import numpy as np
 import torch
 
-from lsqrrecipes_tpu_torch.device import as_tensor, generator_device
+from lsqrrecipes_tpu_torch.device import as_tensor, draw_devices, generator_device
 from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
 
 
-def sample_k_subsets(generator, n, k, num_subsets, device="cpu"):
+def sample_k_subsets(generator, n, k, num_subsets, device=None):
     """Uniform random k-subsets of ``range(n)`` -> int64 ``[num_subsets, k]``
     (distinct within a row): the top-k indices of an iid uniform row.
-    O(num_subsets * n) memory."""
-    gdev = generator_device(generator, device)
+    O(num_subsets * n) memory.  ``device=None``: the generator's device,
+    else CUDA."""
+    gdev, dev = draw_devices(generator, device)
     r = torch.rand((num_subsets, n), generator=generator, device=gdev)
-    return torch.topk(r, k, dim=1).indices.to(device)
+    return torch.topk(r, k, dim=1).indices.to(dev)
 
 
-def sample_k_with_replacement(generator, n, k, num_subsets, device="cpu"):
+def sample_k_with_replacement(generator, n, k, num_subsets, device=None):
     """O(num_subsets * k) sampler: independent uniform indices per row
     -> int64 ``[num_subsets, k]``.  A duplicate index makes the minimal
     sample degenerate, which the engine masks out."""
-    gdev = generator_device(generator, device)
+    gdev, dev = draw_devices(generator, device)
     return torch.randint(
         0, n, (num_subsets, k), generator=generator, device=gdev
-    ).to(device)
+    ).to(dev)
+
+
+def sample_k_subsets_chunked(generator, n, k, num_subsets, chunk=4096, device=None):
+    """Memory-bounded :func:`sample_k_subsets`: chunks of at most ``chunk``
+    rows, each drawn from a generator of its own seeded by one draw from
+    ``generator`` (``jax.random.split``'s one key per chunk)."""
+    gdev, dev = draw_devices(generator, device)
+    num_chunks = -(-num_subsets // chunk)
+    seeds = torch.randint(0, 2**62, (num_chunks,), generator=generator, device=gdev).tolist()
+    outs = [torch.zeros((0, k), dtype=torch.int64, device=dev)]
+    for i, seed in enumerate(seeds):
+        sub = torch.Generator(device=gdev).manual_seed(seed)
+        outs.append(sample_k_subsets(sub, n, k, min(chunk, num_subsets - i * chunk), dev))
+    return torch.cat(outs)
 
 
 def structured_shift_table(n, k, groups):

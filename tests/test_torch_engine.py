@@ -674,17 +674,53 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "lsqrrecipes_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10 and ROOT / "lsqrrecipes_tpu_torch" / "ops" / "phantom_qr.py" in files
+    assert ROOT / "lsqrrecipes_tpu_torch" / "examples" / "sphere_estimation.py" in files
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "lsqrrecipes_tpu"), f"{path}: imports {mod}"
-    # Importing the phantom slice, the stats LM, the sharded drivers and the
-    # checkpoints in a fresh interpreter loads neither either.
+    # Importing the phantom slice, the stats LM, the sharded drivers, the
+    # checkpoints and the host layers (synthetic data, utils, io, viz, the
+    # CLI and an example) in a fresh interpreter loads neither either.
     code = ("import sys\n"
             "import lsqrrecipes_tpu_torch.ops.phantom_qr, lsqrrecipes_tpu_torch.ops.us_fast\n"
             "import lsqrrecipes_tpu_torch.estimators, lsqrrecipes_tpu_torch.interop\n"
             "import lsqrrecipes_tpu_torch.linalg.stats_lm, lsqrrecipes_tpu_torch.parallel\n"
             "import lsqrrecipes_tpu_torch.ransac.checkpoint\n"
+            "import lsqrrecipes_tpu_torch.synthetic, lsqrrecipes_tpu_torch.utils\n"
+            "import lsqrrecipes_tpu_torch.io, lsqrrecipes_tpu_torch.viz, lsqrrecipes_tpu_torch.cli\n"
+            "import lsqrrecipes_tpu_torch.examples.fused_sweep_showcase\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lsqrrecipes_tpu')]\n"
             "assert not bad, bad\n")
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=300)
+
+
+# Paths that exist only in the port, and JAX ``__all__`` names that the port
+# exports under another name.
+PORT_ONLY = {"interop.py", "device.py", "tree.py", "kernels", "examples"}
+RENAMED = {"pallas_available": "kernels_available"}
+
+
+def _all_names(path):
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "__all__"
+                                                for t in node.targets):
+            return set(ast.literal_eval(node.value))
+    return set()
+
+
+def test_port_covers_every_module_and_export_of_the_jax_package():
+    jax_root, port_root = ROOT / "lsqrrecipes_tpu", ROOT / "lsqrrecipes_tpu_torch"
+    jax_mods = {p.relative_to(jax_root) for p in jax_root.rglob("*.py")}
+    port_mods = {p.relative_to(port_root) for p in port_root.rglob("*.py")}
+    assert len(jax_mods) > 40
+    assert sorted(map(str, jax_mods - port_mods)) == []
+    extra = {m.parts[0] for m in port_mods - jax_mods}
+    assert extra == PORT_ONLY
+    for mod in sorted(m for m in jax_mods if m.name == "__init__.py"):
+        want = {RENAMED.get(name, name) for name in _all_names(jax_root / mod)}
+        missing = want - _all_names(port_root / mod)
+        assert not missing, f"{mod}: the port does not export {sorted(missing)}"
+    from lsqrrecipes_tpu_torch import ops
+
+    assert ops.kernels_available() == torch.cuda.is_available()

@@ -1078,3 +1078,77 @@ def test_phantom_fit_rejects_duplicate_samples_on_card(cuda_device):
     _, valid = us_fast._plane_phantom_fit_slots(planes, 31)
     assert kernels.PHANTOM_QR.launches == before + 1
     assert not bool(valid.any())
+
+
+# ------------------------------------------- the host layers on the card
+
+
+@pytest.mark.cuda
+def test_samplers_on_a_cuda_generator_draw_on_the_card(cuda_device):
+    from lsqrrecipes_tpu_torch.ransac import sampling
+
+    def gen():
+        return torch.Generator(device=cuda_device).manual_seed(3)
+
+    for idx in (sampling.sample_k_subsets(gen(), 64, 4, 256),
+                sampling.sample_k_with_replacement(gen(), 64, 4, 256),
+                sampling.sample_k_subsets_chunked(gen(), 64, 4, 300, chunk=128),
+                fs.draw_slot_perms(64, 2, gen()),
+                sampling.sample_k_subsets(None, 64, 4, 8)):
+        assert idx.is_cuda and idx.dtype == torch.int64
+    # An explicit device moves the same draws there.
+    assert torch.equal(sampling.sample_k_subsets(gen(), 64, 4, 256).cpu(),
+                       sampling.sample_k_subsets(gen(), 64, 4, 256, device="cpu"))
+
+
+@pytest.mark.cuda
+def test_host_layers_default_to_the_card(cuda_device, tmp_path):
+    from lsqrrecipes_tpu_torch import io, synthetic
+    from lsqrrecipes_tpu_torch.examples.common import write_reference_format_data
+    from lsqrrecipes_tpu_torch.utils import RandomNumberGenerator
+    from lsqrrecipes_tpu_torch.viz import InventorScene
+
+    rng, again = RandomNumberGenerator(4), RandomNumberGenerator(4, "cuda")
+    u = rng.uniform(-1, 1, (100,))
+    assert u.is_cuda and u.dtype == torch.float64 and torch.equal(u, again.uniform(-1, 1, (100,)))
+    assert rng.key().device.type == "cuda"
+    noisy, clean, truth = synthetic.make_crosswire_data(
+        torch.Generator(device=cuda_device).manual_seed(1), n=64)
+    assert noisy[0].r.is_cuda and clean[1].is_cuda and truth["t1"].is_cuda
+    data_dir = write_reference_format_data(tmp_path, seed=2, n=40)
+    path = data_dir / "pivotCalibrationDataWithOutliers.txt"
+    frames, host = io.load_tracked_frames(path), io.load_tracked_frames(path, device="cpu")
+    assert frames.r.is_cuda and frames.t.is_cuda
+    torch.testing.assert_close(frames.r.cpu(), host.r, rtol=0, atol=1e-15)
+    cw, pts = io.load_crosswire_phantom(data_dir / "crossWirePhantomTransformations.txt",
+                                        data_dir / "crossWirePhantom2DPoints.txt")
+    assert cw.r.is_cuda and isinstance(pts, np.ndarray)
+    pts3 = torch.as_tensor(np.random.default_rng(0).normal(size=(5, 3)), device=cuda_device)
+    scenes = [InventorScene().add_points(p).add_sphere(p[0], p[0, 0]) for p in (pts3, pts3.cpu())]
+    for s, name in zip(scenes, ("card.iv", "host.iv")):
+        s.write(tmp_path / name)
+    assert (tmp_path / "card.iv").read_text() == (tmp_path / "host.iv").read_text()
+
+
+@pytest.mark.cuda
+def test_cli_bench_launches_the_sphere_sweep_twice_on_card(cuda_device, capsys):
+    import json
+
+    from lsqrrecipes_tpu_torch.cli import main
+
+    kernels.reset_launch_counts()
+    assert main(["bench", "--hypotheses", "65536", "--n", "256", "--device", "cuda"]) == 0
+    assert kernels.launch_counts()["fused_sweep_sphere3d"] == 2
+    payload = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert payload["center_error"] < 1.0 and payload["inlier_fraction"] >= 0.75
+
+
+@pytest.mark.cuda
+def test_sphere_example_launches_the_sphere_vote_on_card(cuda_device, tmp_path, monkeypatch):
+    from lsqrrecipes_tpu_torch.examples import sphere_estimation
+
+    monkeypatch.chdir(tmp_path)
+    kernels.reset_launch_counts()
+    assert sphere_estimation.main(["--device", "cuda"]) == 0
+    assert kernels.launch_counts()["sphere_vote"] >= 1
+    assert (tmp_path / "RANSACSphereEstimation.iv").exists()
