@@ -165,7 +165,17 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      reference-format files with 20% outliers, their ``.iv`` and XML
      artifacts checked as ``tests/test_examples.py`` checks them, the
      showcase launching B1 sphere3d, B3 pivot and B3 absolute_orientation
-     and ``sphere_estimation`` B2 (under 60 s).
+     and ``sphere_estimation`` B2 (under 60 s);
+ 27. far refits: ``ransac_fused_sweep`` on the data models and shapes of
+     phases 5 (the sphere at 2^22 hypotheses, ALGEBRAIC and GEOMETRIC), 9
+     (plane3d, line3d, line2d) and 13 (absolute_orientation), from a
+     generator of its own, at the origin and ``FAR_OFFSET`` from it with
+     the same hypotheses: the far best count within 2 of the origin's, the
+     far params within one float32 ulp of the float64 refit of the same
+     consensus on the card (GEOMETRIC: the float64 LM, within
+     ``FAR_GEOMETRIC_TOL``), the truth recovered at the phase's own limits
+     with the offset taken back out, and each refit's median wall of 10
+     ``consensus_refit`` calls at both offsets (under 30 s).
 
 The rigid families' data (phases 12-14): pivot frames about t_D = (10, -5,
 2), t_W = (100, 50, -30) with N(0, 0.05) noise and 20% outlier poses
@@ -396,6 +406,13 @@ EXAMPLE_KERNELS = {"fused_sweep_showcase": ("fused_sweep_sphere3d", "fused_sweep
                    "sphere_estimation": ("sphere_vote",)}
 HOST_PHASE_BUDGET_S = 60.0         # phase 26, without the plain versions
 HOST_COMPARE_BUDGET_S = 120.0      # phase 26's plain versions
+# Phase 27: the consensus refits of phases 5, 9 and 13 FAR_OFFSET from the
+# origin; the refits accumulate in float64, so the far params are the float64
+# refit of the same consensus cast to float32.  The GEOMETRIC refit is the
+# float32 LM from that start, held to the float64 LM in data units.
+FAR_COUNT_SLACK = 2
+FAR_GEOMETRIC_TOL = 2e-3
+FAR_REFIT_BUDGET_S = 30.0
 REPLACES = {
     "fused_sweep_sphere3d": "lsqrrecipes_tpu/ops/fused_sweep.py:1090",
     "sphere_vote": "lsqrrecipes_tpu/ops/vote.py:76",
@@ -1305,6 +1322,137 @@ class LaunchRecorder:
             errs["sphere_vote"] = max(errs.get("sphere_vote", 0), err)
         self.sweeps, self.votes = [], []
         return errs
+
+
+def far_refit_cases(seed, geometry):
+    """Phase 27's clouds at the origin, float32 numpy, from a generator of
+    its own: ``(label, family, data, hypotheses)`` on the data models and
+    shapes of phases 5, 9 and 13."""
+    rng = np.random.default_rng([seed, 27])
+    sphere = bench_cloud(rng, N_MAIN)
+    cases = [(f"sphere3d {mode}", "sphere3d", sphere, H_FUSED) for mode in ("ALGEBRAIC",
+                                                                            "GEOMETRIC")]
+    cases += [(f, f, family_cloud(rng, f, N_MAIN), H_FUSED) for f in FAMILIES]
+    _, n13, groups13, _ = RIGID["absolute_orientation"]
+    cases.append(("absolute_orientation", "absolute_orientation",
+                  rigid_data(rng, "absolute_orientation", n13, geometry), groups13 * n13))
+    return cases
+
+
+def far_estimator(label):
+    from lsqrrecipes_tpu_torch.estimators import ALGEBRAIC, GEOMETRIC, SphereEstimator, get
+
+    if label.startswith("sphere3d"):
+        return SphereEstimator(DELTA, 3, ALGEBRAIC if label.endswith("ALGEBRAIC") else GEOMETRIC)
+    if label in FAMILIES:
+        name = FAMILIES[label][0]
+        return get(name)(DELTA) if label == "line2d" else get(name)(DELTA, 3)
+    return get(RIGID[label][0])(DELTA)
+
+
+def far_shift(data, s):
+    """``data`` ``s`` from the origin on every axis (both sets of a pair),
+    float32."""
+    if isinstance(data, tuple):
+        return tuple(x + np.float32(s) for x in data)
+    return data + np.float32(s)
+
+
+def far_refit_runs(torch, dev, seed, timer, reps=WALL_REPS):
+    """Phase 27's runs: each case's ``ransac_fused_sweep`` at the origin and
+    ``FAR_OFFSET`` from it from one generator seed (the same hypotheses),
+    the float64 refit of the far consensus on the card (the estimator on
+    the upcast points) and the median wall of ``reps`` ``consensus_refit``
+    calls at each offset (``refit`` repeats the call).  Returns ``(rows,
+    launch counts of the sweeps)``;
+    the checks are the caller's, so that ``far_refits.py`` can run this on
+    another checkout's package."""
+    from lsqrrecipes_tpu_torch import geometry, interop, kernels
+    from lsqrrecipes_tpu_torch.ransac import consensus_refit, ransac_fused_sweep
+    from lsqrrecipes_tpu_torch.tree import tree_map
+
+    rows, launches = [], {}
+    for label, family, cloud, hyp in far_refit_cases(seed, geometry):
+        est = far_estimator(label)
+        row = {"label": label, "family": family}
+        for key, s in (("origin", 0.0), ("far", FAR_OFFSET)):
+            data = interop.data_to_torch(far_shift(cloud, s), device=dev)
+            gen = torch.Generator(device=dev).manual_seed(seed + 27)
+            kernels.reset_launch_counts()
+            res = ransac_fused_sweep(est, data, gen, num_hypotheses=hyp, device=dev)
+            torch.cuda.synchronize()
+            for k, v in kernels.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            mask = res.consensus
+
+            def refit(est=est, data=data, mask=mask):
+                return consensus_refit(est, data, mask)
+
+            row[key] = {"count": int(res.best_count), "valid": bool(res.valid),
+                        "params": res.params.double().cpu().numpy(),
+                        "refit_ms": timer.wall_ms(refit, reps=reps), "refit": refit}
+        f64, _ = est.lsq_fit(tree_map(lambda x: x.double(), data), mask)
+        row["f64"] = f64.cpu().numpy()
+        rows.append(row)
+    return rows, launches
+
+
+def far_refit_errors(row):
+    """A phase-27 row's figures: the far count less the origin's; the far
+    refit's truth errors with the offset taken back out, in the order of
+    the phase's limits, and those limits; and the far params' largest
+    distance from the float64 refit, in float32 ulps of the cast refit
+    (GEOMETRIC: in data units, against the float64 LM)."""
+    s, family = FAR_OFFSET, row["family"]
+    p, f64 = row["far"]["params"], row["f64"]
+    if row["label"].endswith("GEOMETRIC"):
+        dist = float(np.abs(p - f64).max())
+    else:
+        cast = f64.astype(np.float32)
+        dist = float((np.abs(p - cast) / np.spacing(np.abs(cast))).max())
+    if family == "sphere3d":
+        errors = (float(np.abs(p[:3] - s - TRUE_CENTER).max()), abs(float(p[3]) - TRUE_RADIUS))
+        limits = (0.1, 0.1)
+    elif family in FAMILIES:
+        d = len(FAMILIES[family][1])
+        errors = recovery_errors(family, np.concatenate([p[:d], p[d:] - s]))
+        limits = (MAX_ANGLE, MAX_ANCHOR)
+    else:
+        t = p[4:] - s + rotation_np(p[:4]) @ np.full(3, s)
+        errors = rigid_errors(family, np.concatenate([p[:4], t]))
+        limits = RIGID_LIMITS[family]
+    return row["far"]["count"] - row["origin"]["count"], errors, limits, dist
+
+
+def phase_far_refits(torch, dev, seed, add_launches, timer, smi):
+    """Phase 27 (see the module docstring)."""
+    t0 = time.perf_counter()
+    rows, counts = far_refit_runs(torch, dev, seed, timer)
+    add_launches(counts)
+    print(f"[27] far refits, {FAR_OFFSET:g} from the origin: launches {counts}")
+    for row in rows:
+        label, (origin, far) = row["label"], (row["origin"], row["far"])
+        d_count, errors, limits, dist = far_refit_errors(row)
+        geometric = label.endswith("GEOMETRIC")
+        print(f"    {label}: counts {origin['count']} / {far['count']}, valid {far['valid']}, "
+              f"errors {[f'{e:.3e}' for e in errors]} (limits {list(limits)}), from the "
+              f"float64 refit {dist:.3g}{'' if geometric else ' ulp'}; consensus_refit wall "
+              f"{origin['refit_ms']:.3f} / {far['refit_ms']:.3f} ms median of {WALL_REPS} "
+              f"[{smi}]")
+        check(origin["valid"] and far["valid"], f"[27] {label}: result not valid")
+        check(bool(np.isfinite(far["params"]).all()), f"[27] {label}: non-finite params")
+        check(abs(d_count) <= FAR_COUNT_SLACK,
+              f"[27] {label}: the far count is {d_count:+d} from the origin's")
+        check(all(e < lim for e, lim in zip(errors, limits)),
+              f"[27] {label}: ground truth not recovered far from the origin: {errors}")
+        check(dist <= (FAR_GEOMETRIC_TOL if geometric else 1.0),
+              f"[27] {label}: the params are {dist} from the float64 refit")
+    for k in ("fused_sweep_sphere3d", "fused_sweep_plane3d", "fused_sweep_line3d",
+              "fused_sweep_line2d", "fused_sweep_absolute_orientation"):
+        check(counts.get(k, 0) > 0, f"[27] the far refits did not launch {k}")
+    far_s = time.perf_counter() - t0
+    print(f"    phase 27 took {far_s:.1f} s (budget {FAR_REFIT_BUDGET_S:.0f} s)")
+    check(far_s < FAR_REFIT_BUDGET_S, "phase 27 overran its budget")
 
 
 def phase_host_layers(torch, dev, seed, add_launches, name, timer, smi):
@@ -2684,6 +2832,9 @@ def main(argv=None):
     for k, e in errs26.items():
         family = k.removeprefix("fused_sweep_")
         family_err[family] = max(family_err.get(family, 0), e)
+
+    # 27. the consensus refits far from the origin -----------------------------
+    phase_far_refits(torch, dev, args.seed, add_launches, timer, smi)
 
     # kernels line, card line, result line -----------------------------------
     def entry(name, err, ms, plain_ms, bound_ms, bound_by, library_ms):

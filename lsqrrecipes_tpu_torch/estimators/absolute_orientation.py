@@ -10,7 +10,7 @@ first set onto the second.
 import torch
 
 from lsqrrecipes_tpu_torch.config import EPS
-from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
+from lsqrrecipes_tpu_torch.estimators.base import Estimator, dtype_tag, register, upcast
 from lsqrrecipes_tpu_torch.geometry import rotations
 from lsqrrecipes_tpu_torch.linalg import eigvec_largest
 
@@ -71,10 +71,10 @@ class AbsoluteOrientationEstimator(Estimator):
         return self.lsq_solve_stats(self.lsq_stats(data, mask))
 
     def lsq_stats(self, data, mask=None):
-        """Weighted sums for Horn's method (also
+        """Weighted float64 sums for Horn's method (also
         ``weightedLeastSquaresEstimate``, ``...cxx:208-297``, when ``mask``
-        carries real weights)."""
-        first, second = data
+        carries real weights) and the data's dtype tag."""
+        first, second = upcast(data[0]), upcast(data[1])
         w = self._mask_or_ones(mask, first.shape[0], first.dtype, first.device)
         fw = first * w[:, None]
         return (
@@ -82,19 +82,20 @@ class AbsoluteOrientationEstimator(Estimator):
             torch.sum(second * w[:, None], dim=0),
             fw.T @ second,      # sum w f s^T, the cross-covariance accumulator
             torch.sum(w),
+            dtype_tag(data[0]),
         )
 
     def lsq_solve_stats(self, stats):
         """Horn: the eigenvector of N's largest eigenvalue
         (``...cxx:120-206``).  Its sign is not fixed: ``q`` and ``-q`` are
         the same rotation."""
-        sum1, sum2, cross, n = stats
+        sum1, sum2, cross, n, tag = stats
         n_safe = torch.where(n > 0, n, torch.ones_like(n))
         mean1, mean2 = sum1 / n_safe, sum2 / n_safe
         m = cross - torch.outer(sum1, sum2) / n_safe
         q = eigvec_largest(_horn_n_matrix(m))
         r = rotations.matrix_from_quaternion(q)
-        return torch.cat([q, mean2 - r @ mean1]), n >= self.k
+        return torch.cat([q, mean2 - r @ mean1]).to(tag.dtype), n >= self.k
 
     def agree(self, params, data):
         """``|T(first) - second|^2 < delta^2`` (``...cxx:316-327``)."""

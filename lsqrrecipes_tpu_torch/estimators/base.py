@@ -14,6 +14,13 @@
 Optionally an estimator exposes sufficient statistics:
 ``lsq_stats(data, mask) -> stats`` and ``lsq_solve_stats(stats) -> (params,
 valid)``, whose composition is its ``lsq_fit``.
+
+The plane, line, 2D line and absolute-orientation statistics and the
+sphere's algebraic system are formed in float64 from :func:`upcast` data:
+float32 moments of a cloud far from the origin cancel in ``outer - s s^T /
+n``.  Their statistics end in a :func:`dtype_tag`, from which the solve
+takes the data's dtype for the params it returns.  The JAX package sums in
+the data's dtype.
 """
 
 from typing import Any, Optional, Tuple
@@ -73,6 +80,19 @@ class Estimator:
         if mask is None:
             return torch.ones((n,), dtype=dtype, device=device)
         return mask.to(dtype)
+
+
+def upcast(leaf):
+    """``leaf`` in float64, the dtype the consensus refits accumulate in (the
+    identity on float64 data)."""
+    return leaf.to(torch.float64)
+
+
+def dtype_tag(leaf):
+    """A zero of ``leaf``'s dtype that float64 sufficient statistics carry,
+    so that the solve returns the params in the data's dtype; a Sum
+    all-reduce keeps it."""
+    return leaf.new_zeros(())
 
 
 _REGISTRY = {}

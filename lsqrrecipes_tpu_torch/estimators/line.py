@@ -7,20 +7,23 @@ contrast with the 2D estimator, whose n is the normal.
 
 import torch
 
-from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
+from lsqrrecipes_tpu_torch.estimators.base import Estimator, dtype_tag, register, upcast
 from lsqrrecipes_tpu_torch.linalg import eigvec_largest
 
 
 def scatter_stats(est, data, mask):
-    """Masked first and second moments ``(sum[dim], outer[dim, dim], count)``."""
-    w = est._mask_or_ones(mask, data.shape[0], data.dtype, data.device)
-    xw = data * w[:, None]
-    return torch.sum(xw, dim=0), xw.T @ data, torch.sum(w)
+    """Masked first and second moments in float64 and the data's dtype tag
+    ``(sum[dim], outer[dim, dim], count, tag)``."""
+    x = upcast(data)
+    w = est._mask_or_ones(mask, x.shape[0], x.dtype, x.device)
+    xw = x * w[:, None]
+    return torch.sum(xw, dim=0), xw.T @ x, torch.sum(w), dtype_tag(data)
 
 
 def centered_scatter(stats):
-    """``(mean, covariance-scatter, count)`` from :func:`scatter_stats`."""
-    s, outer, n = stats
+    """``(mean, covariance-scatter, count)`` in float64 from
+    :func:`scatter_stats`."""
+    s, outer, n, _ = stats
     n_safe = torch.where(n > 0, n, torch.ones_like(n))
     return s / n_safe, outer - torch.outer(s, s) / n_safe, n
 
@@ -56,7 +59,7 @@ class LineEstimator(Estimator):
         """Eigenvector of the *largest* eigenvalue of the scatter matrix
         (``LineParametersEstimator.hxx:68-111``)."""
         mean, cov, n = centered_scatter(stats)
-        return torch.cat([eigvec_largest(cov), mean]), n >= self.k
+        return torch.cat([eigvec_largest(cov), mean]).to(stats[-1].dtype), n >= self.k
 
     def agree(self, params, data):
         """Orthogonal point-to-line distance^2 < delta^2

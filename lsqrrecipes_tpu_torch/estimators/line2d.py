@@ -9,7 +9,7 @@ least-squares fit (``Line2DParametersEstimator.cxx:50-100``).
 import torch
 
 from lsqrrecipes_tpu_torch.device import full_f32_matmul
-from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
+from lsqrrecipes_tpu_torch.estimators.base import Estimator, dtype_tag, register, upcast
 
 # Cells of one vote chunk: bounds its [chunk, n] temporaries.
 _VOTE_CELLS = 1 << 24
@@ -43,23 +43,26 @@ class Line2DEstimator(Estimator):
         return self.lsq_solve_stats(self.lsq_stats(data, mask))
 
     def lsq_stats(self, data, mask=None):
-        """Masked sums: ``[sum_x, sum_y, sum_xx, sum_xy, sum_yy, count]``."""
-        w = self._mask_or_ones(mask, data.shape[0], data.dtype, data.device)
-        x, y = data[..., 0] * w, data[..., 1] * w
+        """Masked float64 sums ``[sum_x, sum_y, sum_xx, sum_xy, sum_yy, count]``
+        and the data's dtype tag."""
+        d = upcast(data)
+        w = self._mask_or_ones(mask, d.shape[0], d.dtype, d.device)
+        x, y = d[..., 0] * w, d[..., 1] * w
         return torch.stack([
             torch.sum(x),
             torch.sum(y),
-            torch.sum(x * data[..., 0]),
-            torch.sum(x * data[..., 1]),
-            torch.sum(y * data[..., 1]),
+            torch.sum(x * d[..., 0]),
+            torch.sum(x * d[..., 1]),
+            torch.sum(y * d[..., 1]),
             torch.sum(w),
-        ])
+        ]), dtype_tag(data)
 
     def lsq_solve_stats(self, stats):
         """Closed-form smallest eigenvector of the 2x2 scatter matrix, with
         the ``cov11 < 1e-12`` vertical-line and all-points-coincide branches
         (``Line2DParametersEstimator.cxx:50-100``)."""
-        sx, sy, sxx, sxy, syy, n = (stats[i] for i in range(6))
+        sums, tag = stats
+        sx, sy, sxx, sxy, syy, n = (sums[i] for i in range(6))
         enough = n >= self.k
         n_safe = torch.where(n > 0, n, torch.ones_like(n))
         mean_x, mean_y = sx / n_safe, sy / n_safe
@@ -77,7 +80,7 @@ class Line2DEstimator(Estimator):
         nx = torch.where(vertical, torch.ones_like(nx), nx / norm_safe)
         ny = torch.where(vertical, torch.zeros_like(ny), ny / norm_safe)
         degenerate_point = vertical & (c22 < 1e-12)
-        return torch.stack([nx, ny, mean_x, mean_y]), enough & ~degenerate_point
+        return torch.stack([nx, ny, mean_x, mean_y]).to(tag.dtype), enough & ~degenerate_point
 
     def agree(self, params, data):
         """Signed point-line distance squared < delta^2

@@ -63,7 +63,7 @@ class PlaneEstimator(Estimator):
         """Eigenvector of the *smallest* eigenvalue of the scatter matrix
         (``PlaneParametersEstimator.hxx:129-172``)."""
         mean, cov, n = centered_scatter(stats)
-        return torch.cat([eigvec_smallest(cov), mean]), n >= self.k
+        return torch.cat([eigvec_smallest(cov), mean]).to(stats[-1].dtype), n >= self.k
 
     def agree(self, params, data):
         """Signed point-plane distance^2 < delta^2

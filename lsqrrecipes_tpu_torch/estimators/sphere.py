@@ -14,7 +14,7 @@ Two least-squares modes, as in the reference
 import torch
 
 from lsqrrecipes_tpu_torch.config import SPHERE_EPS
-from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
+from lsqrrecipes_tpu_torch.estimators.base import Estimator, register, upcast
 from lsqrrecipes_tpu_torch.linalg import (
     LMConfig,
     levenberg_marquardt,
@@ -100,11 +100,15 @@ class SphereEstimator(Estimator):
         return torch.where(valid, result.x, params), valid & result.converged
 
     def _algebraic_fit(self, data, mask=None):
-        """``[-2p, 1] x = -p.p`` via SVD pseudo-inverse; rejects r^2 <= 0."""
+        """``[-2p, 1] x = -p.p`` via SVD pseudo-inverse; rejects r^2 <= 0.  The
+        system, the solve and ``r^2`` are float64 (``-p.p`` of a float32
+        cloud far from the origin loses the fit); the params come back in
+        the data's dtype."""
         n = data.shape[0]
-        ones = torch.ones((n, 1), dtype=data.dtype, device=data.device)
-        a = torch.cat([-2.0 * data, ones], dim=-1)
-        b = -torch.sum(data * data, dim=-1)
+        x64 = upcast(data)
+        ones = torch.ones((n, 1), dtype=x64.dtype, device=x64.device)
+        a = torch.cat([-2.0 * x64, ones], dim=-1)
+        b = -torch.sum(x64 * x64, dim=-1)
         if mask is None:
             x, rank = pinv_solve(a, b)
             enough = torch.tensor(n >= self.k, device=data.device)
@@ -115,7 +119,7 @@ class SphereEstimator(Estimator):
         r_sq = torch.sum(center * center) - x[self.dim]
         valid = (rank >= self.k) & enough & (r_sq > 0)
         r = torch.sqrt(torch.where(r_sq > 0, r_sq, torch.ones_like(r_sq)))
-        return torch.cat([center, r[None]]), valid
+        return torch.cat([center, r[None]]).to(data.dtype), valid
 
     # ------------------------------------------------------------ hypotheses
     def fit_and_vote(self, samples, data):

@@ -1152,3 +1152,41 @@ def test_sphere_example_launches_the_sphere_vote_on_card(cuda_device, tmp_path, 
     assert sphere_estimation.main(["--device", "cuda"]) == 0
     assert kernels.launch_counts()["sphere_vote"] >= 1
     assert (tmp_path / "RANSACSphereEstimation.iv").exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sphere", "plane", "line3d", "line2d", "absolute_orientation"])
+def test_far_refit_in_float64_on_card_equals_cpu(cuda_device, kind):
+    """A float32 cloud 1e4 from the origin: the card's float64 statistics
+    equal the CPU's within 1e-12 relative, and its float64 params (the
+    refit before the cast) within half a float32 ulp, 3e-8, of each block's
+    scale (a direction or quaternion up to sign).  The params cannot be held
+    closer: moments 1e4 from the origin keep about nine digits after
+    ``outer - s s^T / n``, and the same refit on the CPU with the rows
+    permuted moves Horn's t by 1.1e-8 of its scale and the plane normal by
+    2e-9."""
+    from test_torch_far_refits import SIGNED, far_data, make_est, shift, to_torch
+
+    from lsqrrecipes_tpu_torch.tree import tree_leaves
+
+    est = make_est(kind)
+    leaves, mask = far_data(kind, 19, outliers=True)
+    f32 = [x.astype(np.float32) for x in shift(kind, leaves, 1e4)]
+    m_card, m_host = torch.as_tensor(mask, device=cuda_device), torch.as_tensor(mask)
+    if est.has_stats:
+        card = est.lsq_stats(to_torch(kind, f32, device=cuda_device), m_card)
+        host = est.lsq_stats(to_torch(kind, f32), m_host)
+        for a, b in zip(tree_leaves(card)[:-1], tree_leaves(host)[:-1]):
+            assert a.is_cuda and a.dtype == torch.float64
+            np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-12, atol=0)
+        assert tree_leaves(card)[-1].dtype == torch.float32    # the data's dtype tag
+    got, gvalid = est.lsq_fit(to_torch(kind, f32, torch.float64, cuda_device), m_card)
+    want, wvalid = est.lsq_fit(to_torch(kind, f32, torch.float64), m_host)
+    assert got.is_cuda and got.dtype == torch.float64 and bool(gvalid) and bool(wvalid)
+    got, want = got.cpu().numpy(), want.numpy()
+    k = SIGNED[kind]
+    if k and np.dot(got[:k], want[:k]) < 0:
+        got[:k] = -got[:k]
+    for block in (slice(0, k), slice(k, None)) if k else (slice(None),):
+        scale = np.abs(want[block]).max()
+        np.testing.assert_allclose(got[block], want[block], rtol=0, atol=3e-8 * scale)

@@ -42,6 +42,13 @@ FEATURES = {"pointer": 6, "crosswire": 15, "plane_phantom": 31}
 N_US = 64
 US_GROUPS = 8
 FUSED_N, FUSED_GROUPS, FUSED_SUBSAMPLE = 256, 8, 128
+# Refits of float32 clouds 1e4 from the origin (test_torch_far_refits.py's
+# models) on 2 ranks: the plane and the absolute-orientation pair take the
+# stats route, the sphere the lsq_fit route on the gathered consensus.
+FAR_CASES = {"plane": ("PlaneEstimator", (1.0, 3)),
+             "absolute_orientation": ("AbsoluteOrientationEstimator", (1.0,)),
+             "sphere": ("SphereEstimator", (1.0, 3, "algebraic"))}
+FAR_N, FAR_OFFSET = 256, 1e4
 JOIN_TIMEOUT_S = 240
 
 
@@ -254,6 +261,20 @@ def _two_rank_worker(rank, world, store, inputs, out_dir):
         fixed = step(_torch_data(data), torch.as_tensor(idx))
         out[shape] = ({k: getattr(fixed, k).numpy() for k in fixed._fields}, int(res.best_count),
                       bool(res.valid))
+    data_mesh = parallel.default_mesh(("data",), device_type="cpu")
+    split_mesh = parallel.default_mesh(shape=(1, 2), device_type="cpu")
+    for kind, (spec, leaves, mask, idx) in inputs["far"].items():
+        est = _estimator(spec)
+        data = tuple(map(torch.as_tensor, leaves)) if len(leaves) == 2 else \
+            torch.as_tensor(leaves[0])
+        mask = torch.as_tensor(mask)
+        if est.has_stats:
+            params, valid = parallel.sharded_lsq_fit(est, data, mask, mesh=data_mesh)
+            single, _ = est.lsq_fit(data, mask)
+            out[f"far/{kind}/lsq_fit"] = (params.numpy(), bool(valid), single.numpy())
+        res = sharded.build_sharded_ransac_step(est, split_mesh)(data, torch.as_tensor(idx))
+        single, _ = est.lsq_fit(data, res.consensus)
+        out[f"far/{kind}/ransac"] = (res.params.numpy(), bool(res.valid), single.numpy())
     torch.distributed.barrier()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
@@ -323,9 +344,17 @@ def four(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def two(tmp_path_factory):
+    from test_torch_far_refits import far_data, shift
+
     spec, make, k, _ = RANSAC_CASES["line2d"]
     data = make()
-    inputs = {"line2d": (spec, data, subsets(40, len(data), k, 1024))}
+    far = {}
+    for i, (kind, spec_far) in enumerate(FAR_CASES.items()):
+        leaves, mask = far_data(kind, 60 + i, outliers=True, n=FAR_N)
+        leaves = tuple(x.astype(np.float32) for x in shift(kind, leaves, FAR_OFFSET))
+        k_far = {"sphere": 4, "plane": 3, "absolute_orientation": 3}[kind]
+        far[kind] = (spec_far, leaves, mask, subsets(70 + i, FAR_N, k_far, 256))
+    inputs = {"line2d": (spec, data, subsets(40, len(data), k, 1024)), "far": far}
     return inputs, spawn(_two_rank_worker, 2, str(tmp_path_factory.mktemp("two")), inputs)
 
 
@@ -421,6 +450,30 @@ def test_two_ranks_match_jax_and_draw_alike(two, shape):
     check_ransac(fixed, jax_ransac(spec, data, idx, shape))
     assert valid and count >= 60            # 72 inliers, 1,024 hypotheses from one seed
     same_on_every_rank(results, shape)
+
+
+@pytest.mark.parametrize("kind,route", [
+    ("plane", "lsq_fit"), ("plane", "ransac"), ("absolute_orientation", "lsq_fit"),
+    ("absolute_orientation", "ransac"), ("sphere", "ransac")])
+def test_sharded_refits_far_from_the_origin_equal_unsharded(two, kind, route):
+    """The float64 statistics Sum-reduce over 2 ranks and the params come back
+    in float32, equal to the unsharded refit of the same mask (rtol 1e-6;
+    Horn's translation within one float32 ulp of the offset besides, as in
+    ``test_torch_far_refits.py``)."""
+    _, results = two
+    key = f"far/{kind}/{route}"
+    params, valid, single = results[0][key]
+    assert valid and params.dtype == single.dtype == np.float32
+    if kind == "absolute_orientation":
+        q_sign = np.sign(np.dot(params[:4], single[:4]))
+        np.testing.assert_allclose(params[:4] * q_sign, single[:4], rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(params[4:], single[4:], rtol=1e-6,
+                                   atol=1e-6 + float(np.spacing(np.float32(FAR_OFFSET))))
+    else:
+        sign = np.sign(np.dot(params[:3], single[:3])) if kind == "plane" else 1.0
+        np.testing.assert_allclose(np.r_[params[:3] * sign, params[3:]], single, rtol=1e-6,
+                                   atol=1e-6)
+    same_on_every_rank(results, key)
 
 
 @pytest.mark.parametrize("kind", US_KINDS)
