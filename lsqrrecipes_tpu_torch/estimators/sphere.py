@@ -22,6 +22,7 @@ from lsqrrecipes_tpu_torch.linalg import (
     pinv_solve,
     small,
 )
+from lsqrrecipes_tpu_torch.utils import profiling
 
 ALGEBRAIC = "algebraic"
 GEOMETRIC = "geometric"
@@ -92,7 +93,8 @@ class SphereEstimator(Estimator):
         the rows of ``mask``.  A fit that does not converge is invalid, like
         the reference's empty-vector return
         (``SphereParametersEstimator.hxx:331-337``)."""
-        params, valid = self._algebraic_fit(data, mask)
+        with profiling.leaf("refit.start"):
+            params, valid = self._algebraic_fit(data, mask)
         if self.ls_type == ALGEBRAIC:
             return params, valid
         result = levenberg_marquardt(_sphere_residual, _sphere_jacobian, params, data,

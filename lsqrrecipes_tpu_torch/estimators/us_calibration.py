@@ -40,6 +40,7 @@ from lsqrrecipes_tpu_torch.device import full_f32_matmul
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
 from lsqrrecipes_tpu_torch.linalg.lm import LMConfig, levenberg_marquardt
 from lsqrrecipes_tpu_torch.linalg.lstsq import pinv_solve, svd_f64
+from lsqrrecipes_tpu_torch.utils import profiling
 
 ANALYTIC = "analytic"
 ITERATIVE = "iterative"
@@ -173,7 +174,8 @@ def _lsq_fit(est, residual_fn, jac_fn, pack_fn, n_min, rows, data, mask):
     """The analytic fit, then (ITERATIVE) Levenberg-Marquardt from its first
     ``n_min`` parameters on the masked residuals (``rows`` per observation);
     with leading problem axes when ``residual_fn`` and ``jac_fn`` take them."""
-    params, valid = est._analytic(data, mask)
+    with profiling.leaf("refit.start"):
+        params, valid = est._analytic(data, mask)
     if est.ls_type == ANALYTIC:
         return params, valid
     x0 = params[..., :n_min]

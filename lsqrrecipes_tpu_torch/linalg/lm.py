@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from lsqrrecipes_tpu_torch.linalg import small
+from lsqrrecipes_tpu_torch.utils import profiling
 
 # Steps between two completion checks: each check waits for the device, and
 # up to _CHECK_EVERY - 1 frozen steps run after the last problem finishes.
@@ -71,59 +72,69 @@ def lm_core(
     eps_tiny = torch.finfo(dtype).tiny
     n = x0.shape[-1]
 
-    x = x0
-    cost = cost_of(x0)
-    lam = torch.full(batch, config.init_lambda, dtype=dtype, device=dev)
-    nu = torch.full(batch, 2.0, dtype=dtype, device=dev)
-    it = torch.zeros(batch, dtype=torch.int32, device=dev)
-    done = torch.zeros(batch, dtype=torch.bool, device=dev)
-    converged = torch.zeros(batch, dtype=torch.bool, device=dev)
-    eye = torch.eye(n, dtype=dtype, device=dev)
+    with profiling.span("lm"):
+        x = x0
+        cost = cost_of(x0)
+        lam = torch.full(batch, config.init_lambda, dtype=dtype, device=dev)
+        nu = torch.full(batch, 2.0, dtype=dtype, device=dev)
+        it = torch.zeros(batch, dtype=torch.int32, device=dev)
+        done = torch.zeros(batch, dtype=torch.bool, device=dev)
+        converged = torch.zeros(batch, dtype=torch.bool, device=dev)
+        eye = torch.eye(n, dtype=dtype, device=dev)
 
-    for step_no in range(config.max_iters):
-        jtj, g = normal_system(x)
-        gnorm = torch.amax(g.abs(), dim=-1)
-        diag = torch.clamp_min(torch.diagonal(jtj, dim1=-2, dim2=-1), eps_tiny)
-        a = jtj + lam[..., None, None] * (diag[..., None, :] * eye)
-        step, _ = small.cholesky_solve_unrolled(a, -g, n)
+        step_no = -1
+        for step_no in range(config.max_iters):
+            with profiling.span("lm.step"):
+                with profiling.leaf("lm.normal"):
+                    jtj, g = normal_system(x)
+                with profiling.leaf("lm.solve"):
+                    diag = torch.clamp_min(torch.diagonal(jtj, dim1=-2, dim2=-1), eps_tiny)
+                    a = jtj + lam[..., None, None] * (diag[..., None, :] * eye)
+                    step, _ = small.cholesky_solve_unrolled(a, -g, n)
+                with profiling.leaf("lm.trial"):
+                    x_new = x + step
+                    cost_new = cost_of(x_new)
+                with profiling.leaf("lm.update"):
+                    # Gain ratio: actual reduction over the local quadratic model's.
+                    jtj_step = torch.einsum("...ij,...j->...i", jtj, step)
+                    predicted = (-torch.sum(step * g, dim=-1)
+                                 - 0.5 * torch.sum(step * jtj_step, dim=-1))
+                    predicted = torch.clamp_min(predicted, eps_tiny)
+                    rho = (cost - cost_new) / predicted
+                    accept = torch.isfinite(cost_new) & (cost_new < cost)
 
-        x_new = x + step
-        cost_new = cost_of(x_new)
+                    shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
+                    lam_accept = torch.clamp_min(lam * shrink, 1e-18)
+                    lam_reject = torch.clamp_max(lam * nu, config.max_lambda)
+                    lam_next = torch.where(accept, lam_accept, lam_reject)
+                    nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+                    x_next = torch.where(accept[..., None], x_new, x)
+                    cost_next = torch.where(accept, cost_new, cost)
 
-        # Gain ratio: actual reduction over the local quadratic model's.
-        jtj_step = torch.einsum("...ij,...j->...i", jtj, step)
-        predicted = -torch.sum(step * g, dim=-1) - 0.5 * torch.sum(step * jtj_step, dim=-1)
-        predicted = torch.clamp_min(predicted, eps_tiny)
-        rho = (cost - cost_new) / predicted
-        accept = torch.isfinite(cost_new) & (cost_new < cost)
+                    small_grad = torch.amax(g.abs(), dim=-1) < config.gtol
+                    small_step = _norm(step) < config.xtol * (_norm(x) + config.xtol)
+                    small_decrease = accept & (
+                        (cost - cost_new) <= config.ftol * torch.clamp_min(cost, eps_tiny)
+                    )
+                    lam_blown = lam_next >= config.max_lambda
+                    conv = small_grad | small_step | small_decrease | lam_blown
+                    now_done = conv | (it + 1 >= config.max_iters)
 
-        shrink = torch.clamp_min(1.0 - (2.0 * rho - 1.0) ** 3, 1.0 / 3.0)
-        lam_accept = torch.clamp_min(lam * shrink, 1e-18)
-        lam_reject = torch.clamp_max(lam * nu, config.max_lambda)
-        lam_next = torch.where(accept, lam_accept, lam_reject)
-        nu_next = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
-        x_next = torch.where(accept[..., None], x_new, x)
-        cost_next = torch.where(accept, cost_new, cost)
-
-        small_grad = gnorm < config.gtol
-        small_step = _norm(step) < config.xtol * (_norm(x) + config.xtol)
-        small_decrease = accept & (
-            (cost - cost_new) <= config.ftol * torch.clamp_min(cost, eps_tiny)
-        )
-        lam_blown = lam_next >= config.max_lambda
-        conv = small_grad | small_step | small_decrease | lam_blown
-        now_done = conv | (it + 1 >= config.max_iters)
-
-        frz = done
-        x = torch.where(frz[..., None], x, x_next)
-        cost = torch.where(frz, cost, cost_next)
-        lam = torch.where(frz, lam, lam_next)
-        nu = torch.where(frz, nu, nu_next)
-        it = it + (~frz).to(it.dtype)
-        converged = converged | (conv & ~frz)
-        done = done | now_done
-        if (step_no + 1) % _CHECK_EVERY == 0 and bool(done.all()):
-            break
+                    frz = done
+                    x = torch.where(frz[..., None], x, x_next)
+                    cost = torch.where(frz, cost, cost_next)
+                    lam = torch.where(frz, lam, lam_next)
+                    nu = torch.where(frz, nu, nu_next)
+                    it = it + (~frz).to(it.dtype)
+                    converged = converged | (conv & ~frz)
+                    done = done | now_done
+            if (step_no + 1) % _CHECK_EVERY == 0:
+                with profiling.wait("lm_done"):
+                    finished = bool(done.all())
+                if finished:
+                    break
+        # Steps run, and (the largest of it) the steps in which a problem was live.
+        profiling.count("lm.steps", step_no + 1, keep=it)
     return LMResult(x, cost, it, converged)
 
 

@@ -11,12 +11,17 @@ broadcast over leading batch axes.
 import torch
 
 from lsqrrecipes_tpu_torch.config import EPS
+from lsqrrecipes_tpu_torch.utils import profiling
 
 
 def svd_f64(a, full_matrices=False):
     """``torch.linalg.svd`` computed in float64 regardless of input dtype
-    (the reference's DBL_EPSILON rank thresholds only make sense there)."""
-    return torch.linalg.svd(a.to(torch.float64), full_matrices=full_matrices)
+    (the reference's DBL_EPSILON rank thresholds only make sense there).
+    On CUDA the call waits for the device, several times: the solver's own
+    synchronisations, a copy to the host and the check of its status."""
+    a64 = a.to(torch.float64)
+    with profiling.wait("svd"):
+        return torch.linalg.svd(a64, full_matrices=full_matrices)
 
 
 def svd_rank(s, eps=EPS):

@@ -76,6 +76,7 @@ from lsqrrecipes_tpu_torch.linalg.small import rsqrt as _rsqrt
 from lsqrrecipes_tpu_torch.ops import us_fast
 from lsqrrecipes_tpu_torch.ops.vote import _sum_sq_rows
 from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
+from lsqrrecipes_tpu_torch.utils import profiling
 
 _HASH_A = 1103515245   # odd => bijection of the shift-tuple index space
 _GUARD = 1e30          # pad-column sentinel: |e| >> 1 for any live hypothesis
@@ -1037,18 +1038,24 @@ def fused_sweep(
     """
     if family not in _FAMILIES:
         raise ValueError(f"fused family {family!r} is not ported")
-    data = as_tensor(data, device)
-    if not _data_ok(family, data):
-        raise ValueError(f"data of type {type(data).__name__} does not fit the {family} sweep")
-    coords, p, n_fit, vote_cols = sweep_inputs(
-        family, data, generator, vote_subsample, perms=perms, vote_perm=vote_perm
-    )
-    num_groups = -(-total_groups // groups_per_step) * groups_per_step
-    if not isinstance(delta, (tuple, list)):
-        delta = float(delta)
-    count, params, _index = sweep(family, coords, p, n_fit, num_groups, vote_cols, delta)
-    post = _POSTPROCESS.get(family)
-    return count, (post(params) if post else params)
+    with profiling.span("sweep"):
+        data = as_tensor(data, device)
+        if not _data_ok(family, data):
+            raise ValueError(f"data of type {type(data).__name__} does not fit the {family} sweep")
+        with profiling.leaf("sweep.prep"):
+            coords, p, n_fit, vote_cols = sweep_inputs(
+                family, data, generator, vote_subsample, perms=perms, vote_perm=vote_perm
+            )
+        num_groups = -(-total_groups // groups_per_step) * groups_per_step
+        if not isinstance(delta, (tuple, list)):
+            delta = float(delta)
+        with profiling.leaf("sweep.launch"):
+            count, params, _index = sweep(family, coords, p, n_fit, num_groups, vote_cols, delta)
+        post = _POSTPROCESS.get(family)
+        if post is None:
+            return count, params
+        with profiling.leaf("sweep.post"):
+            return count, post(params)
 
 
 def sweep_inputs(family: str, data, generator=None, vote_subsample: int = 0,

@@ -37,6 +37,7 @@ from lsqrrecipes_tpu_torch.ransac.sampling import (
     structured_samples,
 )
 from lsqrrecipes_tpu_torch.tree import n_obs, tree_leaves, tree_map
+from lsqrrecipes_tpu_torch.utils import profiling
 
 # Above this many [B, n] cells, exact distinct-subset sampling (which draws
 # a [B, n] uniform matrix) is replaced by with-replacement sampling whose
@@ -120,7 +121,8 @@ def hypothesize_and_vote(est, data, idx):
 
 
 def consensus_refit(est, data, mask):
-    return est.lsq_fit(data, mask)
+    with profiling.span("refit"):
+        return est.lsq_fit(data, mask)
 
 
 def hypothesize_and_vote_structured(est, data, generator, groups, perm=None):
@@ -178,25 +180,27 @@ def ransac_fused_sweep(
     recounted with ``est.agree``: the kernel's count only selects it."""
     from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 
-    data = as_tensor(data, device)
-    family = getattr(est, "fused_family", None)
-    n = n_obs(data)
-    if n < est.k:
-        return _invalid_result(est, data)
-    if not (family and fs.supports_data(family, data)):
-        return ransac_structured(est, data, generator, num_hypotheses)
-    total_groups = max(1, -(-num_hypotheses // n))
-    _count, params = fs.fused_sweep(
-        family, data, generator, total_groups, _fused_delta(est),
-        groups_per_step=groups_per_step, vote_subsample=vote_subsample,
-    )
-    best_params = params.to(_leaf(data).dtype)
-    best_mask = est.agree(best_params, data)
-    # The kernel's f32 band count can disagree with est.agree by a few
-    # border points (and with vote_subsample counts only the subsample):
-    # report the exact consensus size.
-    count = torch.sum(best_mask)
-    return _finalize(est, data, count, best_mask, best_params, n)
+    with profiling.span("engine.fit", new_fit=True):
+        data = as_tensor(data, device)
+        family = getattr(est, "fused_family", None)
+        n = n_obs(data)
+        if n < est.k:
+            return _invalid_result(est, data)
+        if not (family and fs.supports_data(family, data)):
+            return ransac_structured(est, data, generator, num_hypotheses)
+        total_groups = max(1, -(-num_hypotheses // n))
+        _count, params = fs.fused_sweep(
+            family, data, generator, total_groups, _fused_delta(est),
+            groups_per_step=groups_per_step, vote_subsample=vote_subsample,
+        )
+        best_params = params.to(_leaf(data).dtype)
+        # The kernel's f32 band count can disagree with est.agree by a few
+        # border points (and with vote_subsample counts only the subsample):
+        # report the exact consensus size.
+        with profiling.leaf("engine.agree"):
+            best_mask = est.agree(best_params, data)
+            count = torch.sum(best_mask)
+        return _finalize(est, data, count, best_mask, best_params, n)
 
 
 def _fused_delta(est):
@@ -208,7 +212,8 @@ def _nparams_lsq(est):
 
 
 def _finalize(est, data, best_count, best_mask, best_params, n):
-    count = int(best_count)
+    with profiling.wait("count"):
+        count = int(best_count)
     ok = count > 0
     if ok:
         params, valid = consensus_refit(est, data, best_mask)

@@ -1,4 +1,4 @@
-from lsqrrecipes_tpu_torch.utils.profiling import Timer, throughput
+from lsqrrecipes_tpu_torch.utils import profiling
 from lsqrrecipes_tpu_torch.utils.random import RandomNumberGenerator
 
-__all__ = ["RandomNumberGenerator", "Timer", "throughput"]
+__all__ = ["RandomNumberGenerator", "profiling"]

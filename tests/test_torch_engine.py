@@ -696,9 +696,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 # Paths that exist only in the port, and JAX ``__all__`` names that the port
-# exports under another name.
+# exports under another name (the JAX timing helpers ``Timer`` and
+# ``throughput`` became the port's ``profiling``, its own spans and counters).
 PORT_ONLY = {"interop.py", "device.py", "tree.py", "kernels", "examples"}
-RENAMED = {"pallas_available": "kernels_available"}
+RENAMED = {"pallas_available": "kernels_available", "Timer": "profiling",
+           "throughput": "profiling"}
 
 
 def _all_names(path):

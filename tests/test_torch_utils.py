@@ -2,8 +2,9 @@
 
 ``RandomNumberGenerator`` is seeded per device and does not reproduce JAX's
 threefry draws, so it is checked on its own terms: reproducibility, ranges,
-shapes and dtype.  The profiling helpers must time and trace on the CPU
-(the CUDA activity and the kernel names are the card's to check).  The
+shapes and dtype.  The profiler window must trace on the CPU, the
+program's leaves among its ranges (the CUDA activity and the kernel names
+are the card's to check).  The
 samplers run where their generator is when no device is given, and
 ``sample_k_subsets_chunked`` draws one seed per chunk.
 """
@@ -14,9 +15,10 @@ import os
 import pytest
 import torch
 
+from lsqrrecipes_tpu_torch.linalg import LMConfig, lm_core
 from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
 from lsqrrecipes_tpu_torch.ransac import sampling
-from lsqrrecipes_tpu_torch.utils import RandomNumberGenerator, Timer, throughput
+from lsqrrecipes_tpu_torch.utils import RandomNumberGenerator, profiling
 from lsqrrecipes_tpu_torch.utils.profiling import trace
 
 
@@ -62,25 +64,25 @@ def test_rng_defaults_to_cuda():
         RandomNumberGenerator(0)
 
 
-def test_timer_and_throughput():
-    with Timer() as t:
-        torch.ones(1000).sum()
-    assert t.elapsed > 0.0
-    calls = []
-    rate, seconds = throughput(lambda x: calls.append(x) or x * 2, 3, steps=4, warmup=2,
-                               items_per_step=10)
-    assert calls == [3] * 6 and seconds > 0.0 and rate == pytest.approx(40 / seconds)
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
+    """The window turns program tracing on, so the program's spans are
+    ranges of the written trace, and leaves it as it found it: off, with an
+    empty log."""
     log_dir = str(tmp_path / "trace")
+    target = torch.tensor([1.0, 2.0], dtype=torch.float64)
     with trace(log_dir) as where:
         torch.randn(64, 64) @ torch.randn(64, 64)
+        lm_core(lambda x: (torch.eye(2, dtype=x.dtype), x - target),
+                lambda x: 0.5 * torch.sum((x - target) ** 2),
+                torch.zeros(2, dtype=torch.float64), LMConfig(max_iters=2))
     assert where == log_dir
     path = os.path.join(log_dir, "trace.json")
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     assert len(events) > 0
+    assert {"lsqr.lm", "lsqr.lm.step", "lsqr.lm.normal", "lsqr.lm.solve"} <= {
+        e.get("name") for e in events}
+    assert profiling.set_tracing(False) is False and profiling.records() == []
 
 
 def test_chunked_sampler_ragged_distinct_reproducible():
