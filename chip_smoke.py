@@ -74,11 +74,13 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      and 1,024 groups (one launch), the ground truth recovered, the refit's
      iterations and time, then the kernel vs its plain version at that shape,
      each family's fit and vote kernels' device ms by the profiler and their
-     launch shapes;
+     launch shapes; for crosswire, the refit's residual and Jacobian kernel
+     (``us_crosswire_residual``) against its plain version on the card, bit
+     for bit, at the refit's start on one and four problems, and its times;
  17. ``ransac_structured`` on both ultrasound estimators through the
      ``us_fast`` hook at 16,384 hypotheses, and ``ransac`` on crosswire at
      16,384 gathered hypotheses (the batched f64 12x12 SVD minimal fit); no
-     kernel on either;
+     sweep kernel on either, the crosswire refits' residual kernel only;
  18. kernel ``sphere_lm`` through ``sphere_lm_batch`` at the bench's LM
      shape (4,096 problems x 256 points, 30 iterations, gtol 1e-6) against
      its plain version and the float64 LM, with the iterations and the LM
@@ -403,7 +405,11 @@ HOST_LIMITS = {"crosswire": (1.0, 1.0, 1.0), "pointer": (1.0, 1.0, 1.0),
                "plane_phantom": (3.0, 5.0, 1.0)}
 EXAMPLE_KERNELS = {"fused_sweep_showcase": ("fused_sweep_sphere3d", "fused_sweep_pivot",
                                             "fused_sweep_absolute_orientation"),
-                   "sphere_estimation": ("sphere_vote",)}
+                   "sphere_estimation": ("sphere_vote",),
+                   "crosswire_us_calibration": ("us_crosswire_residual",)}
+# Kernels whose launches phase 26's recorder keeps (the refits' crosswire
+# residual kernel is held to its plain version in phase 16).
+RECORDED_KERNELS = ("fused_sweep_", "sphere_vote")
 HOST_PHASE_BUDGET_S = 60.0         # phase 26, without the plain versions
 HOST_COMPARE_BUDGET_S = 120.0      # phase 26's plain versions
 # Phase 27: the consensus refits of phases 5, 9 and 13 FAR_OFFSET from the
@@ -430,6 +436,8 @@ REPLACES = {
     "sphere_mega": "lsqrrecipes_tpu/ops/sphere_ransac.py:225",
     "sphere_planar_vote": "lsqrrecipes_tpu/ops/sphere_ransac.py:80",
     "phantom_qr": "lsqrrecipes_tpu/ops/phantom_qr.py:46",
+    "us_crosswire_residual": "none: jax.jacfwd of lsqrrecipes_tpu/estimators/us_calibration.py"
+                             "::_crosswire_residual, fused by XLA under jit",
 }
 
 
@@ -788,6 +796,46 @@ def compare_sweep(fs, family, est, coords, p, n_fit, num_groups, vote_cols, vote
     check(not exact or (d_count == 0 and ki == pi),
           f"{label}: kernel and plain version pick different winners")
     return max(d_count, params_err or 0.0)
+
+
+def compare_crosswire_residual(torch, data, mask, x, timer, rates, smi):
+    """[16] The crosswire residual and Jacobian kernel against its plain
+    version on the card, on phase 16's data at the refit's start ``x[11]``
+    and on 4 problems around it: each masked output equal bit for bit in
+    float64, two calls too; then the CUDA-event times of both modes at one
+    problem and the plain Jacobian's.  Returns ``(err, ms, plain_ms,
+    bound_ms, bound_by)`` of the Jacobian mode, whose bound is its bytes
+    (its float64 arithmetic, about 150 operations an image, is far below
+    them)."""
+    from lsqrrecipes_tpu_torch import kernels
+    from lsqrrecipes_tpu_torch.estimators import us_calibration as usc
+    from lsqrrecipes_tpu_torch.tree import tree_map
+
+    m = mask.repeat_interleave(3).to(x.dtype)
+    x4 = x + 1e-3 * torch.arange(4, dtype=x.dtype, device=x.device)[:, None]
+    data4 = tree_map(lambda t: t.expand(4, *t.shape).contiguous(), data)
+    err = 0.0
+    for xb, db in ((x, data), (x4, data4)):
+        for fn, plain, mm in ((usc._crosswire_residual, usc._crosswire_residual_plain, m),
+                              (usc._crosswire_jacobian, usc._crosswire_jacobian_plain,
+                               m[:, None])):
+            got, again, want = fn(xb, db), fn(xb, db), plain(xb, db)
+            check(torch.equal(got, again), f"[16] {fn.__name__}: two calls differ")
+            got, want = got * mm, want * mm
+            e = float((got - want).abs().max() / want.abs().max())
+            print(f"    {fn.__name__} B={xb[..., 0].numel()}: {tuple(got.shape)}, largest "
+                  f"difference from the plain version {e:.3e} of its scale")
+            check(torch.equal(got, want), f"[16] {fn.__name__} off its plain version by {e:.3e}")
+            err = max(err, e)
+    ms = timer.ms(lambda: usc._crosswire_jacobian(x, data), reps=50)
+    res_ms = timer.ms(lambda: usc._crosswire_residual(x, data), reps=50)
+    plain_ms = timer.ms(lambda: usc._crosswire_jacobian_plain(x, data), reps=20)
+    n = data[1].shape[0]
+    bound_ms, by = bound(0, (11 + 14 * n + 33 * n) * x.element_size(), rates)
+    print(f"    us_crosswire_residual ms at n={n}: Jacobian {ms:.4f}, residual {res_ms:.4f}, plain "
+          f"Jacobian {plain_ms:.4f}, bound {bound_ms:.5f} ({by}); "
+          f"{launch_shape(kernels.US_CROSSWIRE, n)} [{smi}]")
+    return err, ms, plain_ms, bound_ms, by
 
 
 class Timer:
@@ -1487,7 +1535,7 @@ def phase_host_layers(torch, dev, seed, add_launches, name, timer, smi):
         """Check that the recorder kept every launch counted, then hold
         them against the plain versions, off the phase's clock."""
         nonlocal compare_s
-        launched = {k: v for k, v in counts.items() if v}
+        launched = {k: v for k, v in counts.items() if v and k.startswith(RECORDED_KERNELS)}
         check(recorder.recorded() == launched,
               f"[26] {label}: launches {launched}, recorded {recorder.recorded()}")
         t0 = time.perf_counter()
@@ -2264,6 +2312,9 @@ def main(argv=None):
               f"iterations, converged={bool(lm16.converged)}, analytic start valid="
               f"{bool(valid0)}; lsq_fit wall {refit_ms:.3f} ms median of {WALL_REPS} [{smi}]")
         check(bool(lm16.converged) and bool(valid0), f"{family}: the LM refit did not converge")
+        if family == "crosswire":
+            crosswire_residual = compare_crosswire_residual(torch, data16_t, mask16, x0[:n_min],
+                                                            timer, rates, smi)
 
         coords16, p16, nfit16, cols16 = fs.sweep_inputs(family, data16_t, gen())
         ms16 = timer.ms(lambda: fs.sweep_cuda(family, coords16, p16, nfit16, groups16, cols16,
@@ -2293,7 +2344,7 @@ def main(argv=None):
             fs, family, est_f, coords16, p16, nfit16, groups16, cols16, data16_t,
             f"    {name_f} at this shape ({groups16} groups)", US_DELTA, exact=True))
 
-    # 17. structured sweeps through us_fast and gathered crosswire (no kernel)
+    # 17. structured sweeps through us_fast and gathered crosswire (no sweep kernel)
     def drive17(label, fn, family, n):
         kernels.reset_launch_counts()
         res = fn()
@@ -2301,7 +2352,10 @@ def main(argv=None):
         counts = kernels.launch_counts()
         print(f"[17] {label}: launches {counts}")
         check_us(res, family, label, n)
-        check(sum(counts.values()) == 0, f"{label} launched a kernel")
+        # No sweep kernel; the ITERATIVE crosswire refit launches its residual kernel.
+        refit = counts.pop("us_crosswire_residual")
+        check(sum(counts.values()) == 0, f"{label} launched a sweep kernel")
+        check((refit > 0) == (family == "crosswire"), f"{label}: {refit} residual launches")
         wall = timer.wall_ms(fn, reps=WALL_REPS)
         hyps = H_US_GATHER if "gather" in label else -(-H_US_STRUCT // n) * n
         print(f"    wall {wall:.3f} ms median of {WALL_REPS}, {hyps / wall * 1e3:.4g} "
@@ -2864,6 +2918,7 @@ def main(argv=None):
               planar_by, None),
         entry("phantom_qr", phantom_err, phantom_ms, phantom_plain_ms, phantom_bound_ms,
               phantom_by, phantom_lib_ms),
+        entry("us_crosswire_residual", *crosswire_residual, None),
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")
     for k in record["kernels"]:

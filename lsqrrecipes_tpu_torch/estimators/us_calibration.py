@@ -25,16 +25,21 @@ All have the reference's two least-squares modes: ANALYTIC (an
 over-parameterised linear system by f64 SVD -- the pseudo-inverse with the
 FLT_EPSILON rank gate, or the plane phantom's homogeneous null vector --
 then the closest rotation by SVD and the '+sqrt' Euler extraction) and
-ITERATIVE (that start, then Levenberg-Marquardt on the minimal parameters,
-the Jacobian by ``torch.func.jacfwd`` of the residual).  Parameter vectors
+ITERATIVE (that start, then Levenberg-Marquardt on the minimal parameters;
+the crosswire's residual and Jacobian in closed form, on CUDA tensors from
+the kernel ``csrc/us_residual.cu``, the pointer's and the plane phantom's
+Jacobians by ``torch.func.jacfwd`` of the residual).  Parameter vectors
 append derived entries for a cheap ``agree``: ``m_x R3(:,1), m_y R3(:,2),
 R3(:,3)`` (crosswire 20, pointer 17 entries) or the plane phantom's 30
 (41).  Data: ``(Frame[n], q[n, 2])`` and ``(Frame[n], q[n, 2], p[n, 3])``;
 ``minimal_fit`` and ``agree`` broadcast over leading axes.
 """
 
+import math
+
 import torch
 
+from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.config import EPS, HALF_PI, SMALL_ANGLE
 from lsqrrecipes_tpu_torch.device import full_f32_matmul
 from lsqrrecipes_tpu_torch.estimators.base import Estimator, register
@@ -136,13 +141,119 @@ def _mapped(frames, img):
     return torch.einsum("nij,...nj->...ni", frames.r, img) + frames.t
 
 
-def _crosswire_residual(x, data):
+def _rotate3(r, v):
+    """``r[..., 3, 3] @ v[..., 3, m]`` as ``(r_k0 v_0 + r_k1 v_1) + r_k2 v_2``,
+    each product and sum rounded on its own: the order of
+    ``csrc/us_residual.cu``."""
+    return (r[..., :, 0, None] * v[..., None, 0, :] + r[..., :, 1, None] * v[..., None, 1, :]) \
+        + r[..., :, 2, None] * v[..., None, 2, :]
+
+
+def _crosswire_residual_plain(x, data):
     """3n residuals ``R2_i (u m_x r1 + v m_y r2 + t3) + t2_i - t1`` for
-    ``x = [t1 3, t3 3, w_z, w_y, w_x, m_x, m_y]`` (``SinglePointTarget...cxx:415-509``)."""
+    ``x[..., 11] = [t1 3, t3 3, w_z, w_y, w_x, m_x, m_y]``
+    (``SinglePointTarget...cxx:415-509``), ``[..., 3n]``: the leading
+    problem axes of ``x`` and of the data (``r2 [..., n, 3, 3]``)."""
     frames, q = data
-    r = _euler_zyx_matrix(x[6], x[7], x[8])
-    img = _image_points(q, x[9] * r[:, 0], x[10] * r[:, 1], x[3:6])
-    return (_mapped(frames, img) - x[0:3]).reshape(-1)
+    r = _euler_zyx_matrix(x[..., 6], x[..., 7], x[..., 8])
+    c1 = (x[..., 9, None] * r[..., :, 0])[..., None, :]
+    c2 = (x[..., 10, None] * r[..., :, 1])[..., None, :]
+    img = _image_points(q, c1, c2, x[..., None, 3:6])
+    res = _rotate3(frames.r, img[..., None])[..., 0] + frames.t - x[..., None, 0:3]
+    return res.reshape(*res.shape[:-2], -1)
+
+
+def _crosswire_jacobian_plain(x, data):
+    """The closed-form Jacobian ``[..., 3n, 11]`` of
+    :func:`_crosswire_residual_plain`: with ``R = Rz Ry Rx`` of columns
+    ``c0, c1, c2`` and ``p_i = u m_x c0 + v m_y c1 + t3``, image i's rows are
+    ``-I`` (t1), ``R2_i`` (t3), ``R2_i (u m_x dc0/dw + v m_y dc1/dw)`` (each
+    angle; ``dc0/dw_x = 0``, ``dc1/dw_x = c2``), ``R2_i (u c0)`` (m_x) and
+    ``R2_i (v c1)`` (m_y)."""
+    frames, q = data
+    wz, wy, wx = x[..., 6], x[..., 7], x[..., 8]
+    cz, sz = torch.cos(wz), torch.sin(wz)
+    cy, sy = torch.cos(wy), torch.sin(wy)
+    cx, sx = torch.cos(wx), torch.sin(wx)
+    zero = torch.zeros_like(cz)
+    c0 = torch.stack([cz * cy, sz * cy, -sy], dim=-1)
+    c1 = torch.stack([cz * sy * sx - sz * cx, sz * sy * sx + cz * cx, cy * sx], dim=-1)
+    c2 = torch.stack([cz * sy * cx + sz * sx, sz * sy * cx - cz * sx, cy * cx], dim=-1)
+    dc0_z = torch.stack([-sz * cy, cz * cy, zero], dim=-1)
+    dc1_z = torch.stack([-c1[..., 1], c1[..., 0], zero], dim=-1)
+    dc0_y = torch.stack([-cz * sy, -sz * sy, -cy], dim=-1)
+    dc1_y = torch.stack([cz * cy * sx, sz * cy * sx, -sy * sx], dim=-1)
+    umx = (q[..., 0] * x[..., 9, None])[..., None]          # [..., n, 1]
+    vmy = (q[..., 1] * x[..., 10, None])[..., None]
+    u, v = q[..., 0, None], q[..., 1, None]
+
+    def per_image(a):
+        return a[..., None, :]                               # [..., 1, 3]
+
+    cols = torch.stack([
+        umx * per_image(dc0_z) + vmy * per_image(dc1_z),
+        umx * per_image(dc0_y) + vmy * per_image(dc1_y),
+        vmy * per_image(c2),
+        u * per_image(c0),
+        v * per_image(c1),
+    ], dim=-1)                                               # [..., n, 3, 5]
+    rot = frames.r
+    eye = -torch.eye(3, dtype=rot.dtype, device=rot.device).expand(rot.shape)
+    jac = torch.cat([eye, rot, _rotate3(rot, cols)], dim=-1)           # [..., n, 3, 11]
+    return jac.reshape(*jac.shape[:-3], -1, 11)
+
+
+def _crosswire_cuda(x, data, jacobian):
+    """Launch ``csrc/us_residual.cu`` on the current stream for
+    :func:`_crosswire_residual` (``jacobian`` False) or
+    :func:`_crosswire_jacobian`: ``x[..., 11]`` and the data in one dtype,
+    float32 or float64, the data with ``x``'s leading axes.  Raises on a
+    non-CUDA or mixed-dtype input, data of other leading axes, and when the
+    build or the launch fails."""
+    frames, q = data
+    lead, n = x.shape[:-1], q.shape[-2]
+    if x.shape[-1] != 11 or frames.r.shape[-3:] != (n, 3, 3) or frames.t.shape[-2:] != (n, 3):
+        raise ValueError("crosswire residual takes x[..., 11], r2[..., n, 3, 3], t2[..., n, 3], "
+                         "q[..., n, 2]")
+    if q.shape[:-2] != lead or frames.r.shape[:-3] != lead or frames.t.shape[:-2] != lead:
+        raise ValueError(f"crosswire data must have x's leading axes {tuple(lead)}")
+    x, r2, t2, q = x.contiguous(), frames.r.contiguous(), frames.t.contiguous(), q.contiguous()
+    kernels.check_inputs((torch.float32, torch.float64), x=x, r2=r2, t2=t2, q=q)
+    if len({x.dtype, r2.dtype, t2.dtype, q.dtype}) != 1:
+        raise ValueError("crosswire residual takes x and its data in one dtype")
+    b = math.prod(lead)
+    if b >= 2**31 or 33 * n >= 2**31:
+        raise ValueError("crosswire residual supports fewer than 2^31 problems and rows")
+    shape = (*lead, 3 * n, 11) if jacobian else (*lead, 3 * n)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    if out.numel():
+        res_ptr, jac_ptr = (None, out.data_ptr()) if jacobian else (out.data_ptr(), None)
+        with torch.cuda.device(x.device):
+            kernels.US_CROSSWIRE.launch(
+                x.data_ptr(), r2.data_ptr(), t2.data_ptr(), q.data_ptr(), b, n,
+                int(x.dtype == torch.float64), res_ptr, jac_ptr,
+                torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def _crosswire_residual(x, data):
+    """:func:`_crosswire_residual_plain` of ``x[..., 11]``: on CUDA tensors
+    the kernel ``csrc/us_residual.cu``, on CPU tensors the plain version.
+    Counts one ``us.crosswire_evals``."""
+    profiling.count("us.crosswire_evals", 1)
+    if x.is_cuda:
+        return _crosswire_cuda(x, data, jacobian=False)
+    return _crosswire_residual_plain(x, data)
+
+
+def _crosswire_jacobian(x, data):
+    """:func:`_crosswire_jacobian_plain` of ``x[..., 11]``, ``[..., 3n,
+    11]``: on CUDA tensors the kernel ``csrc/us_residual.cu``, on CPU
+    tensors the plain version.  Counts one ``us.crosswire_evals``."""
+    profiling.count("us.crosswire_evals", 1)
+    if x.is_cuda:
+        return _crosswire_cuda(x, data, jacobian=True)
+    return _crosswire_jacobian_plain(x, data)
 
 
 def _pointer_residual(x, data):
@@ -154,7 +265,6 @@ def _pointer_residual(x, data):
     return (_mapped(frames, img) - p).reshape(-1)
 
 
-_crosswire_jacobian = torch.func.jacfwd(_crosswire_residual)
 _pointer_jacobian = torch.func.jacfwd(_pointer_residual)
 
 
@@ -292,9 +402,8 @@ class CrosswireUSCalibrationEstimator(Estimator):
     def lsq_fit_batched(self, data, mask=None):
         """``lsq_fit`` of B problems stacked on a leading axis (``data``
         leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
-        return _lsq_fit(self, torch.func.vmap(_crosswire_residual),
-                        torch.func.vmap(_crosswire_jacobian),
-                        _pack_crosswire, 11, 3, data, mask)
+        return _lsq_fit(self, _crosswire_residual, _crosswire_jacobian, _pack_crosswire, 11, 3,
+                        data, mask)
 
     def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
         """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""

@@ -51,14 +51,16 @@ def nvcc_path() -> str:
     raise FileNotFoundError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def check_inputs(**tensors) -> None:
-    """Raise ``ValueError`` unless every tensor is a contiguous float32
-    CUDA tensor (what every kernel here takes)."""
+def check_inputs(dtypes=(torch.float32,), **tensors) -> None:
+    """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
+    of one of ``dtypes`` (float32 alone, what every kernel here but the
+    crosswire residual's takes)."""
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype not in dtypes:
+            allowed = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+            raise ValueError(f"{name} must be {allowed}, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -277,9 +279,17 @@ PHANTOM_QR = Kernel(
     [_P, _P, ctypes.c_int, _P, _P],
 )
 
+# The crosswire calibration's residual and Jacobian for the LM refit, in
+# float32 or float64 (one library, the dtype a flag).
+US_CROSSWIRE = Kernel(
+    "us_crosswire_residual", "us_residual.cu", "us_crosswire_launch",
+    # x, r2, t2, q, num_problems, n, is_double, res, jac, stream
+    [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P, _P, _P],
+)
+
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
        FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values(),
-       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE, PHANTOM_QR)
+       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE, PHANTOM_QR, US_CROSSWIRE)
 
 
 def build_all(kernels=ALL) -> None:

@@ -68,7 +68,10 @@ def _cloud(seed, n):
 def test_every_kernel_source_exists_and_names_what_it_replaces():
     for k in kernels.ALL:
         text = k.source.read_text()
-        assert "Replaces lsqrrecipes_tpu/ops/" in text
+        # The crosswire residual's kernel has no TPU kernel to name: XLA
+        # fuses the JAX package's jacfwd.
+        assert ("Replaces no TPU kernel." if k is kernels.US_CROSSWIRE else
+                "Replaces lsqrrecipes_tpu/ops/") in text
         assert f'extern "C" int {k.symbol}(' in text
         assert "lsq_cuda_error_string" in text
 
@@ -107,7 +110,7 @@ def test_point_sweeps_share_one_source_and_build():
     assert kernels.FUSED_SWEEPS["sphere3d"] is kernels.FUSED_SWEEP_SPHERE3D
     assert set(kernels.ALL) == set(kernels.FUSED_SWEEPS.values()) | {
         kernels.SPHERE_VOTE, kernels.PLANE_VOTE, kernels.SPHERE_LM, kernels.SPHERE_MEGA,
-        kernels.SPHERE_PLANAR_VOTE, kernels.PHANTOM_QR}
+        kernels.SPHERE_PLANAR_VOTE, kernels.PHANTOM_QR, kernels.US_CROSSWIRE}
 
 
 def test_rigid_sweeps_share_one_source_and_build():
@@ -130,7 +133,7 @@ def test_us_sweeps_share_one_source_and_build():
         assert kernels.FUSED_SWEEPS[family].argtypes == rigid[:-1] + [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
-    assert len(kernels.ALL) == 16 and len({k.source for k in kernels.ALL}) == 9
+    assert len(kernels.ALL) == 17 and len({k.source for k in kernels.ALL}) == 10
 
 
 def test_sphere_step_kernels_share_one_source_and_build():
@@ -173,6 +176,7 @@ _REDESIGNED = {
     "fused_sweep_ray3d": ("split_sweep_kernel<Ray3D>", True),
     "sphere_lm": ("constexpr int kLanes = 16;", None),
     "sphere_planar_vote": ("constexpr int kPlanarHypPerThread = 8;", True),
+    "us_crosswire_residual": ("constexpr int kThreads = 128;", None),
 }
 
 
@@ -236,7 +240,7 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     # fused_sweep_us.cu and the two per-step sphere kernels sphere_ransac.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
                         "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire",
-                        "sphere_lm", "sphere_mega", "phantom_qr"]
+                        "sphere_lm", "sphere_mega", "phantom_qr", "us_crosswire_residual"]
 
 
 # ------------------------------------------------------- on the card only
@@ -1190,3 +1194,132 @@ def test_far_refit_in_float64_on_card_equals_cpu(cuda_device, kind):
     for block in (slice(0, k), slice(k, None)) if k else (slice(None),):
         scale = np.abs(want[block]).max()
         np.testing.assert_allclose(got[block], want[block], rtol=0, atol=3e-8 * scale)
+
+
+# ----------------------------------------------------- crosswire residual
+
+
+def _crosswire_cell_data(seed, n=1024):
+    """The crosswire cell's data model on the CPU, float64: n tracked images
+    with pixel noise 0.5, the last 20% of the poses shoved 30-80 mm per
+    axis; the consensus mask leaves those out.  ``(data, mask, x)`` with
+    ``x`` the analytic fit on the mask moved by 0.01 per parameter."""
+    from lsqrrecipes_tpu_torch.estimators.us_calibration import (
+        ANALYTIC, CrosswireUSCalibrationEstimator)
+    from lsqrrecipes_tpu_torch.synthetic import make_crosswire_data
+
+    g = torch.Generator().manual_seed(seed)
+    (frames, q), _, _ = make_crosswire_data(g, n=n, sigma=0.5, device="cpu")
+    n_out = n // 5
+    shift = (30.0 + 50.0 * torch.rand((n_out, 3), generator=g, dtype=torch.float64)) * torch.sign(
+        torch.randn((n_out, 3), generator=g, dtype=torch.float64))
+    t = frames.t.clone()
+    t[n - n_out:] += shift
+    data = (Frame(frames.r, t), q)
+    mask = torch.arange(n) < n - n_out
+    x = CrosswireUSCalibrationEstimator(3.0, ANALYTIC).lsq_fit(data, mask)[0][:11]
+    return data, mask, x + 0.01 * torch.randn(11, generator=g, dtype=torch.float64)
+
+
+def _stack_problems(problems):
+    datas = [p[0] for p in problems]
+    data = (Frame(torch.stack([d[0].r for d in datas]), torch.stack([d[0].t for d in datas])),
+            torch.stack([d[1] for d in datas]))
+    return data, torch.stack([p[1] for p in problems]), torch.stack([p[2] for p in problems])
+
+
+def test_crosswire_kernel_wrapper_refuses_what_the_kernel_cannot_take():
+    from lsqrrecipes_tpu_torch.estimators import us_calibration as usc
+
+    data, _, x = _crosswire_cell_data(40, n=16)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        usc._crosswire_cuda(x, data, jacobian=True)
+    with pytest.raises(ValueError, match="leading axes"):
+        usc._crosswire_cuda(torch.stack([x, x]), _stack_problems([(data, x, x)] * 3)[0], False)
+    with pytest.raises(ValueError, match="leading axes"):
+        usc._crosswire_cuda(torch.stack([x, x]), data, jacobian=True)
+    with pytest.raises(ValueError, match="x\\[..., 11\\]"):
+        usc._crosswire_cuda(x[:8], data, jacobian=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 4])
+def test_crosswire_residual_kernel_matches_plain_on_card(cuda_device, b):
+    """The cell's shape, n = 1,024 with 20% masked: the kernel's masked
+    residual and Jacobian within 1e-13 of each output's scale of the plain
+    version's on the CPU in float64, equal bit for bit to the plain
+    version's on the card (the same operations in the same order, and the
+    card's sin and cos), and two calls equal bit for bit; one launch a
+    call, B problems included."""
+    from lsqrrecipes_tpu_torch.estimators import us_calibration as usc
+
+    problems = [_crosswire_cell_data(41 + i) for i in range(b)]
+    data, mask, x = problems[0] if b == 1 else _stack_problems(problems)
+    card = tree_map(lambda t: t.to(cuda_device), (data, mask, x))
+    m = torch.repeat_interleave(mask, 3, dim=-1).to(torch.float64)
+    for fn, plain, mm in ((usc._crosswire_residual, usc._crosswire_residual_plain, m),
+                          (usc._crosswire_jacobian, usc._crosswire_jacobian_plain, m[..., None])):
+        before = kernels.US_CROSSWIRE.launches
+        got, again = fn(card[2], card[0]), fn(card[2], card[0])
+        assert kernels.US_CROSSWIRE.launches == before + 2
+        assert got.is_cuda and got.dtype == torch.float64 and torch.equal(got, again)
+        assert torch.equal(got, plain(card[2], card[0]))
+        want = plain(x, data) * mm
+        assert got.shape == want.shape
+        got = got.cpu() * mm
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-13 * scale
+
+
+@pytest.mark.cuda
+def test_crosswire_iterative_fit_on_card_equals_cpu(cuda_device):
+    """One crosswire ITERATIVE ``lsq_fit`` on the card: its params within
+    1e-10 of the CPU fit's (relative to max(|p|, 1)), and the kernel
+    launched once for the LM's first cost and three times a step."""
+    from lsqrrecipes_tpu_torch.estimators.us_calibration import CrosswireUSCalibrationEstimator
+    from lsqrrecipes_tpu_torch.utils import profiling
+
+    data, mask, _ = _crosswire_cell_data(45)
+    est = CrosswireUSCalibrationEstimator(3.0)
+    want, wvalid = est.lsq_fit(data, mask)
+    card = tree_map(lambda t: t.to(cuda_device), (data, mask))
+    before = kernels.US_CROSSWIRE.launches
+    profiling.reset()
+    was = profiling.set_tracing(True)
+    try:
+        got, gvalid = est.lsq_fit(*card)
+        torch.cuda.synchronize()
+        recs = profiling.records()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset()
+    (steps,) = [r for r in recs if r.name == "lm.steps"]
+    evals = sum(r.value for r in recs if r.name == "us.crosswire_evals")
+    assert kernels.US_CROSSWIRE.launches - before == evals == 1 + 3 * steps.value
+    assert bool(gvalid) and bool(wvalid) and got.is_cuda
+    got = got.cpu()
+    assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_crosswire_residual_kernel_takes_float32_on_card(cuda_device):
+    """A float32 input launches the float instantiation, within 1e-5 of
+    each output's scale of the float64 plain version."""
+    from lsqrrecipes_tpu_torch.estimators import us_calibration as usc
+
+    data, _, x = _crosswire_cell_data(46)
+    card = tree_map(lambda t: t.to(cuda_device, torch.float32), (data, x))
+    before = kernels.US_CROSSWIRE.launches
+    r, j = usc._crosswire_residual(card[1], card[0]), usc._crosswire_jacobian(card[1], card[0])
+    assert kernels.US_CROSSWIRE.launches == before + 2
+    assert r.dtype == j.dtype == torch.float32
+    for got, want in ((r, usc._crosswire_residual_plain(x, data)),
+                      (j, usc._crosswire_jacobian_plain(x, data))):
+        scale = float(want.abs().max())
+        assert float((got.cpu().double() - want).abs().max()) <= 1e-5 * scale
+    with pytest.raises(ValueError, match="one dtype"):
+        usc._crosswire_jacobian(card[1].double(), card[0])
+    with pytest.raises(ValueError, match="must be float32 or float64, got torch.float16"):
+        usc._crosswire_residual(card[1].half(), tree_map(lambda t: t.half(), card[0]))
+    with pytest.raises(ValueError, match="must be float32, got torch.float64"):
+        kernels.check_inputs(x=card[1].double())      # every other kernel: float32 alone

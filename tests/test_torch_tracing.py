@@ -7,7 +7,8 @@ its parent and the four leaves of each LM step inside the step; the fit's
 results and the aten operations it dispatches are those of a fit with
 tracing off; the LM's completion checks are ``wait.lm_done`` leaves, one
 per check, and its ``lm.steps`` counter keeps the iteration tensor from
-which the steps with a live problem are read.  Under a profiler, leaves are
+which the steps with a live problem are read; the crosswire counts each
+residual and Jacobian evaluation (``us.crosswire_evals``).  Under a profiler, leaves are
 ``lsqr.<name>`` ranges and layer spans are not; inside the operator's
 ``trace()`` window both are.  All on the CPU, through the plain sweep.
 """
@@ -20,7 +21,8 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu_torch.estimators.sphere import SphereEstimator
-from lsqrrecipes_tpu_torch.estimators.us_calibration import CrosswireUSCalibrationEstimator
+from lsqrrecipes_tpu_torch.estimators.us_calibration import (ANALYTIC,
+                                                             CrosswireUSCalibrationEstimator)
 from lsqrrecipes_tpu_torch.linalg.lm import _CHECK_EVERY, LMConfig, lm_core
 from lsqrrecipes_tpu_torch.ransac import ransac_fused_sweep
 from lsqrrecipes_tpu_torch.synthetic import make_crosswire_data
@@ -33,6 +35,7 @@ LEAVES = {"sweep.prep", "sweep.launch", "sweep.post", "engine.agree", "wait.coun
           "refit.start", "wait.svd", "lm.normal", "lm.solve", "lm.trial", "lm.update",
           "wait.lm_done"}
 LAYERS = {"engine.fit", "sweep", "refit", "lm", "lm.step"}
+COUNTERS = {"lm.steps", "us.crosswire_evals"}
 STEP_LEAVES = ["lm.normal", "lm.solve", "lm.trial", "lm.update"]
 
 
@@ -104,7 +107,7 @@ def test_a_fit_records_its_tree(tracing, which):
     want = {"engine.fit", "sweep", "sweep.prep", "sweep.launch", "engine.agree", "wait.count",
             "refit", "refit.start", "lm", "lm.step", "lm.steps", "wait.lm_done", *STEP_LEAVES}
     if which == "crosswire_iterative":
-        want.add("sweep.post")
+        want |= {"sweep.post", "us.crosswire_evals"}
     assert want <= set(names) <= want | {"wait.svd"}
     parent_of = {"sweep": "engine.fit", "sweep.prep": "sweep", "sweep.launch": "sweep",
                  "sweep.post": "sweep", "engine.agree": "engine.fit",
@@ -112,13 +115,15 @@ def test_a_fit_records_its_tree(tracing, which):
                  "lm": "refit", "lm.step": "lm", "wait.lm_done": "lm", "lm.steps": "lm",
                  **{leaf: "lm.step" for leaf in STEP_LEAVES}}
     for r in recs:
-        assert r.kind == ("count" if r.name == "lm.steps" else
+        assert r.kind == ("count" if r.name in COUNTERS else
                           "leaf" if r.name in LEAVES else "span")
         if r.parent is None:
             continue
         p = recs[r.parent]
         assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
-        if r.name != "wait.svd":
+        if r.name == "us.crosswire_evals":     # the first cost, then the normal system, the trial
+            assert p.name in ("lm", "lm.normal", "lm.trial"), p.name
+        elif r.name != "wait.svd":
             assert p.name == parent_of[r.name], (r.name, p.name)
     # The four leaves tile each step, in order.
     steps = [i for i, r in enumerate(recs) if r.name == "lm.step"]
@@ -130,6 +135,29 @@ def test_a_fit_records_its_tree(tracing, which):
     assert counted.value == len(steps) == names["lm.step"]
     assert names["wait.lm_done"] == len(steps) // _CHECK_EVERY
     assert 1 <= counted.reading <= counted.value
+
+
+@pytest.mark.parametrize("which", [*FITS, "crosswire_analytic"])
+def test_the_crosswire_counts_its_residual_and_jacobian_evaluations(tracing, which):
+    """One ``us.crosswire_evals`` per residual or Jacobian evaluation: the
+    LM's first cost, then three a step (the residual and the Jacobian of
+    the normal system, the residual at the trial point), frozen steps
+    included; none where no crosswire LM runs."""
+    if which == "crosswire_analytic":
+        _, data = _make("crosswire_iterative")
+        est = CrosswireUSCalibrationEstimator(3.0, ls_type=ANALYTIC)
+        ransac_fused_sweep(est, data, torch.Generator().manual_seed(7), num_hypotheses=512)
+    else:
+        _fit(which)
+    recs = tracing.records()
+    evals = [r for r in recs if r.name == "us.crosswire_evals"]
+    if which != "crosswire_iterative":
+        assert evals == []
+        return
+    (steps,) = [r for r in recs if r.name == "lm.steps"]
+    assert all(r.kind == "count" and r.value == 1 for r in evals)
+    assert len(evals) == 1 + 3 * steps.value and steps.value >= _CHECK_EVERY
+    assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
 
 
 @pytest.mark.parametrize("which", FITS)

@@ -9,7 +9,10 @@ a random calibration, poses with Euler angles uniform in [0, pi), pixels in
 target points shifted by 30-80), goes to both packages.  Minimal fits agree
 to 1e-9, least-squares fits in both modes to 1e-6 relative with the same
 ``valid``, ``agree`` masks and vote counts exactly, the Jacobians to 1e-12.
-The drivers recover the planted calibration at the JAX tests' limits
+The crosswire's closed-form residual and Jacobian equal
+``torch.func.jacfwd`` of the residual written out, near the Euler
+gimbal too, with a leading problem axis and in float32.  The drivers
+recover the planted calibration at the JAX tests' limits
 (``tests/test_us_calibration.py:33-36``: translations within 1.0, rotation
 within 1 degree, scales within 1.0).
 """
@@ -192,6 +195,93 @@ def test_jacobian_matches_jax(kind):
     _close(got, want, 1e-12, 1e-12)
     _close(tres(torch.as_tensor(x), to_torch(data)).numpy(),
            np.asarray(jres(jnp.asarray(x), to_jax(data))), 1e-12, 1e-12)
+
+
+def _jacfwd_crosswire_residual(x, data):
+    """The crosswire residual as it was differentiated before its closed
+    form: one problem, ``torch.func.jacfwd`` of the Euler matrix, image
+    points and tracked poses."""
+    frames, q = data
+
+    def residual(x):
+        r = tus._euler_zyx_matrix(x[6], x[7], x[8])
+        img = q[:, 0:1] * (x[9] * r[:, 0]) + q[:, 1:2] * (x[10] * r[:, 1]) + x[3:6]
+        return (torch.einsum("nij,nj->ni", frames.r, img) + frames.t - x[0:3]).reshape(-1)
+
+    return residual(x), torch.func.jacfwd(residual)(x)
+
+
+def _crosswire_point(case, seed, dtype=torch.float64):
+    """``(x [11], data)``: the analytic fit of crosswire data moved off it,
+    with ``w_y`` 5e-4 from +-pi/2 in the gimbal cases."""
+    data, _ = make_us_data("crosswire", seed, 40)
+    _, test = make_estimators("crosswire", tus.ANALYTIC)
+    x = test.lsq_fit(to_torch(data))[0][:11].clone()
+    x += 0.01 * torch.as_tensor(np.random.default_rng(seed).normal(size=11))
+    if case != "random":
+        x[7] = (1.0 if case == "gimbal_plus" else -1.0) * (np.pi / 2 - 5e-4)
+    return x.to(dtype), to_torch(data, dtype)
+
+
+def _close_to_scale(got, want, rtol):
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_allclose(got, want, rtol=rtol, atol=rtol * np.abs(want).max())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("case", ["random", "gimbal_plus", "gimbal_minus"])
+def test_closed_form_crosswire_matches_jacfwd_of_the_residual(case, masked):
+    x, data = _crosswire_point(case, 21)
+    r_want, j_want = _jacfwd_crosswire_residual(x, data)
+    r_got, j_got = tus._crosswire_residual(x, data), tus._crosswire_jacobian(x, data)
+    assert r_got.shape == (120,) and j_got.shape == (120, 11)
+    assert torch.equal(j_got[:, 0:3], -torch.eye(3, dtype=x.dtype).repeat(40, 1))
+    if masked:      # the LM's masking: rows of left-out images are zero in both
+        m = torch.repeat_interleave(torch.arange(40) % 5 != 0, 3).to(x.dtype)
+        r_want, j_want, r_got, j_got = r_want * m, j_want * m[:, None], r_got * m, j_got * m[:, None]
+    _close_to_scale(r_got, r_want, 1e-12)
+    _close_to_scale(j_got, j_want, 1e-12)
+
+
+def test_closed_form_crosswire_takes_a_leading_problem_axis():
+    """B = 3 problems at once, on stacked data, equal the three single
+    problems."""
+    points = [_crosswire_point(case, 22 + i) for i, case in
+              enumerate(["random", "gimbal_plus", "gimbal_minus"])]
+    xs = torch.stack([x for x, _ in points])
+    datas = [d for _, d in points]
+    batched = (Frame(torch.stack([d[0].r for d in datas]), torch.stack([d[0].t for d in datas])),
+               torch.stack([d[1] for d in datas]))
+    r, j = tus._crosswire_residual(xs, batched), tus._crosswire_jacobian(xs, batched)
+    assert r.shape == (3, 120) and j.shape == (3, 120, 11)
+    for i in range(3):
+        _close_to_scale(r[i], tus._crosswire_residual(xs[i], datas[i]), 1e-15)
+        _close_to_scale(j[i], tus._crosswire_jacobian(xs[i], datas[i]), 1e-15)
+
+
+def test_closed_form_crosswire_in_float32():
+    x, data = _crosswire_point("random", 23, torch.float32)
+    r_want, j_want = _jacfwd_crosswire_residual(x, data)
+    r_got, j_got = tus._crosswire_residual(x, data), tus._crosswire_jacobian(x, data)
+    assert r_got.dtype == j_got.dtype == torch.float32
+    _close_to_scale(r_got, r_want, 1e-5)
+    _close_to_scale(j_got, j_want, 1e-5)
+
+
+@pytest.mark.parametrize("ls_type", [tus.ANALYTIC, tus.ITERATIVE])
+def test_crosswire_lsq_fit_batched_equals_per_problem(ls_type):
+    """``lsq_fit_batched`` passes the closed form its leading axis (no
+    ``vmap``): B = 3 datasets with distinct masks give each ``lsq_fit``."""
+    _, test = make_estimators("crosswire", ls_type)
+    datasets = [make_us_data("crosswire", 30 + i, 60)[0] for i in range(3)]
+    stacked = ("crosswire", *(np.stack([d[j] for d in datasets]) for j in range(1, 4)))
+    masks = np.stack([np.arange(60) < 48 - 4 * i for i in range(3)])
+    pb, vb = test.lsq_fit_batched(to_torch(stacked), torch.as_tensor(masks))
+    assert pb.shape == (3, test.nparams) and bool(vb.all())
+    for i in range(3):
+        p1, v1 = test.lsq_fit(to_torch(datasets[i]), torch.as_tensor(masks[i]))
+        assert bool(v1)
+        _close(pb[i].numpy(), p1.numpy(), 1e-10, 1e-10)
 
 
 @pytest.mark.parametrize("kind", KINDS)
