@@ -55,3 +55,10 @@ def estimator(cfg, ls_type):
     from lsqrrecipes_tpu_torch.estimators.us_calibration import CrosswireUSCalibrationEstimator
 
     return CrosswireUSCalibrationEstimator(cfg["delta"], ls_type=ls_type)
+
+
+def winner_shift(params, delta):
+    """The winning hypothesis moved off its best: ``t1_x`` moved by 2 delta."""
+    params = params.clone()
+    params[0] += 2.0 * delta
+    return params

@@ -41,3 +41,10 @@ def estimator(cfg, ls_type):
     from lsqrrecipes_tpu_torch.estimators.sphere import SphereEstimator
 
     return SphereEstimator(cfg["delta"], dim=3, ls_type=ls_type)
+
+
+def winner_shift(params, delta):
+    """The winning hypothesis moved off its best: the radius grown by 2 delta."""
+    params = params.clone()
+    params[3] += 2.0 * delta
+    return params

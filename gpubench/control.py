@@ -55,7 +55,7 @@ def main(argv=None):
         cell.traffic["check_fits"] = args.fits
         for seed in args.seeds:
             patch = faults.Patch()
-            plant(patch)
+            plant(patch, cell)
             try:
                 got = runner.run(cell, seed, args.seconds, False, args.device, time.perf_counter())
             finally:

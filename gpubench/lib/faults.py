@@ -3,10 +3,17 @@ to catch: the tests plant them at a small size on the CPU, and
 ``gpubench/control.py --fault`` at a cell's own size on the card.
 
 Each takes ``patch(obj, name, value)``, which replaces an attribute and
-undoes it later (pytest's ``monkeypatch.setattr``, or :class:`Patch`).
+undoes it later (pytest's ``monkeypatch.setattr``, or :class:`Patch`), and
+the :class:`~gpubench.lib.runner.Cell` it is planted under.  The cells
+that can have each fault follow ``BENCHMARK.json``: every workload, or
+those whose traffic refits by an LM.
 """
 
+import json
+
 import torch
+
+from gpubench.lib import runner
 
 
 class Patch:
@@ -25,7 +32,7 @@ class Patch:
         self._undo.clear()
 
 
-def lm_returns_its_start(patch):
+def lm_returns_its_start(patch, cell):
     """Levenberg-Marquardt hands back its start: the refit's state unchanged."""
     from lsqrrecipes_tpu_torch.estimators import sphere, us_calibration
     from lsqrrecipes_tpu_torch.linalg.lm import LMResult
@@ -38,7 +45,7 @@ def lm_returns_its_start(patch):
     patch(us_calibration, "levenberg_marquardt", unchanged)
 
 
-def refit_returns_its_input(patch):
+def refit_returns_its_input(patch, cell):
     """The consensus refit does nothing: the winning minimal fit is the
     answer (what an ALGEBRAIC or ANALYTIC refit left unchanged gives)."""
     from lsqrrecipes_tpu_torch.ransac import engine
@@ -52,7 +59,7 @@ def refit_returns_its_input(patch):
     patch(engine, "_finalize", finalize)
 
 
-def refit_on_half(patch):
+def refit_on_half(patch, cell):
     """The refit sees half of the consensus, its solve taken over the rest."""
     from lsqrrecipes_tpu_torch.ransac import engine
 
@@ -66,7 +73,7 @@ def refit_on_half(patch):
     patch(engine, "consensus_refit", half)
 
 
-def params_altered(patch):
+def params_altered(patch, cell):
     """An answer altered where it is produced: one refit parameter moved by
     a hundredth of its size (or of 1)."""
     from lsqrrecipes_tpu_torch.ransac import engine
@@ -82,24 +89,35 @@ def params_altered(patch):
     patch(engine, "consensus_refit", altered)
 
 
-def winner_altered(patch):
+def winner_altered(patch, cell):
     """An answer altered where it is produced: the sweep returns another
-    hypothesis than its best (the sphere grown by 2 delta, the crosswire
-    point moved by 2 delta)."""
+    hypothesis than its best, moved by the configuration's
+    ``winner_shift(params, delta)`` (the sphere grown by 2 delta, the
+    crosswire point moved by 2 delta).  The fused sweep returns the moved
+    params; a structured sweep returns them with their own agreement and
+    count, as if it had picked that hypothesis."""
     from lsqrrecipes_tpu_torch.ops import fused_sweep
+    from lsqrrecipes_tpu_torch.ransac import engine
 
-    orig = fused_sweep.fused_sweep
+    shift, delta = cell.module.winner_shift, cell.cfg["delta"]
+    orig_fused = fused_sweep.fused_sweep
+    orig_structured = engine.hypothesize_and_vote_structured
 
-    def altered(family, data, *args, **kwargs):
-        count, params = orig(family, data, *args, **kwargs)
-        params = params.clone()
-        params[3 if family == "sphere3d" else 0] += 2.0 * (1.0 if family == "sphere3d" else 3.0)
-        return count, params
+    def fused(*args, **kwargs):
+        count, params = orig_fused(*args, **kwargs)
+        return count, shift(params, delta)
 
-    patch(fused_sweep, "fused_sweep", altered)
+    def structured(est, data, *args, **kwargs):
+        _, _, params = orig_structured(est, data, *args, **kwargs)
+        params = shift(params, delta)
+        mask = est.agree(params, data)
+        return torch.sum(mask), mask, params
+
+    patch(fused_sweep, "fused_sweep", fused)
+    patch(engine, "hypothesize_and_vote_structured", structured)
 
 
-def count_altered(patch):
+def count_altered(patch, cell):
     """An answer altered where it is produced: the reported consensus size
     a tenth more than the consensus holds."""
     from lsqrrecipes_tpu_torch.ransac import engine
@@ -113,8 +131,14 @@ def count_altered(patch):
     patch(engine, "_finalize", finalize)
 
 
-LM_CELLS = ("sphere3d.geometric", "crosswire.iterative")
-ALL_CELLS = LM_CELLS + ("sphere3d.algebraic", "crosswire.analytic")
+def _ls_type(workload):
+    return json.loads((runner.BENCH_DIR / "traffic" / f"{workload['traffic']}.json")
+                      .read_text())["ls_type"]
+
+
+_WORKLOADS = runner.load_benchmark()["workloads"]
+ALL_CELLS = tuple(w["name"] for w in _WORKLOADS)
+LM_CELLS = tuple(w["name"] for w in _WORKLOADS if _ls_type(w) in ("geometric", "iterative"))
 
 # name -> (plant, the cells that can have it)
 FAULTS = {

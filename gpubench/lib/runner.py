@@ -4,7 +4,10 @@ Everything a cell needs is found by name from ``BENCHMARK.json``:
 ``configs/<config>.json`` (its sizes; the entry's ``file``) beside
 ``configs/<config>.py`` (its data model and program objects),
 ``traffic/<traffic>.json``, ``limits/<cell>.json``,
-``reference/<reference>.py`` and one ``metrics/<metric>.py`` per metric.
+``reference/<reference>.py``, the sampling design the configuration's
+``sampling`` key names (``reference/sampling.py`` without one, else
+``reference/sampling_<design>.py``) and one ``metrics/<metric>.py`` per
+metric.
 
 Traffic is a closed loop of one caller.  Set-up makes a pool of datasets
 from the seed on the device and runs the warm-up fits.  The window then
@@ -73,6 +76,7 @@ class Cell:
         self.traffic.update(o.get("traffic", {}))
         if self.traffic["loop"] != "closed" or self.traffic["callers"] != 1:
             raise ValueError("the traffic generator runs a closed loop of one caller")
+        self.sampling = self.cfg.get("sampling", "fused")
 
         def mine(m):
             return name in m.get("workloads", [name])
@@ -182,7 +186,7 @@ def run(cell, seed, seconds, trace, device, t_start):
     t_check = time.perf_counter()
     readings = [judge.judge(ref, pool[i % len(pool)], cfg["delta"],
                             window.derive_seed(seed, window.WINDOW, i), hyp,
-                            traffic["ls_type"], out, dev)
+                            traffic["ls_type"], out, dev, cell.sampling)
                 for i, out in checked.items()]
     print(f"gpubench: the reference checked {len(readings)} fits in "
           f"{time.perf_counter() - t_check:.3f} s", file=sys.stderr)
@@ -231,7 +235,8 @@ def control_readings(cell, seed, fits, dtype, device, refit_type=None):
     for i in range(fits):
         s = window.derive_seed(seed, window.WINDOW, i)
         got = judge.reference_fit(ref, pool[i % len(pool)], cfg["delta"], s, cfg["hypotheses"],
-                                  refit_type or traffic["ls_type"], dev, getattr(torch, dtype))
+                                  refit_type or traffic["ls_type"], dev, getattr(torch, dtype),
+                                  cell.sampling)
         out.append(judge.judge(ref, pool[i % len(pool)], cfg["delta"], s, cfg["hypotheses"],
-                               traffic["ls_type"], got, dev))
+                               traffic["ls_type"], got, dev, cell.sampling))
     return {k: float(max(r[k] for r in out)) for k in judge.NUMBERS}

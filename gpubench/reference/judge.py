@@ -4,8 +4,9 @@ A fit's outputs are judged stage by stage against the plain reference of
 its configuration (``gpubench/reference/<name>.py``), in float64:
 
 * ``winner_gap``: the best consensus size over the sweep's whole
-  hypothesis set (rebuilt from the fit's seed, :mod:`.sampling`), less the
-  size the reference's agreement gives the fit's winning minimal params;
+  hypothesis set (rebuilt from the fit's seed by the sampling design the
+  configuration names, :func:`design`), less the size the reference's
+  agreement gives the fit's winning minimal params;
 * ``agree_gap``: points where the fit's consensus differs from the
   reference's agreement with that winner, or the reported count from the
   reference's, whichever is larger;
@@ -23,8 +24,6 @@ import importlib
 import numpy as np
 import torch
 
-from gpubench.reference import sampling
-
 NUMBERS = ("winner_gap", "agree_gap", "refit_gap")
 
 # Hypothesis-point cells per chunk of the reference sweep.
@@ -41,19 +40,21 @@ def model(name):
     return importlib.import_module(f"gpubench.reference.{name}")
 
 
-def sweep_best(ref, data, delta, seed, hypotheses, device):
+def design(sampling="fused"):
+    """The ``hypothesis_indices`` of the sampling design ``sampling``, a
+    configuration's ``sampling`` key: ``fused`` is :mod:`.sampling`, any
+    other ``X`` the file ``reference/sampling_X.py``."""
+    name = "sampling" if sampling == "fused" else f"sampling_{sampling}"
+    return importlib.import_module(f"gpubench.reference.{name}").hypothesis_indices
+
+
+def sweep_best(ref, data, delta, seed, hypotheses, device, sampling="fused"):
     """``(best count, its minimal params)`` over the hypothesis set of a
-    sweep seeded with ``seed``; the minimal fits and votes in the data's
-    dtype."""
+    sweep seeded with ``seed`` in the design ``sampling``; the minimal fits
+    and votes in the data's dtype."""
     feats = ref.features(data)
-    n = feats.shape[0]
-    n_fit = sampling.fit_width(n, ref.K)
-    perms = sampling.draw_perms(seed, n_fit, ref.K, device)
-    groups = sampling.num_groups(hypotheses, n)
-    step = max(1, CHUNK_CELLS // (n_fit * n))
     best, best_params = -1, None
-    for g0 in range(0, groups, step):
-        idx = sampling.sample_indices(perms, n, ref.K, g0, min(groups, g0 + step))
+    for idx in design(sampling)(seed, feats.shape[0], ref.K, hypotheses, device, CHUNK_CELLS):
         params, valid = ref.minimal_fit(feats[idx])
         counts = torch.where(valid, ref.vote_counts(params, data, delta), -1)
         i = int(torch.argmax(counts))
@@ -62,12 +63,12 @@ def sweep_best(ref, data, delta, seed, hypotheses, device):
     return best, best_params
 
 
-def judge(ref, data, delta, seed, hypotheses, ls_type, out, device):
+def judge(ref, data, delta, seed, hypotheses, ls_type, out, device, sampling="fused"):
     """Readings of one fit.  ``out``: ``minimal``, ``consensus``,
     ``best_count``, ``params``, ``valid`` as the fit returned them."""
     _plain_matmul()
     data = ref.cast(data, torch.float64)
-    best, _ = sweep_best(ref, data, delta, seed, hypotheses, device)
+    best, _ = sweep_best(ref, data, delta, seed, hypotheses, device, sampling)
     winner = torch.as_tensor(np.asarray(out["minimal"], np.float64), device=device)
     mask_ref = ref.agree(winner, data, delta)
     count_ref = int(mask_ref.sum())
@@ -86,12 +87,13 @@ def judge(ref, data, delta, seed, hypotheses, ls_type, out, device):
     }
 
 
-def reference_fit(ref, data, delta, seed, hypotheses, ls_type, device, dtype):
+def reference_fit(ref, data, delta, seed, hypotheses, ls_type, device, dtype,
+                  sampling="fused"):
     """The whole fit computed by the reference in ``dtype``, as outputs of
     the form :func:`judge` takes."""
     _plain_matmul()
     data = ref.cast(data, dtype)
-    _, winner = sweep_best(ref, data, delta, seed, hypotheses, device)
+    _, winner = sweep_best(ref, data, delta, seed, hypotheses, device, sampling)
     mask = ref.agree(winner, data, delta)
     params, valid = ref.refit(data, mask, ls_type)
     return {

@@ -11,7 +11,10 @@ the shift ``s`` hashed from the group ``g``.  ``n_fit`` is the smallest
 number of groups is ``ceil(hypotheses / n)``.
 
 This is a frozen description of the sweep's sampling design, kept here so
-the reference can rebuild the same hypotheses from the same seed.
+the reference can rebuild the same hypotheses from the same seed.  It is
+the design ``fused``, which a configuration with no ``sampling`` key names;
+:func:`hypothesis_indices` is its one entry for the judge, as every
+``sampling_<design>.py`` beside it has one.
 """
 
 import torch
@@ -63,3 +66,16 @@ def sample_indices(perms, n, k, g0, g1):
         rows = perms[4 * j + (col // n_fit) % 4, col % n_fit]
         slots.append((rows % n).reshape(-1))
     return torch.stack(slots, dim=-1)
+
+
+def hypothesis_indices(seed, n, k, hypotheses, device, cells):
+    """Observation indices ``[rows, k]`` of the hypotheses of a sweep seeded
+    ``seed``, over ``n`` observations, in hypothesis order: chunks of whole
+    groups, each of at most ``cells`` hypothesis-point cells (one group where
+    a group alone holds more)."""
+    n_fit = fit_width(n, k)
+    perms = draw_perms(seed, n_fit, k, device)
+    groups = num_groups(hypotheses, n)
+    step = max(1, cells // (n_fit * n))
+    for g0 in range(0, groups, step):
+        yield sample_indices(perms, n, k, g0, min(groups, g0 + step))

@@ -9,9 +9,13 @@ import torch
 
 from gpubench.lib import runner
 
-CELLS = ("sphere3d.geometric", "crosswire.iterative", "sphere3d.algebraic", "crosswire.analytic")
+BENCH = runner.load_benchmark()
+CELLS = tuple(w["name"] for w in BENCH["workloads"])
 REDUCED = {"hypotheses": 65536, "traffic": {"pool": 2, "warmup_fits": 1, "check_fits": 2,
                                             "trace_fits": 2}}
+# The per-layer metrics only a fused sweep feeds: a cell that runs none is
+# left out of their lists.
+FUSED_ONLY = ("engine_self_ms", "sweep_ms", "sweep_roofline", "sweep_prep_ms")
 
 
 @pytest.fixture
@@ -21,11 +25,7 @@ def card():
     return "cuda:0"
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("name", CELLS)
-def test_cell_runs_on_the_card(card, name):
-    bench = runner.load_benchmark()
-    cell = runner.Cell(bench, name, REDUCED)
+def runs_and_reads(cell, card):
     plain = runner.run(cell, 2**31 + 5, 0.5, False, card, 0.0)
     assert plain["correct"], plain["checks"]
     assert set(plain["metrics"]) == {m["name"] for m in cell.end_to_end}
@@ -34,3 +34,33 @@ def test_cell_runs_on_the_card(card, name):
     assert set(traced["metrics"]) == {m["name"] for m in cell.per_layer}
     assert 0 < traced["device"]["busy_s"] < traced["device"]["window_s"]
     assert traced["breakdown"]["device_ops"] and traced["breakdown"]["idle_gaps"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", CELLS)
+def test_cell_runs_on_the_card(card, name):
+    runs_and_reads(runner.Cell(BENCH, name, REDUCED), card)
+
+
+@pytest.mark.cuda
+def test_a_structured_sweep_runs_on_the_card(card):
+    """``sphere3d.algebraic`` as a cell whose estimator no fused kernel
+    serves (the plane phantom's path): ``ransac_fused_sweep`` falls back to
+    ``ransac_structured`` inside its own span, and the check rebuilds the
+    structured design.  Declared as such a cell is, left out of the fused-only
+    metrics' lists, its traced run reads exactly the metrics that admit it."""
+    name = "sphere3d.algebraic"
+    bench = runner.load_benchmark()
+    for m in bench["per_layer"]:
+        if m["name"] in FUSED_ONLY:
+            m["workloads"].remove(name)
+    cell = runner.Cell(bench, name, {**REDUCED, "sampling": "structured"})
+    make = cell.module.estimator
+
+    def estimator(cfg, ls_type):
+        est = make(cfg, ls_type)
+        est.fused_family = None
+        return est
+
+    cell.module.estimator = estimator
+    runs_and_reads(cell, card)

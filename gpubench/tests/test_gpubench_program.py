@@ -41,12 +41,15 @@ def test_a_traced_run_reads_the_programs_tracing(name):
     assert proc.returncode == 0, proc.stderr[-2000:]
     got = json.loads(proc.stdout.strip().splitlines()[-1])
     assert got["correct"] == [True, True] and got["untraced"] == 0
-    applies = {m["name"] for m in runner.Cell(BENCH, name).per_layer} & set(NEW)
-    assert applies == (set(NEW) if name.endswith(("geometric", "iterative")) else
-                       {"host_syncs", "host_wait_ms", "sweep_prep_ms"})
+    cell = runner.Cell(BENCH, name)
+    applies = {m["name"] for m in cell.per_layer} & set(NEW)
+    lm = cell.traffic["ls_type"] in ("geometric", "iterative")
+    fused = cell.sampling == "fused"
+    assert applies == ({"host_syncs", "host_wait_ms"} | ({"sweep_prep_ms"} if fused else set())
+                       | ({"lm_step_host_us", "lm_live_share"} if lm else set()))
     read = {k: v for k, v in got["metrics"].items() if k in NEW}
     assert set(read) == applies - {"host_syncs"}
-    assert read["host_wait_ms"] > 0 and read["sweep_prep_ms"] > 0
+    assert read["host_wait_ms"] > 0 and read.get("sweep_prep_ms", 1) > 0
     if "lm_live_share" in read:
         assert 0 < read["lm_live_share"] <= 100 and read["lm_step_host_us"] > 0
 

@@ -1,6 +1,8 @@
-"""The plain references: their solves, the hypothesis set they rebuild, and
-each configuration's truth recovered at a small size."""
+"""The plain references: their solves, the hypothesis sets they rebuild in
+each sampling design, and each configuration's truth recovered at a small
+size."""
 
+import json
 import math
 
 import numpy as np
@@ -55,6 +57,51 @@ def test_sampling_rebuilds_the_programs_hypothesis_set(family, n, groups):
     want = fused_sweep.reference_samples(family, data, perms, groups)      # [B, k, F]
     assert torch.equal(feats[got][..., : feats.shape[1]].to(want.dtype),
                        want[..., : feats.shape[1]])
+
+
+@pytest.mark.parametrize("cells", [3 * 256 * 200, judge.CHUNK_CELLS], ids=["chunked", "whole"])
+def test_no_sampling_key_means_the_fused_design(cells):
+    """A configuration without ``sampling`` is checked in the fused design,
+    whose indices are :func:`sampling.sample_indices` on the sweep's
+    permutations, in chunks of whole groups within ``cells``."""
+    bench = runner.load_benchmark()
+    plain = [w["name"] for w in bench["workloads"]
+             if "sampling" not in json.loads((runner.BENCH_DIR / "configs" /
+                                              f"{w['config']}.json").read_text())]
+    assert plain
+    assert all(runner.Cell(bench, name).sampling == "fused" for name in plain)
+    n, k, hypotheses = 200, 4, 5000
+    chunks = list(judge.design("fused")(9, n, k, hypotheses, "cpu", cells))
+    n_fit = sampling.fit_width(n, k)
+    want = sampling.sample_indices(sampling.draw_perms(9, n_fit, k, "cpu"), n, k, 0,
+                                   sampling.num_groups(hypotheses, n))
+    assert torch.equal(torch.cat(chunks), want)
+    assert all(c.shape[0] % n_fit == 0 and c.shape[0] * n <= cells for c in chunks)
+
+
+@pytest.mark.parametrize("n,k,groups", [(64, 31, 1024), (200, 4, 3), (256, 4, 2)])
+@pytest.mark.parametrize("cells", ["chunked", "whole"])
+def test_structured_design_rebuilds_the_programs_hypothesis_set(n, k, groups, cells):
+    """The frozen structured design against the program's own structured
+    draw from a CPU generator seeded alike, on data ``arange(n)``; k = 31 at
+    n = 64 is the plane phantom's, which the fused design cannot describe."""
+    from lsqrrecipes_tpu_torch.ransac.sampling import structured_samples
+
+    seed = 2**31 + 41
+    budget = 37 * n if cells == "chunked" else judge.CHUNK_CELLS
+    chunks = list(judge.design("structured")(seed, n, k, groups * n, "cpu", budget))
+    want = structured_samples(torch.Generator().manual_seed(seed), torch.arange(n), k, groups)
+    assert torch.equal(torch.cat(chunks), want)
+    assert all(c.shape[0] * n <= budget for c in chunks)
+    assert len(chunks) == (-(-groups * n // 37) if cells == "chunked" else 1)
+
+
+def test_the_design_comes_from_the_configuration():
+    cell = runner.Cell(runner.load_benchmark(), "sphere3d.algebraic", {"sampling": "structured"})
+    assert cell.sampling == "structured"
+    assert judge.design(cell.sampling).__module__ == "gpubench.reference.sampling_structured"
+    with pytest.raises(ValueError, match="no sweep width"):
+        next(judge.design()(1, 64, 31, 64 * 1024, "cpu", judge.CHUNK_CELLS))
 
 
 def _pool(name):
