@@ -542,7 +542,7 @@ def _plane_normal(w1_y, w1_x):
     return torch.stack([-sy1, cy1 * torch.sin(w1_x), cy1 * torch.cos(w1_x)], dim=-1)
 
 
-def _plane_phantom_residual(x, data):
+def _plane_phantom_residual_plain(x, data):
     """n residuals ``R1_row3 . (R2_i (u m_x r1 + v m_y r2 + t3) + t2_i) +
     t1_z`` for ``x = [w1_y, w1_x, t1_z, t3 3, w3_z, w3_y, w3_x, m_x, m_y]``
     (``PlanePhantom...cxx:357-447``)."""
@@ -552,7 +552,20 @@ def _plane_phantom_residual(x, data):
     return _mapped(frames, img) @ _plane_normal(x[0], x[1]) + x[2]
 
 
-_plane_phantom_jacobian = torch.func.jacfwd(_plane_phantom_residual)
+def _counting_phantom_evals(fn):
+    """``fn(x, data)`` counting one ``us.phantom_evals`` a call: a residual
+    or Jacobian evaluation, of one problem or of a batch (the residual calls
+    inside ``jacfwd`` and ``vmap`` count none)."""
+
+    def counted(x, data):
+        profiling.count("us.phantom_evals", 1)
+        return fn(x, data)
+
+    return counted
+
+
+_plane_phantom_residual = _counting_phantom_evals(_plane_phantom_residual_plain)
+_plane_phantom_jacobian = _counting_phantom_evals(torch.func.jacfwd(_plane_phantom_residual_plain))
 
 
 def _plane_phantom_derived(r1_row3, t3, r3, m_x, m_y):
@@ -572,6 +585,25 @@ def _pack_phantom(x):
     r3 = _euler_zyx_matrix(x[..., 6], x[..., 7], x[..., 8])
     return torch.cat([x, _plane_phantom_derived(_plane_normal(x[..., 0], x[..., 1]), x[..., 3:6],
                                                 r3, x[..., 9], x[..., 10])], dim=-1)
+
+
+def _phantom_sign(x):
+    """The minimal 11 (leading axes allowed) with the plane's sign rule
+    (:meth:`PlanePhantomUSCalibrationEstimator._analytic`) applied: where
+    ``R1_row3[2] = cos w1_y cos w1_x < 0``, the mirrored plane ``w1_y ->
+    -w1_y``, ``w1_x -> w1_x -+ pi`` (kept in ``(-pi, pi]``), ``t1_z -> -t1_z``,
+    which gives every residual the opposite sign and the same cost."""
+    flip = torch.cos(x[..., 0]) * torch.cos(x[..., 1]) < 0
+    wx = torch.where(x[..., 1] > 0, x[..., 1] - math.pi, x[..., 1] + math.pi)
+    mirrored = torch.stack([-x[..., 0], wx, -x[..., 2]], dim=-1)
+    return torch.cat([torch.where(flip[..., None], mirrored, x[..., 0:3]), x[..., 3:]], dim=-1)
+
+
+def _pack_phantom_signed(x):
+    """:func:`_pack_phantom` of the minimal 11 under the sign rule: the
+    refits' LMs run from a start that keeps it (or a caller's ``x0``), and
+    their result is held to it again."""
+    return _pack_phantom(_phantom_sign(x))
 
 
 @register("us_plane_phantom")
@@ -601,7 +633,18 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
         dimensional (``s[29] > FLT_EPS max(s[0], 1)``: the reference's
         literal rank-31 test would reject clean minimal samples, which have
         an exact null vector), ``|R1_row3| >= EPS`` and at least k
-        observations take part."""
+        observations take part.
+
+        The null vector has no sign of its own (the reference keeps whichever
+        the SVD gives), so one rule fixes it: ``R1_row3[2] >= 0``, the plane
+        normal's tracker-z component.  It changes only ``w1_y``, ``w1_x``,
+        ``t1_z`` and the derived entries, never t3, R3, the scales, the
+        validity or ``agree``.  A plane seen from a tracked probe rarely lies
+        edge-on to the tracker's z axis (the simulated phantoms keep the
+        component at ``cos w1_y cos w1_x >= cos(1)^2 ~ 0.29``), so the rule
+        does not flip between nearby fits; ``lsq_fit``, ``lsq_fit_batched``
+        and ``lsq_fit_stats_batched`` hold the LM's result to it too (the
+        B6 fast path's minimal params keep the subspace's sign)."""
         frames, q = data
         r = frames.r
         u, v = q[..., 0, None, None], q[..., 1, None, None]
@@ -612,6 +655,7 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
             a = a * mask.to(a.dtype)[..., None]
         _, s, vt = svd_f64(a, full_matrices=True)
         x = vt[..., -1, :].to(a.dtype)
+        x = torch.where(x[..., 29:30] < 0, -x, x)          # the sign rule: R1_row3[2] >= 0
         if s.shape[-1] > 29:
             rank_ok = s[..., 29] > FLT_EPS * torch.clamp_min(s[..., 0], 1.0)
         else:                       # fewer than 30 rows: never a unique null space
@@ -646,20 +690,22 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
         return self._analytic(samples)
 
     def lsq_fit(self, data, mask=None):
-        return _lsq_fit(self, _plane_phantom_residual, _plane_phantom_jacobian, _pack_phantom,
-                        11, 1, data, mask)
+        return _lsq_fit(self, _plane_phantom_residual, _plane_phantom_jacobian,
+                        _pack_phantom_signed, 11, 1, data, mask)
 
     def lsq_fit_batched(self, data, mask=None):
         """``lsq_fit`` of B problems stacked on a leading axis (``data``
         leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
-        return _lsq_fit(self, torch.func.vmap(_plane_phantom_residual),
-                        torch.func.vmap(_plane_phantom_jacobian),
-                        _pack_phantom, 11, 1, data, mask)
+        return _lsq_fit(self,
+                        _counting_phantom_evals(torch.func.vmap(_plane_phantom_residual_plain)),
+                        _counting_phantom_evals(torch.func.vmap(
+                            torch.func.jacfwd(_plane_phantom_residual_plain))),
+                        _pack_phantom_signed, 11, 1, data, mask)
 
     def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
         """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
-        return _lsq_fit_stats_batched(self, "plane_phantom", _pack_phantom, 11, data, masks, x0,
-                                      config)
+        return _lsq_fit_stats_batched(self, "plane_phantom", _pack_phantom_signed, 11, data,
+                                      masks, x0, config)
 
     def agree(self, params, data):
         """``err^2 < delta^2`` with the plane distance ``err = vec(R2) . (u m1

@@ -47,6 +47,7 @@ from lsqrrecipes_tpu_torch.linalg.small import (
 from lsqrrecipes_tpu_torch.ops import phantom_qr
 from lsqrrecipes_tpu_torch.ransac.sampling import structured_shift_table
 from lsqrrecipes_tpu_torch.tree import tree_leaves, tree_map
+from lsqrrecipes_tpu_torch.utils import profiling
 
 # ---------------------------------------------------------------------------
 # Lanes-form 3x3 helpers (nested lists of [B] tensors)
@@ -439,16 +440,19 @@ _KINDS = {
 
 def _fit_vote_chunk(kind, delta_sq, slot_pl, feats):
     """Fit and vote planes ``slot_pl[k, F, B]`` -> ``(counts [B] with -1
-    where the fit is degenerate, params [B, P])``."""
+    where the fit is degenerate, params [B, P])``; traced as the leaves
+    ``sweep.fit`` and ``sweep.vote``."""
     fit, k, vote_rows, _, _, _ = _KINDS[kind]
-    params, valid = fit(slot_pl, k)
-    d2 = None
-    with full_f32_matmul():
-        for a_j in vote_rows(params.to(feats.dtype)):
-            e = a_j @ feats.T
-            d2 = e * e if d2 is None else d2 + e * e
-    counts = torch.sum(d2 < delta_sq, dim=-1)
-    return torch.where(valid, counts, torch.full_like(counts, -1)), params
+    with profiling.leaf("sweep.fit"):
+        params, valid = fit(slot_pl, k)
+    with profiling.leaf("sweep.vote"):
+        d2 = None
+        with full_f32_matmul():
+            for a_j in vote_rows(params.to(feats.dtype)):
+                e = a_j @ feats.T
+                d2 = e * e if d2 is None else d2 + e * e
+        counts = torch.sum(d2 < delta_sq, dim=-1)
+        return torch.where(valid, counts, torch.full_like(counts, -1)), params
 
 
 def _chunk_size(bsz, n, k=4):
@@ -492,10 +496,17 @@ def build_sampling_planes(kind, data, generator, groups: int, perm=None):
 def structured_sweep(kind, est, data, generator, groups: int, perm=None):
     """Structured hypothesize and vote on planar lanes (the sample tree is
     never materialised) -> ``(counts int64[B], params f32[B, P])``, counts
-    -1 where the fit is degenerate."""
-    planes, feats = build_sampling_planes(kind, data, generator, groups, perm)
-    chunk = _chunk_size(planes.shape[-1], feats.shape[0], _KINDS[kind][1])
-    return _fit_and_vote_planes(kind, float(est.delta_squared), chunk, planes, feats)
+    -1 where the fit is degenerate.  Traced as the layer span ``sweep``: the
+    leaf ``sweep.prep`` (the permutation, the shift table, the slot planes
+    and the vote features), then per chunk the leaves ``sweep.fit`` and
+    ``sweep.vote``; the counter ``sweep.chunks`` counts the chunks (on the
+    card, the plane phantom's B6 launches)."""
+    with profiling.span("sweep"):
+        with profiling.leaf("sweep.prep"):
+            planes, feats = build_sampling_planes(kind, data, generator, groups, perm)
+        chunk = _chunk_size(planes.shape[-1], feats.shape[0], _KINDS[kind][1])
+        profiling.count("sweep.chunks", -(-planes.shape[-1] // chunk))
+        return _fit_and_vote_planes(kind, float(est.delta_squared), chunk, planes, feats)
 
 
 def fit_and_vote(kind, est, samples, data):

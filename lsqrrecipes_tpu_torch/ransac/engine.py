@@ -79,10 +79,13 @@ def _gather(data, idx):
 
 
 def _select(est, data, counts, params):
-    """Argmax (ties to the lowest index) -> ``(count, mask[n], params)``."""
-    best = torch.argmax(counts)
-    best_params = params[best]
-    return counts[best], est.agree(best_params, data), best_params
+    """Argmax (ties to the lowest index) -> ``(count, mask[n], params)``;
+    traced as the leaf ``engine.agree``.  The winner's params are a copy, so
+    a kept result does not hold the whole sweep's ``params`` alive."""
+    with profiling.leaf("engine.agree"):
+        best = torch.argmax(counts)
+        best_params = params[best].clone()
+        return counts[best], est.agree(best_params, data), best_params
 
 
 def _agree_counts(est, params, data):

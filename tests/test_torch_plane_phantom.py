@@ -162,6 +162,58 @@ def test_lsq_fit_noisy_matches_jax_and_the_truth(ls_type):
     _check_truth(pt.numpy(), true, 3.0, np.radians(5.0))
 
 
+@pytest.mark.parametrize("ls_type", [tus.ANALYTIC, tus.ITERATIVE])
+def test_the_fit_keeps_the_sign_rule_and_equals_jax_up_to_sign(ls_type):
+    """The port's one sign rule, ``R1_row3[2] >= 0``, on seeded data: the
+    refit (the LM's start and its result) and the minimal fit keep it, and
+    equal the JAX package's fit, which keeps the SVD's sign, up to that
+    sign; keys 12-14 are fits JAX leaves mirrored, so the rule flips them."""
+    jest, test = _ests(ls_type)
+    flipped = 0
+    for key in range(10, 15):
+        noisy, _, _ = make_plane_phantom_data(jax.random.PRNGKey(key), n=50, sigma=1.0)
+        pj, vj = jest.lsq_fit(noisy)
+        pt, vt = test.lsq_fit(_torch(noisy))
+        assert bool(vt) == bool(vj) is True
+        assert float(pt[40]) >= 0 and _normal(pt.numpy())[2] >= 0
+        _close_up_to_sign(pt.numpy(), np.asarray(pj), 1e-7 if ls_type == tus.ANALYTIC else 1e-6)
+        flipped += int(_normal(np.asarray(pj))[2] < 0)
+        pm, vm = test.minimal_fit(_torch(jax.tree_util.tree_map(lambda a: a[:31], noisy)))
+        assert bool(vm) and float(pm[40]) >= 0
+    assert flipped == 3
+
+
+def test_the_stats_refit_brings_a_mirrored_start_under_the_sign_rule():
+    """``lsq_fit_stats_batched`` from a caller's start on the mirrored plane
+    (``w1_y -> -w1_y``, ``w1_x -> w1_x -+ pi``, ``t1_z -> -t1_z``: the same
+    cost) returns the fit under the rule, as ``lsq_fit`` does."""
+    _, test = _ests()
+    noisy, _, _ = make_plane_phantom_data(jax.random.PRNGKey(12), n=50, sigma=1.0)
+    data = _torch(noisy)
+    p1, v1 = test.lsq_fit(data)
+    x0 = p1[:11].clone()
+    x0[0], x0[2] = -x0[0], -x0[2]
+    x0[1] = x0[1] - np.pi if float(x0[1]) > 0 else x0[1] + np.pi
+    assert _normal(x0.numpy())[2] < 0
+    ps, vs = test.lsq_fit_stats_batched(data, x0=x0[None])
+    assert bool(v1) and bool(vs[0])
+    assert _normal(ps[0].numpy())[2] >= 0 and float(ps[0, 40]) >= 0
+    np.testing.assert_allclose(ps[0].numpy(), p1.numpy(), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("sampling", ["structured", "gathered"])
+def test_a_result_holds_only_its_winners_minimal_params(sampling):
+    """The result's ``minimal_params`` is the winner's row alone, not a view
+    that keeps the whole sweep's ``[hypotheses, 41]`` params alive."""
+    data, _, _ = _outlier_data(26, 64, 0.15)
+    _, test = _ests(tus.ANALYTIC, delta=2.0)
+    run = engine.ransac_structured if sampling == "structured" else engine.ransac
+    res = run(test, _torch(data), torch.Generator().manual_seed(28), num_hypotheses=1024)
+    mp = res.minimal_params
+    assert bool(res.valid) and mp.shape == (41,)
+    assert mp.untyped_storage().nbytes() == mp.numel() * mp.element_size()
+
+
 def test_lsq_fit_masked_and_too_few_observations():
     data, true, n_out = _outlier_data(30, 80, 0.15)
     jest, test = _ests()

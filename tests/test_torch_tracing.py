@@ -10,7 +10,12 @@ per check, and its ``lm.steps`` counter keeps the iteration tensor from
 which the steps with a live problem are read; the crosswire counts each
 residual and Jacobian evaluation (``us.crosswire_evals``).  Under a profiler, leaves are
 ``lsqr.<name>`` ranges and layer spans are not; inside the operator's
-``trace()`` window both are.  All on the CPU, through the plain sweep.
+``trace()`` window both are.  A plane-phantom fit, which ``ransac_fused_sweep``
+hands to the structured sweep, records that sweep as the span ``sweep``
+(``sweep.prep``, then ``sweep.fit`` and ``sweep.vote`` once a chunk, the
+``sweep.chunks`` counter), the winner's ``agree`` as ``engine.agree``, and
+one ``us.phantom_evals`` per residual or Jacobian evaluation.  All on the
+CPU, through the plain sweep.
 """
 
 import contextlib
@@ -21,21 +26,24 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu_torch.estimators.sphere import SphereEstimator
+from lsqrrecipes_tpu_torch.estimators import us_calibration
 from lsqrrecipes_tpu_torch.estimators.us_calibration import (ANALYTIC,
-                                                             CrosswireUSCalibrationEstimator)
+                                                             CrosswireUSCalibrationEstimator,
+                                                             PlanePhantomUSCalibrationEstimator)
 from lsqrrecipes_tpu_torch.linalg.lm import _CHECK_EVERY, LMConfig, lm_core
+from lsqrrecipes_tpu_torch.ops import us_fast
 from lsqrrecipes_tpu_torch.ransac import ransac_fused_sweep
-from lsqrrecipes_tpu_torch.synthetic import make_crosswire_data
+from lsqrrecipes_tpu_torch.synthetic import make_crosswire_data, make_plane_phantom_data
 from lsqrrecipes_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
 FITS = ("sphere_geometric", "crosswire_iterative")
-LEAVES = {"sweep.prep", "sweep.launch", "sweep.post", "engine.agree", "wait.count",
-          "refit.start", "wait.svd", "lm.normal", "lm.solve", "lm.trial", "lm.update",
-          "wait.lm_done"}
+LEAVES = {"sweep.prep", "sweep.launch", "sweep.post", "sweep.fit", "sweep.vote", "engine.agree",
+          "wait.count", "refit.start", "wait.svd", "lm.normal", "lm.solve", "lm.trial",
+          "lm.update", "wait.lm_done"}
 LAYERS = {"engine.fit", "sweep", "refit", "lm", "lm.step"}
-COUNTERS = {"lm.steps", "us.crosswire_evals"}
+COUNTERS = {"lm.steps", "us.crosswire_evals", "sweep.chunks", "us.phantom_evals"}
 STEP_LEAVES = ["lm.normal", "lm.solve", "lm.trial", "lm.update"]
 
 
@@ -49,10 +57,14 @@ def _sphere_cloud(n=128, outliers=26):
 
 
 def _make(which):
-    """``(estimator, data)`` of a small fit of the two families the
-    benchmark's LM cells run."""
+    """``(estimator, data)`` of a small fit of the families the benchmark's
+    LM cells run."""
     if which == "sphere_geometric":
         return SphereEstimator(1.0, dim=3), _sphere_cloud()
+    if which == "phantom_iterative":
+        noisy, _, _ = make_plane_phantom_data(torch.Generator().manual_seed(3), n=64, sigma=0.5,
+                                              device="cpu")
+        return PlanePhantomUSCalibrationEstimator(1.0), noisy
     noisy, _, _ = make_crosswire_data(torch.Generator().manual_seed(5), n=128, sigma=0.5,
                                       device="cpu")
     return CrosswireUSCalibrationEstimator(3.0), noisy
@@ -160,7 +172,73 @@ def test_the_crosswire_counts_its_residual_and_jacobian_evaluations(tracing, whi
     assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
 
 
-@pytest.mark.parametrize("which", FITS)
+@pytest.mark.parametrize("chunk_cap", [None, 192])
+def test_a_structured_phantom_fit_records_its_tree(tracing, monkeypatch, chunk_cap):
+    """The structured sweep inside ``engine.fit``: ``sweep`` holds
+    ``sweep.prep``, the ``sweep.chunks`` counter and a ``sweep.fit`` then a
+    ``sweep.vote`` per chunk, ``ceil(groups n / _chunk_size)`` of them (512
+    hypotheses make one chunk, three when chunks are cut to 192); the
+    winner's ``agree`` is ``engine.agree``; the refit as in the fused
+    cells."""
+    if chunk_cap is not None:
+        size = us_fast._chunk_size
+        monkeypatch.setattr(us_fast, "_chunk_size",
+                            lambda bsz, n, k=4: min(size(bsz, n, k), chunk_cap))
+    _fit("phantom_iterative")
+    recs = tracing.records()
+    fits = [r for r in recs if r.name == "engine.fit"]
+    assert len(fits) == 1 and {r.fit for r in recs} == {fits[0].fit}
+    chunks = -(-512 // us_fast._chunk_size(512, 64, 31))
+    assert chunks == (1 if chunk_cap is None else 3)
+    names = Counter(r.name for r in recs)
+    assert names["sweep"] == names["sweep.prep"] == names["sweep.chunks"] == 1
+    assert names["sweep.fit"] == names["sweep.vote"] == chunks
+    assert {"engine.agree", "wait.count", "refit", "refit.start", "lm", "lm.steps",
+            "us.phantom_evals"} <= set(names)
+    assert not {"sweep.launch", "sweep.post", "us.crosswire_evals"} & set(names)
+    (sweep,) = [i for i, r in enumerate(recs) if r.name == "sweep"]
+    assert recs[recs[sweep].parent].name == "engine.fit"
+    kids = [r for r in recs if r.parent == sweep]
+    assert [r.name for r in kids] == (["sweep.prep", "sweep.chunks"]
+                                      + ["sweep.fit", "sweep.vote"] * chunks)
+    (counted,) = [r for r in kids if r.name == "sweep.chunks"]
+    assert counted.kind == "count" and counted.value == chunks
+    for r in recs:
+        assert r.kind == ("count" if r.name in COUNTERS else
+                          "leaf" if r.name in LEAVES else "span")
+        if r.parent is not None:
+            p = recs[r.parent]
+            assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
+    (agree,) = [r for r in recs if r.name == "engine.agree"]
+    assert recs[agree.parent].name == "engine.fit" and agree.start_ns >= recs[sweep].end_ns
+
+
+@pytest.mark.parametrize("batched", [False, True])
+def test_the_phantom_counts_its_residual_and_jacobian_evaluations(tracing, batched):
+    """One ``us.phantom_evals`` per residual or Jacobian evaluation, the
+    crosswire's relation: the LM's first cost, then three a step (the
+    normal system's residual and ``jacfwd`` Jacobian, whose own residual
+    calls count none, and the trial's residual); a batched LM counts once a
+    call for all its problems."""
+    est, (frames, q) = _make("phantom_iterative")
+    if batched:
+        data = (type(frames)(torch.stack([frames.r] * 2), torch.stack([frames.t] * 2)),
+                torch.stack([q] * 2))
+        est.lsq_fit_batched(data, torch.ones((2, 64), dtype=torch.bool))
+    else:
+        est.lsq_fit((frames, q))
+    recs = tracing.records()
+    (steps,) = [r for r in recs if r.name == "lm.steps"]
+    evals = [r for r in recs if r.name == "us.phantom_evals"]
+    assert all(r.kind == "count" and r.value == 1 for r in evals)
+    assert len(evals) == 1 + 3 * steps.value and steps.value >= _CHECK_EVERY
+    assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
+    tracing.reset()
+    us_calibration._plane_phantom_jacobian(torch.zeros(11, dtype=torch.float64), (frames, q))
+    assert [r.name for r in tracing.records()] == ["us.phantom_evals"]
+
+
+@pytest.mark.parametrize("which", [*FITS, "phantom_iterative"])
 def test_tracing_changes_no_result(which):
     off = _fit(which)
     was = profiling.set_tracing(True)
@@ -174,7 +252,7 @@ def test_tracing_changes_no_result(which):
     assert torch.equal(on.minimal_params, off.minimal_params)
 
 
-@pytest.mark.parametrize("which", FITS)
+@pytest.mark.parametrize("which", [*FITS, "phantom_iterative"])
 def test_tracing_dispatches_the_same_operations(which):
     """Under a profiler, the aten operations of a fit with tracing on are
     those with it off; the profiler's own operations are left out."""
