@@ -112,14 +112,17 @@ along (0.8, 0.6), 20% uniform outliers in [-40, 40]^d); all made by
      1,024 and 8 groups, its double-single counts equal to its f64 ones;
  22. the plane phantom (k = 31) at the JAX bench's shape: ``ransac_structured``
      with the ITERATIVE refit at 65,536 hypotheses (1,024 groups x n = 64),
-     kernel ``phantom_qr`` (B6) launched once per 4,352-hypothesis chunk, the
-     ground truth recovered and no shoved pose in the consensus, the refit's
-     LM iterations and time, a profile with B6's share;
-     ``ransac_fused_sweep``, which falls back to the same sweep; B6 against
-     its plain version, bit for bit, at the chunk, at the whole sweep and on
-     duplicate-row samples (which the fit must reject), its registers, blocks
-     per SM and waves at both shapes, and the plain version's and one f32
-     ``torch.linalg.svd``'s times at both; the JAX chip check's
+     kernels ``phantom_qr`` (B6) and ``phantom_ritz`` (the float64
+     Rayleigh-Ritz and reconstruction) launched once each per
+     4,352-hypothesis chunk and nothing else, the ground truth recovered and
+     no shoved pose in the consensus, the refit's LM iterations and time, a
+     profile with B6's share; ``ransac_fused_sweep``, which falls back to the
+     same sweep; B6 and ``phantom_ritz`` against their plain versions, bit
+     for bit, at the chunk, at the whole sweep and on duplicate-row samples
+     (which the fit must reject; ``phantom_ritz`` in float32 too), their
+     registers, blocks per SM and waves at both shapes, their times and the
+     plain versions' times on the card at both, and one f32
+     ``torch.linalg.svd``'s times beside B6's; the JAX chip check's
      f64 gate on 4,096 hypotheses of its data model (poses on the plane,
      1 px noise) and of phase 22's: equal maxima, and the sweep's counts
      within 2 of f64 ``minimal_fit`` + ``agree`` on every sample with a
@@ -436,6 +439,8 @@ REPLACES = {
     "sphere_mega": "lsqrrecipes_tpu/ops/sphere_ransac.py:225",
     "sphere_planar_vote": "lsqrrecipes_tpu/ops/sphere_ransac.py:80",
     "phantom_qr": "lsqrrecipes_tpu/ops/phantom_qr.py:46",
+    "phantom_ritz": "none: lsqrrecipes_tpu/ops/us_fast.py:488 _phantom_ritz_and_reconstruct, "
+                    "fused by XLA under jit",
     "us_crosswire_residual": "none: jax.jacfwd of lsqrrecipes_tpu/estimators/us_calibration.py"
                              "::_crosswire_residual, fused by XLA under jit",
 }
@@ -680,6 +685,19 @@ def phantom_errors(params, truth):
     r_angle = np.degrees(np.arccos(np.clip(cos, -1.0, 1.0)))
     trans = max(abs(sign * x[2] - truth["t1_z"]), float(np.abs(x[3:6] - truth["t3"]).max()))
     return trans, float(max(n_angle, r_angle)), float(np.abs(x[9:11] - [US_MX, US_MY]).max())
+
+
+def phantom_ritz_cost(itemsize):
+    """``(operations, bytes)`` of one hypothesis of ``phantom_ritz``, the
+    operations in f32 units (the card's float64 rate is half its float32
+    one, so a float64 operation counts two): W = A V 4 x 31 x 61, S = W^T W
+    10 x 61 and about 900 more for the Ritz vectors, the gate and the
+    reconstruction in the data's dtype; sigma_0's three f32 passes 3 x 31 x
+    122 and its norms about 250.  Bytes: A (31 x 31) and the params (41) in
+    the data's dtype, B6's 4 x 31 f32 vectors and the validity byte."""
+    wide = 4 * 31 * 61 + 10 * 61 + 900
+    ops = (2 if itemsize == 8 else 1) * wide + 3 * 31 * 122 + 250
+    return ops, (31 * 31 + 41) * itemsize + 4 * 31 * 4 + 1
 
 
 def phantom_qr_ops():
@@ -1179,7 +1197,8 @@ def phase_sharded(torch, dev, timer, smi, add_launches, fused_cases, phantom, sp
             print(f"    sharded_us_sweep plane_phantom hypotheses={c_s.numel()}: launches "
                   f"{counts['phantom_qr']} (chunks {ph_chunks}), equal to structured_sweep "
                   f"{same}; wall {wall:.3f} ms vs {wall1:.3f} ms [{smi}]")
-            check(counts["phantom_qr"] == ph_chunks, "sharded_us_sweep did not launch B6 per chunk")
+            check(counts["phantom_qr"] == ph_chunks and counts["phantom_ritz"] == ph_chunks,
+                  "sharded_us_sweep did not launch B6 and phantom_ritz per chunk")
             check(same, "[24] sharded_us_sweep differs from structured_sweep")
 
             sph_est, pts = sphere
@@ -2711,7 +2730,9 @@ def main(argv=None):
           f"hypotheses={h22} ({ph_est.ls_type}; chunks of {chunk22}): launches {counts22}")
     check_phantom(res22, "structured")
     check(counts22["phantom_qr"] == chunks22, "the phantom sweep did not launch B6 once per chunk")
-    check(sum(counts22.values()) == chunks22, "the phantom sweep launched another kernel")
+    check(counts22["phantom_ritz"] == chunks22,
+          "the phantom sweep did not launch phantom_ritz once per chunk")
+    check(sum(counts22.values()) == 2 * chunks22, "the phantom sweep launched another kernel")
     add_launches(counts22)
     wall22 = timer.wall_ms(run22, reps=WALL_REPS)
     print(f"    wall {wall22:.3f} ms median of {WALL_REPS}, {h22 / wall22 * 1e3:.4g} "
@@ -2728,7 +2749,8 @@ def main(argv=None):
     counts22f = kernels.launch_counts()
     print(f"    ransac_fused_sweep (structured fallback): launches {counts22f['phantom_qr']}; "
           f"same consensus {bool(torch.equal(res22f.consensus, res22.consensus))}")
-    check(counts22f["phantom_qr"] == chunks22, "the fused fallback did not launch B6 per chunk")
+    check(counts22f["phantom_qr"] == chunks22 and counts22f["phantom_ritz"] == chunks22,
+          "the fused fallback did not launch B6 and phantom_ritz per chunk")
     check(torch.equal(res22f.consensus, res22.consensus) and torch.equal(res22f.params, res22.params),
           "ransac_fused_sweep differs from ransac_structured on the phantom")
     add_launches(counts22f)
@@ -2797,6 +2819,50 @@ def main(argv=None):
           f"operations per hypothesis [{smi}]")
     for b in (chunk22, h22):
         print(f"    phantom_qr at {b}: {launch_shape(kernels.PHANTOM_QR, b)}")
+
+    # phantom_ritz against its plain version on the same systems and B6's
+    # subspaces: the chunk (float64 and float32), the whole sweep and the
+    # duplicate-row samples, then its times beside the plain version's.
+    dup_a22 = us_fast.phantom_systems(dup_planes22)
+    ritz_cases = [("chunk", a22[..., :chunk22].contiguous()),
+                  ("chunk float32", a22[..., :chunk22].float().contiguous()),
+                  ("sweep", a22), ("duplicate rows", dup_a22)]
+    ritz_err = 0.0
+    for label, a in ritz_cases:
+        v = phantom_qr.phantom_subspace_cuda(phantom_qr.pack_systems(a))
+        before = kernels.PHANTOM_RITZ.launches
+        got_p, got_v = us_fast.phantom_ritz(a, v)
+        plain_p, plain_v = us_fast.phantom_ritz_plain(a, v)
+        check(kernels.PHANTOM_RITZ.launches == before + 1, "phantom_ritz was not launched")
+        finite = torch.isfinite(got_p) & torch.isfinite(plain_p)
+        same = (torch.equal(got_v, plain_v)
+                and torch.equal(torch.isnan(got_p), torch.isnan(plain_p))
+                and torch.equal(torch.nan_to_num(got_p), torch.nan_to_num(plain_p)))
+        err = float((got_p - plain_p)[finite].abs().max()) if bool(finite.any()) else 0.0
+        print(f"    phantom_ritz vs plain, {label} (B={a.shape[-1]}, {a.dtype}): bit-equal {same} "
+              f"(NaN where NaN, valid equal), max|d|={err:.3g}, valid "
+              f"{float(got_v.float().mean()):.4f}")
+        check(same, f"phantom_ritz disagrees with its plain version ({label})")
+        ritz_err = max(ritz_err, err)
+    a_c = a22[..., :chunk22].contiguous()
+    v_c = phantom_qr.phantom_subspace_cuda(bands_c)
+    v_all = phantom_qr.phantom_subspace_cuda(bands22)
+    ritz_ms = timer.ms(lambda: us_fast.phantom_ritz_cuda(a_c, v_c), reps=20)
+    ritz_all_ms = timer.ms(lambda: us_fast.phantom_ritz_cuda(a22, v_all), reps=10)
+    ritz_plain_ms = timer.ms(lambda: us_fast.phantom_ritz_plain(a_c, v_c), reps=2, warmup=1)
+    ritz_all_plain_ms = timer.ms(lambda: us_fast.phantom_ritz_plain(a22, v_all), reps=1, warmup=1)
+
+    def ritz_bound(b):
+        ops, nbytes = phantom_ritz_cost(a22.element_size())
+        return bound(b * ops, b * nbytes, rates)
+
+    ritz_bound_ms, ritz_by = ritz_bound(chunk22)
+    ritz_all_bound, ritz_all_by = ritz_bound(h22)
+    print(f"    kernel ms: phantom_ritz {ritz_ms:.4f} at {chunk22}, {ritz_all_ms:.4f} at {h22}; "
+          f"plain on the card {ritz_plain_ms:.4f} / {ritz_all_plain_ms:.4f}; bound "
+          f"{ritz_bound_ms:.4f} ({ritz_by}) / {ritz_all_bound:.4f} ({ritz_all_by}) [{smi}]")
+    for b in (chunk22, h22):
+        print(f"    phantom_ritz at {b}: {launch_shape(kernels.PHANTOM_RITZ, b)}")
 
     # The f64 gate of the JAX chip check: the sweep's counts against f64
     # minimal_fit + agree on the same hypotheses, on that check's data model
@@ -2918,6 +2984,7 @@ def main(argv=None):
               planar_by, None),
         entry("phantom_qr", phantom_err, phantom_ms, phantom_plain_ms, phantom_bound_ms,
               phantom_by, phantom_lib_ms),
+        entry("phantom_ritz", ritz_err, ritz_ms, ritz_plain_ms, ritz_bound_ms, ritz_by, None),
         entry("us_crosswire_residual", *crosswire_residual, None),
     ]}
     check(len(record["kernels"]) == len(kernels.ALL), "the kernels line misses a kernel")

@@ -54,7 +54,7 @@ def nvcc_path() -> str:
 def check_inputs(dtypes=(torch.float32,), **tensors) -> None:
     """Raise ``ValueError`` unless every tensor is a contiguous CUDA tensor
     of one of ``dtypes`` (float32 alone, what every kernel here but the
-    crosswire residual's takes)."""
+    crosswire residual's and the phantom's Rayleigh-Ritz takes)."""
     for name, t in tensors.items():
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
@@ -279,6 +279,16 @@ PHANTOM_QR = Kernel(
     [_P, _P, ctypes.c_int, _P, _P],
 )
 
+# The plane phantom's Rayleigh-Ritz, rank gate and reconstruction after B6,
+# in float32 or float64 (one thread per hypothesis, the dtype a flag).
+PHANTOM_RITZ = Kernel(
+    "phantom_ritz", "phantom_ritz.cu", "phantom_ritz_launch",
+    # a, v, num_hyp, is_double, shift_coef, tiny, rank_coef, half_pi,
+    # small_angle, p0, params, valid, stream
+    [_P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_double, ctypes.c_double, ctypes.c_double,
+     ctypes.c_double, ctypes.c_double, ctypes.c_float, _P, _P, _P],
+)
+
 # The crosswire calibration's residual and Jacobian for the LM refit, in
 # float32 or float64 (one library, the dtype a flag).
 US_CROSSWIRE = Kernel(
@@ -289,7 +299,8 @@ US_CROSSWIRE = Kernel(
 
 ALL = (FUSED_SWEEP_SPHERE3D, SPHERE_VOTE, FUSED_SWEEP_PLANE3D, FUSED_SWEEP_LINE3D,
        FUSED_SWEEP_LINE2D, PLANE_VOTE, *_RIGID_SWEEPS.values(), *_US_SWEEPS.values(),
-       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE, PHANTOM_QR, US_CROSSWIRE)
+       SPHERE_LM, SPHERE_MEGA, SPHERE_PLANAR_VOTE, PHANTOM_QR, PHANTOM_RITZ,
+       US_CROSSWIRE)
 
 
 def build_all(kernels=ALL) -> None:

@@ -25,17 +25,22 @@ the last axis (lanes form, lists of ``[B]`` tensors):
 The plane phantom (k = 31) fits the null vector of its homogeneous 31x31
 system in two stages: the f32 subspace of :mod:`lsqrrecipes_tpu_torch.ops.
 phantom_qr` (the kernel B6 on the card) and a float64 Rayleigh-Ritz on it,
-then the reference's reconstruction; its vote is one ``[B, 31] @ [31, n]``
-product.
+then the reference's reconstruction (together one kernel on the card,
+``csrc/phantom_ritz.cu``); its vote is one ``[B, 31] @ [31, n]`` product.
 
 Counts can differ from the f64 vote by border points, as the fused sweeps'
 do.  The crosswire and pointer fits run no kernel (the JAX package has none
 on their path either).
 """
 
+import ctypes
+import functools
+import operator
+
 import numpy as np
 import torch
 
+from lsqrrecipes_tpu_torch import kernels
 from lsqrrecipes_tpu_torch.config import HALF_PI, SMALL_ANGLE
 from lsqrrecipes_tpu_torch.device import as_tensor, full_f32_matmul, generator_device
 from lsqrrecipes_tpu_torch.linalg.small import (
@@ -203,11 +208,21 @@ def _pointer_fit_slots(slot_pl, k: int):
 # resolves it.  The JAX package projects in double-single f32 pairs to avoid
 # the TPU's emulated f64; the H100 has native f64, so here W = A V and
 # S = W^T W are plain float64 (the JAX package's other branch).
+#
+# The Rayleigh-Ritz, the rank gate and the reconstruction run as one kernel
+# per chunk on the card (``csrc/phantom_ritz.cu``, one thread a hypothesis)
+# and as :func:`phantom_ritz_plain` on the CPU.  The plain version is the
+# kernel's specification: every sum runs in the kernel's order
+# (:func:`_sum_in_order`, or Python's ``sum`` from 0 where the kernel adds to
+# 0 too), and every product, sum, division and square root is its own
+# correctly rounded operation, so on the card the two agree bit for bit.
 # ---------------------------------------------------------------------------
 
 # The reference's FLT_EPSILON-relative rank gate (``cxx:205-218``): sigma_30
 # must exceed FLT_EPS max(sigma_0, 1).
 _PHANTOM_FLT_EPS = 1.192092896e-07
+# sigma_0's power iteration starts from the uniform unit vector, in f32.
+_PHANTOM_P0 = float(np.float32(1.0 / np.sqrt(31.0)))
 
 
 def phantom_systems(slot_pl):
@@ -227,13 +242,16 @@ def _plane_phantom_fit_slots(slot_pl, k: int):
     dtype) -> ``(params [B, 41], valid [B])``.  The f32 rounding of
     :func:`phantom_systems`, packed by :func:`~lsqrrecipes_tpu_torch.ops.
     phantom_qr.pack_systems`, goes to :func:`~lsqrrecipes_tpu_torch.ops.
-    phantom_qr.phantom_subspace`; ``fac_ok`` is every subspace entry
-    finite."""
+    phantom_qr.phantom_subspace`, then the systems and the subspace to
+    :func:`phantom_ritz`."""
     a_pl = phantom_systems(slot_pl)                               # [31, 31, B]
-    bands = phantom_qr.pack_systems(a_pl)
-    v_pl = phantom_qr.phantom_subspace(bands)
-    fac_ok = torch.isfinite(v_pl).all(dim=1).all(dim=0)
-    return _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok)
+    v_pl = phantom_qr.phantom_subspace(phantom_qr.pack_systems(a_pl))
+    return phantom_ritz(a_pl, v_pl)
+
+
+def _sum_in_order(terms):
+    """``((t0 + t1) + t2) + ...``, each addition rounded: the kernel's order."""
+    return functools.reduce(operator.add, terms)
 
 
 def _unit_lanes(c, tiny):
@@ -242,35 +260,52 @@ def _unit_lanes(c, tiny):
     return [ci * inv for ci in c]
 
 
-def _phantom_sigma0_sq(bands):
-    """sigma_0^2 of each f32 system by two power-iteration steps on ``A^T A``
-    from the uniform vector and a Rayleigh quotient, in f32 (the rank gate
-    needs ~1e-3): ``bands[B, 31, 32]`` -> ``[B]``."""
-    def gram_apply(p):                                  # p [B, 31]
-        ap = torch.bmm(p[:, None, :], bands)            # [B, 1, 32] = A p
-        return torch.bmm(bands, ap.transpose(1, 2))[..., 0]
+def _phantom_sigma0_sq(a32):
+    """sigma_0^2 of each f32 system ``a32[31 rows, 31 columns, B]`` by two
+    power-iteration steps on ``A^T A`` from the uniform vector and a Rayleigh
+    quotient, in f32 -> ``[B]``: never above sigma_0^2, and on the phantom's
+    systems within a factor of about 2 below it.  ``A p`` sums over the
+    columns, ``A^T (A p)`` over the rows, each in index order."""
+    def gram_apply(p):                                              # p [31, B]
+        ap = _sum_in_order(p[c] * a32[:, c] for c in range(31))       # A p
+        return _sum_in_order(a32[r] * ap[r] for r in range(31))       # A^T A p
 
     def norm_rows(p):
-        return p * rsqrt(torch.clamp_min(torch.sum(p * p, dim=1, keepdim=True), 1e-30))
+        return p * rsqrt(torch.clamp_min(_sum_in_order(pc * pc for pc in p), 1e-30))
 
-    pv = torch.full((bands.shape[0], 31), np.float32(1.0 / np.sqrt(31.0)),
-                    dtype=torch.float32, device=bands.device)
-    with full_f32_matmul():
-        for _ in range(2):
-            pv = norm_rows(gram_apply(pv))
-        return torch.sum(pv * gram_apply(pv), dim=1)
+    pv = torch.full_like(a32[0], _PHANTOM_P0)
+    for _ in range(2):
+        pv = norm_rows(gram_apply(pv))
+    return _sum_in_order(pv * gram_apply(pv))
 
 
-def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
-    """The k = 31 fit's tail: the Rayleigh-Ritz null vector in ``a_pl``'s
-    dtype, the rank gate, and the reference's reconstruction
-    (``PlanePhantom...cxx:204-355``) in lanes form.  ``a_pl [31, 31, B]``,
-    ``bands`` its packed f32 rounding, ``v_pl [4, 31, B]`` f32."""
+def _check_ritz_inputs(a_pl, v_pl):
+    if a_pl.ndim != 3 or a_pl.shape[:2] != (31, 31):
+        raise ValueError(f"a_pl must be [31, 31, B], got {tuple(a_pl.shape)}")
+    if a_pl.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"a_pl must be float32 or float64, got {a_pl.dtype}")
+    if tuple(v_pl.shape) != (phantom_qr.Q, 31, a_pl.shape[2]):
+        raise ValueError(f"v_pl must be [4, 31, {a_pl.shape[2]}], got {tuple(v_pl.shape)}")
+    if v_pl.dtype != torch.float32:
+        raise ValueError(f"v_pl must be float32, got {v_pl.dtype}")
+    if v_pl.device != a_pl.device:
+        raise ValueError("a_pl and v_pl must be on one device")
+
+
+def phantom_ritz_plain(a_pl, v_pl):
+    """The k = 31 fit's tail in plain PyTorch: the Rayleigh-Ritz null vector
+    in ``a_pl``'s dtype, the rank gate, and the reference's reconstruction
+    (``PlanePhantom...cxx:204-355``) in lanes form.  ``a_pl [31, 31, B]``
+    float32 or float64, ``v_pl [4, 31, B]`` f32 from B6 -> ``(params [B, 41]
+    in a_pl's dtype, valid [B])``; ``valid`` needs every subspace entry
+    finite."""
+    _check_ritz_inputs(a_pl, v_pl)
     dt = a_pl.dtype
-    q = v_pl.shape[0]
+    q = phantom_qr.Q
+    fac_ok = torch.isfinite(v_pl).all(dim=1).all(dim=0)
     v64 = v_pl.to(dt)
-    w = torch.einsum("rcb,qcb->qrb", a_pl, v64)         # W = A V, [q, 31, B]
-    s = torch.einsum("irb,jrb->ijb", w, w)              # S = W^T W
+    w = _sum_in_order(a_pl[:, c] * v64[:, c, None] for c in range(31))   # W = A V, [q, 31, B]
+    s = _sum_in_order(w[:, None, r] * w[None, :, r] for r in range(31))  # S = W^T W
     sg = [[s[i, j] for j in range(q)] for i in range(q)]
     tiny = torch.finfo(dt).tiny
     trace = sg[0][0] + sg[1][1] + sg[2][2] + sg[3][3]
@@ -286,7 +321,7 @@ def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
         c, _ = cholesky_solve_lanes(s_ll, c, q)
         c = _unit_lanes(c, tiny)
     x_pl = sum(c[j][None, :] * v64[j] for j in range(q))            # [31, B]
-    xn = 1.0 / torch.clamp_min(torch.sqrt(torch.sum(x_pl * x_pl, dim=0)), tiny)
+    xn = 1.0 / torch.clamp_min(torch.sqrt(_sum_in_order(xi * xi for xi in x_pl)), tiny)
     xq = [x_pl[i] * xn for i in range(31)]
 
     # Rank gate s[29] > FLT_EPS max(s[0], 1): sigma_30^2 by the deflated
@@ -302,7 +337,7 @@ def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
         y = deflate(y)
     sy = [sum(sg[i][j] * y[j] for j in range(q)) for i in range(q)]
     lam1 = sum(y[i] * sy[i] for i in range(q))
-    sig0_sq = _phantom_sigma0_sq(bands).to(dt)
+    sig0_sq = _phantom_sigma0_sq(a_pl.to(torch.float32)).to(dt)
     rank_ok = lam1 > _PHANTOM_FLT_EPS**2 * torch.clamp_min(sig0_sq, 1.0)
 
     # Reconstruction on the 31 lanes of the null vector.
@@ -318,8 +353,9 @@ def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
     wx1 = torch.where(gimbal, zeros_b, torch.atan2(r1[1] / cy1, r1[2] / cy1))
 
     inv = [1.0 / torch.where(r1[j].abs() > 1e-30, r1[j], ones_b) for j in range(3)]
-    c1, c2, t3 = ([sum(xr[base + 3 * j + cc] * inv[j] for j in range(3)) / 3.0 for cc in range(3)]
-                  for base in (0, 9, 18))
+    three = scalar_like(3.0, trace)      # a true division on the card too
+    c1, c2, t3 = ([sum(xr[base + 3 * j + cc] * inv[j] for j in range(3)) / three
+                   for cc in range(3)] for base in (0, 9, 18))
     m_x, m_y, r3, ok = orthonormalize_lanes(c1, c2)
     wz3, wy3, wx3 = euler_zyx_plus_lanes(r3)
     m1 = [m_x * r1[j] * r3[cc][0] for j in range(3) for cc in range(3)]
@@ -328,6 +364,44 @@ def _phantom_ritz_and_reconstruct(a_pl, bands, v_pl, fac_ok):
     cols = [wy1, wx1, t1_z, *t3, wz3, wy3, wx3, m_x, m_y, *m1, *m2, *m3, *r1]
     valid = fac_ok & rank_ok & nondeg & ok
     return torch.stack(cols, dim=-1), valid
+
+
+def phantom_ritz_cuda(a_pl, v_pl):
+    """Launch ``csrc/phantom_ritz.cu`` on the current stream; same contract as
+    :func:`phantom_ritz_plain`.  ``a_pl`` must be contiguous and ``v_pl`` the
+    ``[4, 31, B]`` view of B6's ``[B, 4, 32]`` output, which the kernel reads
+    in place.  The constants go in as arguments, so no tensor is made from a
+    Python number.  Raises on other input and when the build or the launch
+    fails."""
+    _check_ritz_inputs(a_pl, v_pl)
+    if v_pl.permute(2, 0, 1).stride() != (phantom_qr.Q * phantom_qr.ROWS, phantom_qr.ROWS, 1):
+        raise ValueError("v_pl must be the [4, 31, B] view of B6's [B, 4, 32] output")
+    kernels.check_inputs(dtypes=(torch.float32, torch.float64), a_pl=a_pl)
+    b = a_pl.shape[2]
+    if b >= 2**31:
+        raise ValueError("phantom_ritz supports fewer than 2^31 hypotheses")
+    dt = a_pl.dtype
+    params = torch.empty((b, 41), dtype=dt, device=a_pl.device)
+    valid = torch.empty((b,), dtype=torch.bool, device=a_pl.device)
+    if b:
+        finfo = torch.finfo(dt)
+        with torch.cuda.device(a_pl.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            kernels.PHANTOM_RITZ.launch(
+                a_pl.data_ptr(), v_pl.data_ptr(), ctypes.c_int(b),
+                ctypes.c_int(dt == torch.float64), ctypes.c_double(100.0 * finfo.eps),
+                ctypes.c_double(finfo.tiny), ctypes.c_double(_PHANTOM_FLT_EPS**2),
+                ctypes.c_double(HALF_PI), ctypes.c_double(SMALL_ANGLE),
+                ctypes.c_float(_PHANTOM_P0), params.data_ptr(), valid.data_ptr(), stream)
+    return params, valid
+
+
+def phantom_ritz(a_pl, v_pl):
+    """The plane phantom's fit after B6: ``a_pl [31, 31, B]`` and B6's
+    subspace ``v_pl [4, 31, B]`` -> ``(params [B, 41], valid [B])``.  CUDA
+    tensors launch the kernel, CPU tensors run :func:`phantom_ritz_plain`."""
+    fn = phantom_ritz_cuda if a_pl.is_cuda else phantom_ritz_plain
+    return fn(a_pl, v_pl)
 
 
 # ---------------------------------------------------------------------------

@@ -68,10 +68,11 @@ def _cloud(seed, n):
 def test_every_kernel_source_exists_and_names_what_it_replaces():
     for k in kernels.ALL:
         text = k.source.read_text()
-        # The crosswire residual's kernel has no TPU kernel to name: XLA
-        # fuses the JAX package's jacfwd.
-        assert ("Replaces no TPU kernel." if k is kernels.US_CROSSWIRE else
-                "Replaces lsqrrecipes_tpu/ops/") in text
+        # The crosswire residual's kernel and the phantom's Rayleigh-Ritz have
+        # no TPU kernel to name: XLA fuses the JAX package's jacfwd and its
+        # Rayleigh-Ritz tail.
+        assert ("Replaces no TPU kernel." if k in (kernels.US_CROSSWIRE, kernels.PHANTOM_RITZ)
+                else "Replaces lsqrrecipes_tpu/ops/") in text
         assert f'extern "C" int {k.symbol}(' in text
         assert "lsq_cuda_error_string" in text
 
@@ -110,7 +111,8 @@ def test_point_sweeps_share_one_source_and_build():
     assert kernels.FUSED_SWEEPS["sphere3d"] is kernels.FUSED_SWEEP_SPHERE3D
     assert set(kernels.ALL) == set(kernels.FUSED_SWEEPS.values()) | {
         kernels.SPHERE_VOTE, kernels.PLANE_VOTE, kernels.SPHERE_LM, kernels.SPHERE_MEGA,
-        kernels.SPHERE_PLANAR_VOTE, kernels.PHANTOM_QR, kernels.US_CROSSWIRE}
+        kernels.SPHERE_PLANAR_VOTE, kernels.PHANTOM_QR, kernels.PHANTOM_RITZ,
+        kernels.US_CROSSWIRE}
 
 
 def test_rigid_sweeps_share_one_source_and_build():
@@ -133,7 +135,7 @@ def test_us_sweeps_share_one_source_and_build():
         assert kernels.FUSED_SWEEPS[family].argtypes == rigid[:-1] + [
             ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
     assert set(kernels.US_FAMILIES) <= set(fs._FAMILIES)
-    assert len(kernels.ALL) == 17 and len({k.source for k in kernels.ALL}) == 10
+    assert len(kernels.ALL) == 18 and len({k.source for k in kernels.ALL}) == 11
 
 
 def test_sphere_step_kernels_share_one_source_and_build():
@@ -152,6 +154,21 @@ def test_phantom_kernel_has_its_own_source_and_launch_symbol():
     assert k.source.name == "phantom_qr.cu" and k.symbol == "phantom_qr_launch"
     assert "Replaces lsqrrecipes_tpu/ops/phantom_qr.py::_make_kernel" in k.source.read_text()
     assert k.library_path() not in {o.library_path() for o in kernels.ALL if o is not k}
+
+
+def test_phantom_ritz_kernel_has_its_own_source_and_launch_symbol():
+    k = kernels.PHANTOM_RITZ
+    text = k.source.read_text()
+    assert k.source.name == "phantom_ritz.cu" and k.symbol == "phantom_ritz_launch"
+    assert "lsqrrecipes_tpu_torch/ops/us_fast.py::phantom_ritz_plain" in text
+    assert k.library_path() not in {o.library_path() for o in kernels.ALL if o is not k}
+    # The benchmark's B6 roofline matches device operations by B6's kernel
+    # name, so this kernel's names must not contain it.
+    assert "phantom_qr" not in text.replace("phantom_qr_launch", "")
+    assert "__global__ void __launch_bounds__(kThreads)\nphantom_ritz_kernel(" in text
+    # Rounded operations only: no FMA, and no tensor made from a Python number.
+    assert "fma" not in text
+    assert [t.__name__ for t in k.argtypes].count("c_double") == 5
 
 
 _SPLIT_LAYOUT = "constexpr int kSplitHypPerThread = 4;"   # sweep_common.cuh
@@ -177,6 +194,7 @@ _REDESIGNED = {
     "sphere_lm": ("constexpr int kLanes = 16;", None),
     "sphere_planar_vote": ("constexpr int kPlanarHypPerThread = 8;", True),
     "us_crosswire_residual": ("constexpr int kThreads = 128;", None),
+    "phantom_ritz": ("constexpr int kThreads = 32;", False),
 }
 
 
@@ -240,7 +258,8 @@ def test_build_all_waits_for_every_build_before_raising(monkeypatch):
     # fused_sweep_us.cu and the two per-step sphere kernels sphere_ransac.cu.
     assert finished == ["fused_sweep_sphere3d", "sphere_vote", "fused_sweep_plane3d",
                         "plane_vote", "fused_sweep_pivot", "fused_sweep_crosswire",
-                        "sphere_lm", "sphere_mega", "phantom_qr", "us_crosswire_residual"]
+                        "sphere_lm", "sphere_mega", "phantom_qr", "phantom_ritz",
+                        "us_crosswire_residual"]
 
 
 # ------------------------------------------------------- on the card only
@@ -990,12 +1009,10 @@ def test_fast_sweep_launches_once_per_step_on_card(cuda_device):
     assert float((params.cpu() - torch.tensor([5.0, -2.0, 11.0, 25.0])).abs().max()) < 0.5
 
 
-def _phantom_systems(seed, b, n=64):
-    """``bands [b, 31, 32]`` of plane-phantom minimal systems: 31 random
-    observations each of the phantom model (m_x = 0.143, m_y = 0.139, a random
-    plane and calibration, pose angles in [0, pi), pixels in 640 x 480 with
-    0.5 px noise), built from the f64 slot features as the fit builds them."""
-    rng = np.random.default_rng(seed)
+def _phantom_data(rng, n):
+    """``(frames, q)`` (f64) of n observations of the phantom model (m_x =
+    0.143, m_y = 0.139, a random plane and calibration, pose angles in [0,
+    pi), pixels in 640 x 480 with 0.5 px noise)."""
     r3 = _euler(rng.uniform(0, np.pi, 3))
     t3 = rng.uniform(-100, 100, 3)
     wy, wx = rng.uniform(-1, 1, 2)
@@ -1007,11 +1024,22 @@ def _phantom_systems(seed, b, n=64):
     free = rng.uniform(-100, 100, (n, 3))
     t2 = free - ((mapped + free) @ normal + rng.uniform(-100, 100))[:, None] * normal
     q = q + 0.5 * rng.normal(size=q.shape)
-    data = (Frame(torch.as_tensor(r2), torch.as_tensor(t2)), torch.as_tensor(q))
-    feats = us_fast._slot_features_phantom(data)                      # [n, 14] f64
+    return Frame(torch.as_tensor(r2), torch.as_tensor(t2)), torch.as_tensor(q)
+
+
+def _phantom_planes(seed, b, n=64):
+    """Slot planes ``[31, 14, b]`` (f64) of plane-phantom minimal samples: 31
+    random observations each of :func:`_phantom_data`."""
+    rng = np.random.default_rng(seed)
+    feats = us_fast._slot_features_phantom(_phantom_data(rng, n))     # [n, 14] f64
     idx = np.stack([rng.permutation(n)[:31] for _ in range(b)])
-    planes = feats[torch.as_tensor(idx)].permute(1, 2, 0)              # [31, 14, b]
-    return phantom_qr.pack_systems(us_fast.phantom_systems(planes))
+    return feats[torch.as_tensor(idx)].permute(1, 2, 0)                # [31, 14, b]
+
+
+def _phantom_systems(seed, b, n=64):
+    """``bands [b, 31, 32]`` of :func:`_phantom_planes`' systems, built from
+    the f64 slot features as the fit builds them."""
+    return phantom_qr.pack_systems(us_fast.phantom_systems(_phantom_planes(seed, b, n)))
 
 
 @pytest.mark.cuda
@@ -1073,14 +1101,98 @@ def test_redesigned_kernels_report_their_launch_shape_on_card(cuda_device, kerne
     assert shape["blocks"] * shape["hyp_per_block"] >= num_hyp and shape["waves"] > 0
 
 
+def _ritz_on_card(a):
+    """B6's subspace of the systems ``a[31, 31, B]`` on the card, then
+    ``phantom_ritz``'s kernel and its plain version on the same inputs."""
+    v = phantom_qr.phantom_subspace(phantom_qr.pack_systems(a))
+    before = kernels.PHANTOM_RITZ.launches
+    got = us_fast.phantom_ritz(a, v)
+    assert kernels.PHANTOM_RITZ.launches == before + 1
+    return got, us_fast.phantom_ritz_plain(a, v)
+
+
+def _assert_bit_equal(got, plain):
+    (gp, gv), (pp, pv) = got, plain
+    assert gp.dtype == pp.dtype and gp.shape == pp.shape and torch.equal(gv, pv)
+    assert torch.equal(torch.isnan(gp), torch.isnan(pp))
+    assert torch.equal(torch.nan_to_num(gp), torch.nan_to_num(pp))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("seed", range(8))
+def test_phantom_ritz_kernel_equals_plain_on_card(cuda_device, dtype, seed):
+    # A chunk of the cell's shape: n = 64, 4,352 hypotheses.
+    a = us_fast.phantom_systems(_phantom_planes(300 + seed, 4352)).to(cuda_device, dtype)
+    got, plain = _ritz_on_card(a)
+    _assert_bit_equal(got, plain)
+    assert got[0].shape == (4352, 41) and float(got[1].float().mean()) > 0.9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 33, 4351, 65536])
+def test_phantom_ritz_kernel_ragged_and_large_on_card(cuda_device, b):
+    # Partial blocks (1, 33 and 4,351 hypotheses) and the whole sweep at once.
+    a = us_fast.phantom_systems(_phantom_planes(400 + b, b)).to(cuda_device)
+    got, plain = _ritz_on_card(a)
+    _assert_bit_equal(got, plain)
+
+
+@pytest.mark.cuda
+def test_phantom_ritz_kernel_gates_degenerate_samples_like_plain_on_card(cuda_device):
+    # The samples of test_phantom_fit_rejects_duplicate_samples_on_card and of
+    # the CPU's duplicate and translation-only case: one observation in every
+    # slot, and one rotation with distinct translations.
+    planes = _phantom_planes(9, 64).to(cuda_device)
+    planes[:, :, :16] = planes[0:1, :, :16].clone()
+    planes[:, 0:9, 16:32] = planes[0:1, 0:9, 16:32].clone()
+    got, plain = _ritz_on_card(us_fast.phantom_systems(planes))
+    _assert_bit_equal(got, plain)
+    assert not bool(got[1][:32].any()) and bool(got[1][32:].all())
+
+
+@pytest.mark.cuda
+def test_phantom_structured_sweep_kernel_route_equals_plain_route_on_card(cuda_device,
+                                                                       monkeypatch):
+    from lsqrrecipes_tpu_torch.estimators import get
+
+    est = get("us_plane_phantom")(1.0)
+    data = tree_map(lambda t: t.to(cuda_device), _phantom_data(np.random.default_rng(11), 64))
+    groups = 256
+    chunks = -(-groups * 64 // us_fast._chunk_size(groups * 64, 64, 31))
+    perm = torch.randperm(64, generator=torch.Generator().manual_seed(5)).to(cuda_device)
+    kernels.reset_launch_counts()
+    counts, params = us_fast.structured_sweep("plane_phantom", est, data, None, groups, perm)
+    assert kernels.PHANTOM_RITZ.launches == kernels.PHANTOM_QR.launches == chunks > 1
+    monkeypatch.setattr(us_fast, "phantom_ritz", us_fast.phantom_ritz_plain)
+    pcounts, pparams = us_fast.structured_sweep("plane_phantom", est, data, None, groups, perm)
+    assert kernels.PHANTOM_RITZ.launches == chunks
+    assert torch.equal(counts, pcounts) and int(counts.max()) > 31
+    assert torch.equal(torch.isnan(params), torch.isnan(pparams))
+    assert torch.equal(torch.nan_to_num(params), torch.nan_to_num(pparams))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_hyp", [4352, 65536])
+def test_phantom_ritz_reports_its_launch_shape_on_card(cuda_device, num_hyp):
+    # A thread per hypothesis, 32 per block, no spill: its float64 instance's
+    # 40-byte stack frame is cos's argument reduction (ptxas: 0 bytes spill
+    # stores), as in the crosswire residual's kernel.
+    shape = kernels.PHANTOM_RITZ.shape(num_hyp)
+    assert shape["threads"] == shape["hyp_per_block"] == 32
+    assert shape["spill_bytes"] <= 40 and 0 < shape["registers"] <= 255
+    assert shape["blocks"] == -(-num_hyp // 32) and shape["blocks_per_sm"] >= 8
+
+
 @pytest.mark.cuda
 def test_phantom_fit_rejects_duplicate_samples_on_card(cuda_device):
     rng = np.random.default_rng(8)
     planes = torch.as_tensor(rng.normal(size=(31, 14, 64)) * 50.0, device=cuda_device)
     planes[:] = planes[0:1].clone()                      # one observation in every slot
-    before = kernels.PHANTOM_QR.launches
+    before = kernels.PHANTOM_QR.launches, kernels.PHANTOM_RITZ.launches
     _, valid = us_fast._plane_phantom_fit_slots(planes, 31)
-    assert kernels.PHANTOM_QR.launches == before + 1
+    assert (kernels.PHANTOM_QR.launches, kernels.PHANTOM_RITZ.launches) == (
+        before[0] + 1, before[1] + 1)
     assert not bool(valid.any())
 
 

@@ -4,7 +4,9 @@
 (the phantom kernel's operation order: one 32-row butterfly sum per column
 update and per forward-solve step) vs the JAX package's ``lax.scan`` forms,
 and the plain version of the kernel B6 (``ops/phantom_qr.py``) inside
-``us_fast._plane_phantom_fit_slots`` vs the JAX package's XLA stage.
+``us_fast._plane_phantom_fit_slots`` vs the JAX package's XLA stage, and the
+float64 tail after B6 (``us_fast.phantom_ritz_plain``, the specification of
+the kernel ``csrc/phantom_ritz.cu``) vs its earlier ``einsum``/``bmm`` form.
 
 Inputs are made with numpy from a seed.  The two QR forms sum in different
 orders, so R's upper triangle and the solves agree to 1e-4 relative to the
@@ -28,6 +30,8 @@ from lsqrrecipes_tpu.linalg import small as jsmall
 from lsqrrecipes_tpu.ops import us_fast as jfast
 from lsqrrecipes_tpu.synthetic import make_plane_phantom_data
 from lsqrrecipes_tpu_torch import interop, kernels
+from lsqrrecipes_tpu_torch.config import HALF_PI, SMALL_ANGLE
+from lsqrrecipes_tpu_torch.device import full_f32_matmul
 from lsqrrecipes_tpu_torch.linalg import small
 from lsqrrecipes_tpu_torch.ops import phantom_qr, us_fast
 
@@ -238,3 +242,152 @@ def test_fit_slots_gate_duplicate_and_translation_only_samples():
     _, vj = jfast._plane_phantom_fit_slots(jnp.asarray(jp), 31)
     assert not bool(valid.any()) and not bool(np.asarray(vj).any())
     assert bool(torch.isfinite(params).all())
+
+
+def _einsum_tail(a_pl, v_pl):
+    """The tail as it was before it had a kernel: W and S by ``einsum``,
+    sigma_0 by ``bmm`` on the packed f32 systems, the norms by ``torch.sum``,
+    sums in the library's order."""
+    dt, q = a_pl.dtype, 4
+    bands = phantom_qr.pack_systems(a_pl)
+    fac_ok = torch.isfinite(v_pl).all(dim=1).all(dim=0)
+    v64 = v_pl.to(dt)
+    w = torch.einsum("rcb,qcb->qrb", a_pl, v64)
+    s = torch.einsum("irb,jrb->ijb", w, w)
+    sg = [[s[i, j] for j in range(q)] for i in range(q)]
+    tiny = torch.finfo(dt).tiny
+    trace = sg[0][0] + sg[1][1] + sg[2][2] + sg[3][3]
+    shift = 100.0 * torch.finfo(dt).eps * trace + tiny
+    s_ll = [[sg[i][j] + shift if i == j else sg[i][j] for j in range(q)] for i in range(q)]
+    zeros_b, ones_b = torch.zeros_like(trace), torch.ones_like(trace)
+    c = [ones_b] + [zeros_b] * (q - 1)
+    for _ in range(2):
+        c, _ = small.cholesky_solve_lanes(s_ll, c, q)
+        c = us_fast._unit_lanes(c, tiny)
+    x_pl = sum(c[j][None, :] * v64[j] for j in range(q))
+    xn = 1.0 / torch.clamp_min(torch.sqrt(torch.sum(x_pl * x_pl, dim=0)), tiny)
+    xq = [x_pl[i] * xn for i in range(31)]
+
+    def deflate(y):
+        dot = sum(ci * yi for ci, yi in zip(c, y))
+        return us_fast._unit_lanes([yi - dot * ci for ci, yi in zip(c, y)], tiny)
+
+    y = deflate([zeros_b, ones_b] + [zeros_b] * (q - 2))
+    for _ in range(2):
+        y, _ = small.cholesky_solve_lanes(s_ll, y, q)
+        y = deflate(y)
+    lam1 = sum(y[i] * sum(sg[i][j] * y[j] for j in range(q)) for i in range(q))
+
+    def gram_apply(p):
+        ap = torch.bmm(p[:, None, :], bands)
+        return torch.bmm(bands, ap.transpose(1, 2))[..., 0]
+
+    def norm_rows(p):
+        return p * small.rsqrt(torch.clamp_min(torch.sum(p * p, dim=1, keepdim=True), 1e-30))
+
+    pv = torch.full((bands.shape[0], 31), np.float32(1.0 / np.sqrt(31.0)))
+    with full_f32_matmul():
+        for _ in range(2):
+            pv = norm_rows(gram_apply(pv))
+        sig0_sq = torch.sum(pv * gram_apply(pv), dim=1).to(dt)
+    rank_ok = lam1 > us_fast._PHANTOM_FLT_EPS**2 * torch.clamp_min(sig0_sq, 1.0)
+    denom = torch.sqrt(xq[27] ** 2 + xq[28] ** 2 + xq[29] ** 2)
+    nondeg = denom > 1e-30
+    xr = [xi * (1.0 / torch.where(nondeg, denom, ones_b)) for xi in xq]
+    r1 = [xr[27], xr[28], xr[29]]
+    wy1 = torch.atan2(-r1[0], torch.sqrt(r1[1] ** 2 + r1[2] ** 2))
+    gimbal = ~(((wy1 - HALF_PI).abs() > SMALL_ANGLE) & ((wy1 + HALF_PI).abs() > SMALL_ANGLE))
+    cy1 = torch.where(gimbal, ones_b, torch.cos(wy1))
+    wx1 = torch.where(gimbal, zeros_b, torch.atan2(r1[1] / cy1, r1[2] / cy1))
+    inv = [1.0 / torch.where(r1[j].abs() > 1e-30, r1[j], ones_b) for j in range(3)]
+    c1, c2, t3 = ([sum(xr[base + 3 * j + cc] * inv[j] for j in range(3)) / 3.0
+                   for cc in range(3)] for base in (0, 9, 18))
+    m_x, m_y, r3, ok = us_fast.orthonormalize_lanes(c1, c2)
+    m1 = [m_x * r1[j] * r3[cc][0] for j in range(3) for cc in range(3)]
+    m2 = [m_y * r1[j] * r3[cc][1] for j in range(3) for cc in range(3)]
+    m3 = [r1[j] * t3[cc] for j in range(3) for cc in range(3)]
+    cols = [wy1, wx1, xr[30], *t3, *us_fast.euler_zyx_plus_lanes(r3), m_x, m_y,
+            *m1, *m2, *m3, *r1]
+    return torch.stack(cols, dim=-1), fac_ok & rank_ok & nondeg & ok
+
+
+@pytest.mark.parametrize("seed", [20, 21, 22])
+def test_ritz_in_the_kernel_order_matches_the_einsum_form(seed):
+    # The kernel's order of the sums moves W and S by a rounding of |A| |V|;
+    # the Ritz vector turns that into ~|W| / (sigma_30^2 - sigma_31^2) of it,
+    # so the params move by up to ~1e-11 of their scale where the pair sits
+    # close (1.0e-11 measured over 4 x 4,352 hypotheses), and by a rounding
+    # (median ~1e-15) elsewhere.
+    _, _, tplanes = _phantom_planes(seed)
+    a = us_fast.phantom_systems(tplanes)
+    v = phantom_qr.phantom_subspace(phantom_qr.pack_systems(a))
+    params, valid = us_fast.phantom_ritz(a, v)
+    want, want_valid = _einsum_tail(a, v)
+    assert params.shape == (256, 41) and params.dtype == torch.float64
+    assert torch.equal(valid, want_valid) and float(valid.float().mean()) > 0.9
+    scale = want[valid].abs().amax(dim=0)
+    rel = (params - want)[valid].abs() / scale
+    assert float(rel.max()) < 1e-10
+    assert float(rel.median()) < 1e-14
+
+
+def test_ritz_sigma0_in_the_kernel_order_matches_the_bmm_form():
+    # The rank gate's sigma_0^2, two f32 power steps from the uniform vector
+    # and a Rayleigh quotient: the bmm form's within f32 rounding, and never
+    # above sigma_0^2 (a Rayleigh quotient).
+    _, _, tplanes = _phantom_planes(23)
+    a = us_fast.phantom_systems(tplanes)
+    got = us_fast._phantom_sigma0_sq(a.to(torch.float32))
+    assert got.dtype == torch.float32 and got.shape == (256,)
+    bands = phantom_qr.pack_systems(a)
+    pv = torch.full((256, 31), np.float32(1.0 / np.sqrt(31.0)))
+    for _ in range(3):
+        g = torch.bmm(bands, torch.bmm(pv[:, None, :], bands).transpose(1, 2))[..., 0]
+        want, pv = torch.sum(pv * g, dim=1), g / torch.linalg.norm(g, dim=1, keepdim=True)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5)
+    sv = torch.linalg.svdvals(a.permute(2, 0, 1))[:, 0]
+    assert bool((got.double() <= sv**2 * (1 + 1e-5)).all()) and bool((got > 0).all())
+    assert torch.equal(us_fast._sum_in_order(torch.tensor([1e16, 1.0, -1e16, 1.0],
+                                                          dtype=torch.float64)),
+                       torch.tensor(1.0, dtype=torch.float64))
+
+
+def test_ritz_float32_systems_follow_the_float64_fit():
+    _, _, tplanes = _phantom_planes(24)
+    a = us_fast.phantom_systems(tplanes)
+    v = phantom_qr.phantom_subspace(phantom_qr.pack_systems(a))
+    p64, v64 = us_fast.phantom_ritz(a, v)
+    p32, v32 = us_fast.phantom_ritz(a.float(), v)
+    assert p32.dtype == torch.float32 and p32.shape == (256, 41)
+    both = v64 & v32
+    assert float(both.float().mean()) > 0.9
+    # The plane normal and t1_z: f32 arithmetic on a null vector resolved
+    # from a f32 subspace.
+    np.testing.assert_allclose(p32[both][:, 38:41].double().numpy(),
+                               p64[both][:, 38:41].numpy(), atol=1e-2)
+
+
+def test_ritz_wrappers_check_their_inputs():
+    _, _, tplanes = _phantom_planes(25)
+    a = us_fast.phantom_systems(tplanes[..., :8])
+    v = phantom_qr.phantom_subspace(phantom_qr.pack_systems(a))
+    with pytest.raises(ValueError, match=r"\[31, 31, B\]"):
+        us_fast.phantom_ritz(a[:30], v)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        us_fast.phantom_ritz(a.to(torch.float16), v)
+    with pytest.raises(ValueError, match=r"\[4, 31, 8\]"):
+        us_fast.phantom_ritz(a, v[:, :, :7])
+    with pytest.raises(ValueError, match="v_pl must be float32"):
+        us_fast.phantom_ritz(a, v.double())
+    with pytest.raises(ValueError, match="one device"):
+        us_fast.phantom_ritz_plain(a, v.to("meta"))
+    # B6's [B, 4, 32] output is read in place; any other layout is refused.
+    with pytest.raises(ValueError, match="view of B6"):
+        us_fast.phantom_ritz_cuda(a, v.contiguous())
+    # The CUDA wrapper never falls back to the plain version.
+    rows = torch.zeros((8, 4, 32))
+    rows[:, :, :31] = v.permute(2, 0, 1)
+    before = kernels.PHANTOM_RITZ.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        us_fast.phantom_ritz_cuda(a, rows[:, :, :31].permute(1, 2, 0))
+    assert kernels.PHANTOM_RITZ.launches == before
