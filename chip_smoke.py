@@ -1848,15 +1848,17 @@ def main(argv=None):
     pts5 = torch.as_tensor(cloud5, device=dev)
     coords5, p5, nfit5, cols5 = fs.sweep_inputs("sphere3d", pts5, gen())
     groups5 = h5 // n5
-    sweep_ms = timer.ms(lambda: fs.sphere3d_sweep_cuda(coords5, p5, nfit5, groups5, cols5, DELTA), reps=20)
-    sweep_plain_ms = timer.ms(lambda: fs.sphere3d_sweep_plain(coords5, p5, nfit5, groups5, cols5, DELTA),
-                              *plain_reps("sphere3d"))
+    sweep_ms = timer.ms(
+        lambda: fs.sweep_cuda("sphere3d", coords5, p5, nfit5, groups5, cols5, DELTA), reps=20)
+    sweep_plain_ms = timer.ms(
+        lambda: fs.sweep_plain("sphere3d", coords5, p5, nfit5, groups5, cols5, DELTA),
+        *plain_reps("sphere3d"))
     hyp5 = groups5 * nfit5
     sweep_ops = hyp5 * (cols5 * SWEEP_OPS_PER_CELL + SWEEP_OPS_PER_HYP)
     sweep_bytes = (coords5.numel() + p5.numel() + 5) * 4
     sweep_bound, sweep_by = bound(sweep_ops, sweep_bytes, rates)
     # The same launch on one column: the fit, the staging and the publishing.
-    sweep_one_ms = timer.ms(lambda: fs.sphere3d_sweep_cuda(coords5, p5, nfit5, groups5, 1, DELTA),
+    sweep_one_ms = timer.ms(lambda: fs.sweep_cuda("sphere3d", coords5, p5, nfit5, groups5, 1, DELTA),
                             reps=20)
     print(f"    kernel ms: sweep {sweep_ms:.4f} (on 1 column {sweep_one_ms:.4f}), plain "
           f"{sweep_plain_ms:.4f}, bound {sweep_bound:.4f} ({sweep_by}) [{smi}]")

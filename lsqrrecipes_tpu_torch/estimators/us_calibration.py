@@ -238,9 +238,7 @@ def _crosswire_cuda(x, data, jacobian):
 
 def _crosswire_residual(x, data):
     """:func:`_crosswire_residual_plain` of ``x[..., 11]``: on CUDA tensors
-    the kernel ``csrc/us_residual.cu``, on CPU tensors the plain version.
-    Counts one ``us.crosswire_evals``."""
-    profiling.count("us.crosswire_evals", 1)
+    the kernel ``csrc/us_residual.cu``, on CPU tensors the plain version."""
     if x.is_cuda:
         return _crosswire_cuda(x, data, jacobian=False)
     return _crosswire_residual_plain(x, data)
@@ -249,8 +247,7 @@ def _crosswire_residual(x, data):
 def _crosswire_jacobian(x, data):
     """:func:`_crosswire_jacobian_plain` of ``x[..., 11]``, ``[..., 3n,
     11]``: on CUDA tensors the kernel ``csrc/us_residual.cu``, on CPU
-    tensors the plain version.  Counts one ``us.crosswire_evals``."""
-    profiling.count("us.crosswire_evals", 1)
+    tensors the plain version."""
     if x.is_cuda:
         return _crosswire_cuda(x, data, jacobian=True)
     return _crosswire_jacobian_plain(x, data)
@@ -278,50 +275,6 @@ def _pack_pointer(x):
     """Minimal 8 -> the 17-parameter layout (leading axes allowed)."""
     r = _euler_zyx_matrix(x[..., 3], x[..., 4], x[..., 5])
     return torch.cat([x, _rotation_block(x[..., 6], x[..., 7], r)], dim=-1)
-
-
-def _lsq_fit(est, residual_fn, jac_fn, pack_fn, n_min, rows, data, mask):
-    """The analytic fit, then (ITERATIVE) Levenberg-Marquardt from its first
-    ``n_min`` parameters on the masked residuals (``rows`` per observation);
-    with leading problem axes when ``residual_fn`` and ``jac_fn`` take them."""
-    with profiling.leaf("refit.start"):
-        params, valid = est._analytic(data, mask)
-    if est.ls_type == ANALYTIC:
-        return params, valid
-    x0 = params[..., :n_min]
-    lm_mask = mask if mask is None or rows == 1 else torch.repeat_interleave(mask, rows, dim=-1)
-    result = levenberg_marquardt(residual_fn, jac_fn, x0, data, mask=lm_mask, config=est.lm_config)
-    x = torch.where(valid[..., None], result.x, x0)
-    return pack_fn(x), valid & result.converged
-
-
-def _lsq_fit_stats_batched(est, kind, pack_fn, n_min, data, masks=None, x0=None, config=None):
-    """B ITERATIVE refits on SHARED data through the sufficient-statistics LM
-    (:mod:`lsqrrecipes_tpu_torch.linalg.stats_lm`): one observation set, B
-    inlier masks ``[B, n]`` and/or B starts ``x0 [B, n_min]``.  Each problem's
-    Gauss-Newton structure collapses onto its feature Gram, so the solves do
-    no per-iteration work in n, unlike :meth:`lsq_fit_batched`, which
-    re-evaluates every residual and Jacobian row.  The starts are the
-    analytic fit under each mask.  Returns ``(params [B, P_full], valid [B])``."""
-    from lsqrrecipes_tpu_torch.linalg import stats_lm
-
-    if x0 is None:
-        if masks is None:
-            raise ValueError("need masks and/or x0 to define the B problems")
-        params0, valid0 = est._analytic(data, masks)
-        x0 = params0[:, :n_min]
-    else:
-        valid0 = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
-    res = stats_lm.us_feature_lm_batched(kind, data, x0, masks,
-                                         config=est.lm_config if config is None else config)
-    x = torch.where(valid0[:, None], res.x, x0)
-    return pack_fn(x), valid0 & res.converged
-
-
-def _check_ls_type(ls_type):
-    if ls_type not in (ANALYTIC, ITERATIVE):
-        raise ValueError(f"unknown least-squares type {ls_type!r}")
-    return ls_type
 
 
 def _matmul_vote(a_rows, feats, delta_sq):
@@ -358,8 +311,98 @@ def _vote_blocks(params, cols, const_cols, const_rows):
     return rows
 
 
+class _USCalibrationEstimator(Estimator):
+    """What the three probe calibrations share: the analytic fit as the
+    minimal fit, the refits from it, and the batched and structured sweeps
+    of :mod:`lsqrrecipes_tpu_torch.ops.us_fast`.  A subclass gives
+    ``_analytic`` and declares its kind in ``us_fast`` and ``stats_lm``
+    (``_kind``), the length of its minimal parameters (``_n_min``), its
+    residual rows per observation (``_rows``), ``_pack`` (minimal -> the
+    full layout), and its residual and Jacobian of one problem and of B
+    problems on a leading axis (``_residual_batched``,
+    ``_jacobian_batched``), each a ``staticmethod``."""
+
+    _kind: str
+    _n_min: int
+    _rows: int
+
+    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
+        self.delta = float(delta)
+        self.delta_squared = float(delta) ** 2
+        if ls_type not in (ANALYTIC, ITERATIVE):
+            raise ValueError(f"unknown least-squares type {ls_type!r}")
+        self.ls_type = ls_type
+        self.lm_config = lm_config
+
+    def minimal_fit(self, samples):
+        return self._analytic(samples)
+
+    def lsq_fit(self, data, mask=None):
+        return self._lsq_fit(self._residual, self._jacobian, data, mask)
+
+    def lsq_fit_batched(self, data, mask=None):
+        """``lsq_fit`` of B problems stacked on a leading axis (``data``
+        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
+        return self._lsq_fit(self._residual_batched, self._jacobian_batched, data, mask)
+
+    def _lsq_fit(self, residual_fn, jac_fn, data, mask):
+        """The analytic fit, then (ITERATIVE) Levenberg-Marquardt from its first
+        ``_n_min`` parameters on the masked residuals (``_rows`` per
+        observation); with leading problem axes when ``residual_fn`` and
+        ``jac_fn`` take them."""
+        with profiling.leaf("refit.start"):
+            params, valid = self._analytic(data, mask)
+        if self.ls_type == ANALYTIC:
+            return params, valid
+        x0 = params[..., :self._n_min]
+        lm_mask = (mask if mask is None or self._rows == 1
+                   else torch.repeat_interleave(mask, self._rows, dim=-1))
+        result = levenberg_marquardt(residual_fn, jac_fn, x0, data, mask=lm_mask,
+                                     config=self.lm_config)
+        x = torch.where(valid[..., None], result.x, x0)
+        return self._pack(x), valid & result.converged
+
+    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
+        """B ITERATIVE refits on SHARED data through the sufficient-statistics LM
+        (:mod:`lsqrrecipes_tpu_torch.linalg.stats_lm`): one observation set, B
+        inlier masks ``[B, n]`` and/or B starts ``x0 [B, _n_min]``.  Each
+        problem's Gauss-Newton structure collapses onto its feature Gram, so
+        the solves do no per-iteration work in n, unlike
+        :meth:`lsq_fit_batched`, which re-evaluates every residual and
+        Jacobian row.  The starts are the analytic fit under each mask.
+        Returns ``(params [B, P_full], valid [B])``."""
+        from lsqrrecipes_tpu_torch.linalg import stats_lm
+
+        if x0 is None:
+            if masks is None:
+                raise ValueError("need masks and/or x0 to define the B problems")
+            params0, valid0 = self._analytic(data, masks)
+            x0 = params0[:, :self._n_min]
+        else:
+            valid0 = torch.ones(x0.shape[0], dtype=torch.bool, device=x0.device)
+        res = stats_lm.us_feature_lm_batched(self._kind, data, x0, masks,
+                                             config=self.lm_config if config is None else config)
+        x = torch.where(valid0[:, None], res.x, x0)
+        return self._pack(x), valid0 & res.converged
+
+    def fit_and_vote(self, samples, data):
+        """Batched hypothesize and vote on the engine's samples
+        (:func:`lsqrrecipes_tpu_torch.ops.us_fast.fit_and_vote`)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.fit_and_vote(self._kind, self, samples, data)
+
+    def structured_sweep(self, data, generator, groups, perm=None):
+        """The planar-lane structured sweep (the hypotheses of
+        ``structured_samples`` with the same permutation;
+        :func:`lsqrrecipes_tpu_torch.ops.us_fast.structured_sweep`)."""
+        from lsqrrecipes_tpu_torch.ops import us_fast
+
+        return us_fast.structured_sweep(self._kind, self, data, generator, groups, perm)
+
+
 @register("us_crosswire")
-class CrosswireUSCalibrationEstimator(Estimator):
+class CrosswireUSCalibrationEstimator(_USCalibrationEstimator):
     """``SingleUnknownPointTargetUSCalibrationParametersEstimator``.
 
     Data: ``(Frame[n], q[n, 2])``.  Output layout (20):
@@ -370,12 +413,11 @@ class CrosswireUSCalibrationEstimator(Estimator):
     nparams = 20
     nparams_lsq = 20
     fused_family = "crosswire"
-
-    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
-        self.delta = float(delta)
-        self.delta_squared = float(delta) ** 2
-        self.ls_type = _check_ls_type(ls_type)
-        self.lm_config = lm_config
+    _kind, _n_min, _rows = "crosswire", 11, 3
+    _pack = staticmethod(_pack_crosswire)
+    # The closed form takes leading problem axes: the batched LM needs no vmap.
+    _residual = _residual_batched = staticmethod(_crosswire_residual)
+    _jacobian = _jacobian_batched = staticmethod(_crosswire_jacobian)
 
     def _analytic(self, data, mask=None):
         """3n x 12 system ``[u R2, v R2, R2, -I] x = -t2``, batched over
@@ -391,24 +433,6 @@ class CrosswireUSCalibrationEstimator(Estimator):
         params = torch.cat([x[..., 9:12], x[..., 6:9], angles, m_x[..., None], m_y[..., None],
                             _rotation_block(m_x, m_y, r3)], dim=-1)
         return params, rank >= 12
-
-    def minimal_fit(self, samples):
-        return self._analytic(samples)
-
-    def lsq_fit(self, data, mask=None):
-        return _lsq_fit(self, _crosswire_residual, _crosswire_jacobian, _pack_crosswire, 11, 3,
-                        data, mask)
-
-    def lsq_fit_batched(self, data, mask=None):
-        """``lsq_fit`` of B problems stacked on a leading axis (``data``
-        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
-        return _lsq_fit(self, _crosswire_residual, _crosswire_jacobian, _pack_crosswire, 11, 3,
-                        data, mask)
-
-    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
-        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
-        return _lsq_fit_stats_batched(self, "crosswire", _pack_crosswire, 11, data, masks, x0,
-                                      config)
 
     def agree(self, params, data):
         """``|T2 (R3 S q + t3) - t1|^2 < delta^2`` (``SinglePointTarget...cxx:74-107``)."""
@@ -426,19 +450,6 @@ class CrosswireUSCalibrationEstimator(Estimator):
                             lambda j: [-params[:, j : j + 1]])
         return _matmul_vote(rows, _crosswire_features(data), self.delta_squared)
 
-    def fit_and_vote(self, samples, data):
-        """f32 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.fit_and_vote("crosswire", self, samples, data)
-
-    def structured_sweep(self, data, generator, groups, perm=None):
-        """The planar-lane structured sweep (same hypothesis set as
-        ``structured_samples`` with the same permutation)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.structured_sweep("crosswire", self, data, generator, groups, perm)
-
     def distance_statistics(self, params, data):
         frames, q = data
         img = _image_points(q, params[11:14], params[14:17], params[3:6])
@@ -447,7 +458,7 @@ class CrosswireUSCalibrationEstimator(Estimator):
 
 
 @register("us_pointer")
-class PointerUSCalibrationEstimator(Estimator):
+class PointerUSCalibrationEstimator(_USCalibrationEstimator):
     """``CalibratedPointerTargetUSCalibrationParametersEstimator``.
 
     Data: ``(Frame[n], q[n, 2], p[n, 3])``.  Output layout (17):
@@ -458,12 +469,12 @@ class PointerUSCalibrationEstimator(Estimator):
     nparams = 17
     nparams_lsq = 17
     fused_family = "pointer"
-
-    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
-        self.delta = float(delta)
-        self.delta_squared = float(delta) ** 2
-        self.ls_type = _check_ls_type(ls_type)
-        self.lm_config = lm_config
+    _kind, _n_min, _rows = "pointer", 8, 3
+    _pack = staticmethod(_pack_pointer)
+    _residual = staticmethod(_pointer_residual)
+    _jacobian = staticmethod(_pointer_jacobian)
+    _residual_batched = staticmethod(torch.func.vmap(_pointer_residual))
+    _jacobian_batched = staticmethod(torch.func.vmap(_pointer_jacobian))
 
     def _analytic(self, data, mask=None):
         """3n x 9 system ``[u R2, v R2, R2] x = p - t2``, batched over
@@ -480,23 +491,6 @@ class PointerUSCalibrationEstimator(Estimator):
                             _rotation_block(m_x, m_y, r3)], dim=-1)
         return params, rank >= 9
 
-    def minimal_fit(self, samples):
-        return self._analytic(samples)
-
-    def lsq_fit(self, data, mask=None):
-        return _lsq_fit(self, _pointer_residual, _pointer_jacobian, _pack_pointer, 8, 3, data, mask)
-
-    def lsq_fit_batched(self, data, mask=None):
-        """``lsq_fit`` of B problems stacked on a leading axis (``data``
-        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
-        return _lsq_fit(self, torch.func.vmap(_pointer_residual),
-                        torch.func.vmap(_pointer_jacobian),
-                        _pack_pointer, 8, 3, data, mask)
-
-    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
-        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
-        return _lsq_fit_stats_batched(self, "pointer", _pack_pointer, 8, data, masks, x0, config)
-
     def agree(self, params, data):
         """``|T2 T3 q - p|^2 < delta^2`` (``SinglePointTarget...cxx:728-761``)."""
         frames, q, p = data
@@ -511,18 +505,6 @@ class PointerUSCalibrationEstimator(Estimator):
         rows = _vote_blocks(params, [params[:, 8:11], params[:, 11:14], params[:, 0:3]], 3,
                             lambda j: [])
         return _matmul_vote(rows, _pointer_features(data), self.delta_squared)
-
-    def fit_and_vote(self, samples, data):
-        """f32 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.fit_and_vote("pointer", self, samples, data)
-
-    def structured_sweep(self, data, generator, groups, perm=None):
-        """The planar-lane structured sweep (see the crosswire estimator)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.structured_sweep("pointer", self, data, generator, groups, perm)
 
     def distance_statistics(self, params, data):
         frames, q, p = data
@@ -542,7 +524,7 @@ def _plane_normal(w1_y, w1_x):
     return torch.stack([-sy1, cy1 * torch.sin(w1_x), cy1 * torch.cos(w1_x)], dim=-1)
 
 
-def _plane_phantom_residual_plain(x, data):
+def _plane_phantom_residual(x, data):
     """n residuals ``R1_row3 . (R2_i (u m_x r1 + v m_y r2 + t3) + t2_i) +
     t1_z`` for ``x = [w1_y, w1_x, t1_z, t3 3, w3_z, w3_y, w3_x, m_x, m_y]``
     (``PlanePhantom...cxx:357-447``)."""
@@ -552,20 +534,7 @@ def _plane_phantom_residual_plain(x, data):
     return _mapped(frames, img) @ _plane_normal(x[0], x[1]) + x[2]
 
 
-def _counting_phantom_evals(fn):
-    """``fn(x, data)`` counting one ``us.phantom_evals`` a call: a residual
-    or Jacobian evaluation, of one problem or of a batch (the residual calls
-    inside ``jacfwd`` and ``vmap`` count none)."""
-
-    def counted(x, data):
-        profiling.count("us.phantom_evals", 1)
-        return fn(x, data)
-
-    return counted
-
-
-_plane_phantom_residual = _counting_phantom_evals(_plane_phantom_residual_plain)
-_plane_phantom_jacobian = _counting_phantom_evals(torch.func.jacfwd(_plane_phantom_residual_plain))
+_plane_phantom_jacobian = torch.func.jacfwd(_plane_phantom_residual)
 
 
 def _plane_phantom_derived(r1_row3, t3, r3, m_x, m_y):
@@ -607,7 +576,7 @@ def _pack_phantom_signed(x):
 
 
 @register("us_plane_phantom")
-class PlanePhantomUSCalibrationEstimator(Estimator):
+class PlanePhantomUSCalibrationEstimator(_USCalibrationEstimator):
     """``PlanePhantomUSCalibrationParametersEstimator`` (k = 31).
 
     Data: ``(Frame[n], q[n, 2])``.  Output layout (41):
@@ -617,12 +586,12 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
     k = 31
     nparams = 41
     nparams_lsq = 41
-
-    def __init__(self, delta, ls_type=ITERATIVE, lm_config=_LM_CONFIG):
-        self.delta = float(delta)
-        self.delta_squared = float(delta) ** 2
-        self.ls_type = _check_ls_type(ls_type)
-        self.lm_config = lm_config
+    _kind, _n_min, _rows = "plane_phantom", 11, 1
+    _pack = staticmethod(_pack_phantom_signed)
+    _residual = staticmethod(_plane_phantom_residual)
+    _jacobian = staticmethod(_plane_phantom_jacobian)
+    _residual_batched = staticmethod(torch.func.vmap(_plane_phantom_residual))
+    _jacobian_batched = staticmethod(torch.func.vmap(_plane_phantom_jacobian))
 
     def _analytic(self, data, mask=None):
         """Homogeneous ``n x 31`` system ``[u vec(R2), v vec(R2), vec(R2), t2,
@@ -686,27 +655,6 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
             torch.tensor(n >= self.k, device=q.device)
         return params, rank_ok & nondegenerate & enough
 
-    def minimal_fit(self, samples):
-        return self._analytic(samples)
-
-    def lsq_fit(self, data, mask=None):
-        return _lsq_fit(self, _plane_phantom_residual, _plane_phantom_jacobian,
-                        _pack_phantom_signed, 11, 1, data, mask)
-
-    def lsq_fit_batched(self, data, mask=None):
-        """``lsq_fit`` of B problems stacked on a leading axis (``data``
-        leaves ``[B, n, ...]``, ``mask [B, n]``): one batched LM."""
-        return _lsq_fit(self,
-                        _counting_phantom_evals(torch.func.vmap(_plane_phantom_residual_plain)),
-                        _counting_phantom_evals(torch.func.vmap(
-                            torch.func.jacfwd(_plane_phantom_residual_plain))),
-                        _pack_phantom_signed, 11, 1, data, mask)
-
-    def lsq_fit_stats_batched(self, data, masks=None, x0=None, config=None):
-        """See :func:`_lsq_fit_stats_batched` (no per-iteration work in n)."""
-        return _lsq_fit_stats_batched(self, "plane_phantom", _pack_phantom_signed, 11, data,
-                                      masks, x0, config)
-
     def agree(self, params, data):
         """``err^2 < delta^2`` with the plane distance ``err = vec(R2) . (u m1
         + v m2 + m3) + t2 . R1_row3 + t1_z`` over the derived parameters
@@ -729,19 +677,6 @@ class PlanePhantomUSCalibrationEstimator(Estimator):
         m2, m3, R1_row3, t1_z]``, chunked over hypotheses."""
         a = torch.cat([params[:, 11:41], params[:, 2:3]], dim=-1)
         return _matmul_vote([a], _crosswire_features(data), self.delta_squared)
-
-    def fit_and_vote(self, samples, data):
-        """f32/f64 batched hypothesize and vote (:mod:`lsqrrecipes_tpu_torch.ops.us_fast`)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.fit_and_vote("plane_phantom", self, samples, data)
-
-    def structured_sweep(self, data, generator, groups, perm=None):
-        """The planar-lane structured sweep, the phantom subspace kernel per
-        chunk (see the crosswire estimator)."""
-        from lsqrrecipes_tpu_torch.ops import us_fast
-
-        return us_fast.structured_sweep("plane_phantom", self, data, generator, groups, perm)
 
     def distance_statistics(self, params, data):
         frames, q = data

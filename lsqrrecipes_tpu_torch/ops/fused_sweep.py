@@ -981,21 +981,6 @@ def sweep(family, coords, p, n_fit, num_groups, vote_cols, delta):
     return sweep_plain(family, coords, p, n_fit, num_groups, vote_cols, delta)
 
 
-def sphere3d_sweep_plain(coords, p, n_fit, num_groups, vote_cols, delta):
-    """:func:`sweep_plain` for ``sphere3d``."""
-    return sweep_plain("sphere3d", coords, p, n_fit, num_groups, vote_cols, delta)
-
-
-def sphere3d_sweep_cuda(coords, p, n_fit, num_groups, vote_cols, delta):
-    """:func:`sweep_cuda` for ``sphere3d`` (``csrc/fused_sweep_sphere3d.cu``)."""
-    return sweep_cuda("sphere3d", coords, p, n_fit, num_groups, vote_cols, delta)
-
-
-def sphere3d_sweep(coords, p, n_fit, num_groups, vote_cols, delta):
-    """:func:`sweep` for ``sphere3d``."""
-    return sweep("sphere3d", coords, p, n_fit, num_groups, vote_cols, delta)
-
-
 # ---------------------------------------------------------------------------
 # Public driver
 # ---------------------------------------------------------------------------

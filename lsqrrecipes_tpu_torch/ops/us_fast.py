@@ -36,6 +36,7 @@ on their path either).
 import ctypes
 import functools
 import operator
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -496,19 +497,30 @@ def _slot_features_phantom(data):
 def _samples_to_slot_features(kind, samples):
     """Engine samples (a tree with leading ``[B, k]``) -> ``[B, k, F]``."""
     flat = tree_map(lambda a: a.reshape(-1, *a.shape[2:]), samples)
-    f = _KINDS[kind][4](flat)
+    f = _KINDS[kind].slot_features(flat)
     leading = tree_leaves(samples)[0].shape[:2]
     return f.reshape(*leading, f.shape[-1])
 
 
-# kind: (fit, k, vote rows, vote features, slot features, n params)
+class _Kind(NamedTuple):
+    """One calibration's sweep, in the field order of the JAX package's
+    ``_KINDS`` tuples."""
+
+    fit: Callable            # (slot planes [k, F, B], k) -> (params [B, P], valid [B])
+    k: int
+    vote_rows: Callable      # params [B, P] -> the vote's affine rows, each [B, K]
+    features: Callable       # data -> vote features [n, K]
+    slot_features: Callable  # data -> slot features [n, F]
+    nparams: int
+
+
 _KINDS = {
-    "crosswire": (_crosswire_fit_slots, 4, _vote_rows_crosswire,
-                  _features_crosswire, _slot_features_crosswire, 20),
-    "pointer": (_pointer_fit_slots, 3, _vote_rows_pointer,
-                _features_pointer, _slot_features_pointer, 17),
-    "plane_phantom": (_plane_phantom_fit_slots, 31, _vote_rows_phantom,
-                      _features_phantom, _slot_features_phantom, 41),
+    "crosswire": _Kind(_crosswire_fit_slots, 4, _vote_rows_crosswire,
+                       _features_crosswire, _slot_features_crosswire, 20),
+    "pointer": _Kind(_pointer_fit_slots, 3, _vote_rows_pointer,
+                     _features_pointer, _slot_features_pointer, 17),
+    "plane_phantom": _Kind(_plane_phantom_fit_slots, 31, _vote_rows_phantom,
+                           _features_phantom, _slot_features_phantom, 41),
 }
 
 
@@ -516,13 +528,13 @@ def _fit_vote_chunk(kind, delta_sq, slot_pl, feats):
     """Fit and vote planes ``slot_pl[k, F, B]`` -> ``(counts [B] with -1
     where the fit is degenerate, params [B, P])``; traced as the leaves
     ``sweep.fit`` and ``sweep.vote``."""
-    fit, k, vote_rows, _, _, _ = _KINDS[kind]
+    spec = _KINDS[kind]
     with profiling.leaf("sweep.fit"):
-        params, valid = fit(slot_pl, k)
+        params, valid = spec.fit(slot_pl, spec.k)
     with profiling.leaf("sweep.vote"):
         d2 = None
         with full_f32_matmul():
-            for a_j in vote_rows(params.to(feats.dtype)):
+            for a_j in spec.vote_rows(params.to(feats.dtype)):
                 e = a_j @ feats.T
                 d2 = e * e if d2 is None else d2 + e * e
         counts = torch.sum(d2 < delta_sq, dim=-1)
@@ -537,8 +549,11 @@ def _chunk_size(bsz, n, k=4):
     return min(bsz, c)
 
 
-def _fit_and_vote_planes(kind, delta_sq, chunk, planes, feats):
-    """Fit and vote ``planes[k, F, B]`` chunk by chunk along B."""
+def fit_and_vote_planes(kind, delta_sq, planes, feats):
+    """Fit and vote ``planes[k, F, B]`` against the vote features ``feats
+    [n, K]`` chunk by chunk along B, the chunk from :func:`_chunk_size` ->
+    ``(counts [B] with -1 where the fit is degenerate, params [B, P])``."""
+    chunk = _chunk_size(planes.shape[-1], feats.shape[0], _KINDS[kind].k)
     counts, params = [], []
     for b0 in range(0, planes.shape[-1], chunk):
         c, p = _fit_vote_chunk(kind, delta_sq, planes[..., b0 : b0 + chunk], feats)
@@ -553,8 +568,9 @@ def build_sampling_planes(kind, data, generator, groups: int, perm=None):
     slot features of observation ``perm[(i + s_gj) % n]``, with the shifts of
     :func:`~lsqrrecipes_tpu_torch.ransac.sampling.structured_shift_table`
     (the hypotheses of ``structured_samples`` with the same ``perm``)."""
-    _, k, _, features, slot_features, _ = _KINDS[kind]
-    feats_elem = slot_features(data)          # [n, F]
+    spec = _KINDS[kind]
+    k = spec.k
+    feats_elem = spec.slot_features(data)     # [n, F]
     n = feats_elem.shape[0]
     dev = feats_elem.device
     if perm is None:
@@ -564,7 +580,7 @@ def build_sampling_planes(kind, data, generator, groups: int, perm=None):
     rows = torch.arange(n, device=dev)
     idx = perm[(rows[None, :, None] + table[:, None, :]) % n]      # [G, n, k]
     planes = feats_elem[idx.reshape(groups * n, k)].permute(1, 2, 0)
-    return planes.contiguous(), features(data)
+    return planes.contiguous(), spec.features(data)
 
 
 def structured_sweep(kind, est, data, generator, groups: int, perm=None):
@@ -578,9 +594,9 @@ def structured_sweep(kind, est, data, generator, groups: int, perm=None):
     with profiling.span("sweep"):
         with profiling.leaf("sweep.prep"):
             planes, feats = build_sampling_planes(kind, data, generator, groups, perm)
-        chunk = _chunk_size(planes.shape[-1], feats.shape[0], _KINDS[kind][1])
-        profiling.count("sweep.chunks", -(-planes.shape[-1] // chunk))
-        return _fit_and_vote_planes(kind, float(est.delta_squared), chunk, planes, feats)
+        b = planes.shape[-1]
+        profiling.count("sweep.chunks", -(-b // _chunk_size(b, feats.shape[0], _KINDS[kind].k)))
+        return fit_and_vote_planes(kind, float(est.delta_squared), planes, feats)
 
 
 def fit_and_vote(kind, est, samples, data):
@@ -588,6 +604,4 @@ def fit_and_vote(kind, est, samples, data):
     ``fit_and_vote`` hook): ``samples`` is the estimator's data tree with
     leading ``[B, k]`` -> ``(counts int64[B], params f32[B, P])``."""
     planes = _samples_to_slot_features(kind, samples).permute(1, 2, 0)
-    feats = _KINDS[kind][3](data)
-    chunk = _chunk_size(planes.shape[-1], feats.shape[0], _KINDS[kind][1])
-    return _fit_and_vote_planes(kind, float(est.delta_squared), chunk, planes, feats)
+    return fit_and_vote_planes(kind, float(est.delta_squared), planes, _KINDS[kind].features(data))

@@ -91,9 +91,7 @@ def sharded_us_sweep(kind, est, data, generator=None, groups: int = 1, mesh=None
                          f"'{hypotheses_axis}' axis size ({h})")
     planes, feats = us_fast.build_sampling_planes(kind, data, generator, groups, perm)
     b_shard = planes.shape[-1] // h
-    chunk = us_fast._chunk_size(b_shard, feats.shape[0], us_fast._KINDS[kind][1])
-    counts, params = us_fast._fit_and_vote_planes(
-        kind, float(est.delta_squared), chunk,
-        planes[..., rank * b_shard : (rank + 1) * b_shard], feats)
+    counts, params = us_fast.fit_and_vote_planes(
+        kind, float(est.delta_squared), planes[..., rank * b_shard : (rank + 1) * b_shard], feats)
     group = axis_group(mesh, hypotheses_axis)
     return all_gather_cat(counts, group, h), all_gather_cat(params, group, h)

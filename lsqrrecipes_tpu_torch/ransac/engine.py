@@ -181,29 +181,35 @@ def ransac_fused_sweep(
     where the estimator declares a ported ``fused_family`` and the data fits
     its shift hash; otherwise :func:`ransac_structured`.  The winner is
     recounted with ``est.agree``: the kernel's count only selects it."""
-    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
-
     with profiling.span("engine.fit", new_fit=True):
         data = as_tensor(data, device)
-        family = getattr(est, "fused_family", None)
         n = n_obs(data)
         if n < est.k:
             return _invalid_result(est, data)
-        if not (family and fs.supports_data(family, data)):
+        won = _fused_winner(est, data, generator, max(1, -(-num_hypotheses // n)),
+                            groups_per_step=groups_per_step, vote_subsample=vote_subsample)
+        if won is None:
             return ransac_structured(est, data, generator, num_hypotheses)
-        total_groups = max(1, -(-num_hypotheses // n))
-        _count, params = fs.fused_sweep(
-            family, data, generator, total_groups, _fused_delta(est),
-            groups_per_step=groups_per_step, vote_subsample=vote_subsample,
-        )
-        best_params = params.to(_leaf(data).dtype)
-        # The kernel's f32 band count can disagree with est.agree by a few
-        # border points (and with vote_subsample counts only the subsample):
-        # report the exact consensus size.
-        with profiling.leaf("engine.agree"):
-            best_mask = est.agree(best_params, data)
-            count = torch.sum(best_mask)
-        return _finalize(est, data, count, best_mask, best_params, n)
+        return _finalize(est, data, *won, n)
+
+
+def _fused_winner(est, data, generator, groups, **sweep_kw):
+    """The fused sweep's winner ``(count, mask [n], params)``, or None where
+    the estimator declares no ported ``fused_family`` or the data does not
+    fit its shift hash.  The kernel's f32 band count can disagree with
+    ``est.agree`` by a few border points (and with ``vote_subsample``
+    counts only the subsample), so the winner is recounted with
+    ``est.agree``, traced as the leaf ``engine.agree``."""
+    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
+
+    family = getattr(est, "fused_family", None)
+    if not (family and fs.supports_data(family, data)):
+        return None
+    _, params = fs.fused_sweep(family, data, generator, groups, _fused_delta(est), **sweep_kw)
+    params = params.to(_leaf(data).dtype)
+    with profiling.leaf("engine.agree"):
+        mask = est.agree(params, data)
+        return torch.sum(mask), mask, params
 
 
 def _fused_delta(est):
@@ -293,15 +299,10 @@ def _round_fast(est, data, generator, groups):
     structured hypothesize + vote.  Same ``(count, mask[n], params)``
     contract as :func:`hypothesize_and_vote`; the fused count is recounted
     from the winner's ``agree`` mask."""
-    from lsqrrecipes_tpu_torch.ops import fused_sweep as fs
-
-    family = getattr(est, "fused_family", None)
-    if family and fs.supports_data(family, data):
-        _, params = fs.fused_sweep(family, data, generator, groups, _fused_delta(est))
-        params = params.to(_leaf(data).dtype)
-        mask = est.agree(params, data)
-        return torch.sum(mask), mask, params
-    return hypothesize_and_vote_structured(est, data, generator, groups)
+    won = _fused_winner(est, data, generator, groups)
+    if won is None:
+        return hypothesize_and_vote_structured(est, data, generator, groups)
+    return won
 
 
 def ransac_adaptive(

@@ -126,7 +126,7 @@ def test_fused_sweep_matches_jax(n, groups, gps, subsample):
     coords, p, nf, cols = fs.sweep_inputs("sphere3d", tpts, None, subsample,
                                           perms=perms, vote_perm=vote_perm)
     evaluated = -(-groups // gps) * gps
-    _, _, index_t = fs.sphere3d_sweep_plain(coords, p, nf, evaluated, cols, 1.0)
+    _, _, index_t = fs.sweep_plain("sphere3d", coords, p, nf, evaluated, cols, 1.0)
     samples = fs.reference_samples("sphere3d", tpts, perms, evaluated)
     pts_k = [[samples[:, j, c] for c in range(3)] for j in range(4)]
     center, r, _, _ = fs.sphere3d_fit(pts_k, torch.tensor(1.0))
@@ -148,8 +148,8 @@ def test_plain_sweep_ties_go_to_lowest_index():
     sigma = [rng.permutation(128) for _ in range(4)]
     perms = np.stack([sigma[j] for j in range(4) for _ in range(4)])
     coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, None, perms=perms)
-    c1, p1, i1 = fs.sphere3d_sweep_plain(coords, p, nf, 1, cols, 1.0)
-    c5, p5, i5 = fs.sphere3d_sweep_plain(coords, p, nf, 5, cols, 1.0)
+    c1, p1, i1 = fs.sweep_plain("sphere3d", coords, p, nf, 1, cols, 1.0)
+    c5, p5, i5 = fs.sweep_plain("sphere3d", coords, p, nf, 5, cols, 1.0)
     assert int(c1) > 0
     assert (int(c5), int(i5)) == (int(c1), int(i1))
     assert torch.equal(p1, p5)
@@ -159,8 +159,8 @@ def test_degenerate_lanes_count_zero():
     # All four slots see the same point: every hypothesis is degenerate, so
     # every count is 0 and the winner is hypothesis 0 (the TPU rule).
     pts = torch.as_tensor(np.tile(_cloud(6, 1), (128, 1)))
-    count, _, index = fs.sphere3d_sweep_plain(
-        *fs.sweep_inputs("sphere3d", pts, torch.Generator().manual_seed(0))[:2],
+    count, _, index = fs.sweep_plain(
+        "sphere3d", *fs.sweep_inputs("sphere3d", pts, torch.Generator().manual_seed(0))[:2],
         128, 4, 128, 1.0,
     )
     assert int(count) == 0 and int(index) == 0
@@ -181,7 +181,7 @@ def test_cuda_sweep_path_rejects_cpu_tensors():
     pts = torch.as_tensor(_cloud(9, 128))
     coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, torch.Generator().manual_seed(0))
     with pytest.raises(ValueError, match="CUDA"):
-        fs.sphere3d_sweep_cuda(coords, p, nf, 4, cols, 1.0)
+        fs.sweep_cuda("sphere3d", coords, p, nf, 4, cols, 1.0)
 
 
 def test_pad_columns_never_vote():

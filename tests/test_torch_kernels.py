@@ -287,8 +287,8 @@ def test_sweep_kernel_matches_plain_on_card(cuda_device, n, gps, subsample):
     coords, p, nf, cols = fs.sweep_inputs("sphere3d", pts, gen, subsample)
     groups = -(-63 // gps) * gps
     before = kernels.FUSED_SWEEP_SPHERE3D.launches
-    kc, kp, ki = fs.sphere3d_sweep(coords, p, nf, groups, cols, 1.0)
-    pc, pp, pi = fs.sphere3d_sweep_plain(coords, p, nf, groups, cols, 1.0)
+    kc, kp, ki = fs.sweep("sphere3d", coords, p, nf, groups, cols, 1.0)
+    pc, pp, pi = fs.sweep_plain("sphere3d", coords, p, nf, groups, cols, 1.0)
     assert kernels.FUSED_SWEEP_SPHERE3D.launches == before + 1
     assert int(kc) == int(pc) and int(ki) == int(pi) and torch.equal(kp, pp)
 
@@ -1406,8 +1406,7 @@ def test_crosswire_iterative_fit_on_card_equals_cpu(cuda_device):
         profiling.set_tracing(was)
         profiling.reset()
     (steps,) = [r for r in recs if r.name == "lm.steps"]
-    evals = sum(r.value for r in recs if r.name == "us.crosswire_evals")
-    assert kernels.US_CROSSWIRE.launches - before == evals == 1 + 3 * steps.value
+    assert kernels.US_CROSSWIRE.launches - before == 1 + 3 * steps.value
     assert bool(gvalid) and bool(wvalid) and got.is_cuda
     got = got.cpu()
     assert float(((got - want).abs() / want.abs().clamp_min(1.0)).max()) <= 1e-10

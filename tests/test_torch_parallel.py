@@ -565,7 +565,7 @@ def test_sharded_fused_sweep_matches_per_rank_sweeps_and_jax(four):
     for r in range(4):
         coords, p, nf, cols = fs.sweep_inputs("sphere3d", torch.as_tensor(pts), perms=perms[r])
         groups = FUSED_GROUPS // 4
-        _, _, index = fs.sphere3d_sweep_plain(coords, p, nf, groups, cols, 1.0)
+        _, _, index = fs.sweep_plain("sphere3d", coords, p, nf, groups, cols, 1.0)
         samples = fs.reference_samples("sphere3d", torch.as_tensor(pts), perms[r], groups)
         center, radius, _, _ = fs.sphere3d_fit([[samples[:, j, c] for c in range(3)]
                                                 for j in range(4)], torch.tensor(1.0))

@@ -349,7 +349,7 @@ def test_fast_path_rejects_degenerate_samples():
     assert bool((counts == -1).all()) and bool(torch.isfinite(params).all())
 
 
-def test_structured_sweep_matches_jax_on_its_permutation():
+def test_structured_sweep_matches_jax_on_its_permutation(monkeypatch):
     data, true, _ = _outlier_data(40, 64, 0.1)
     jest, test = _ests(delta=2.0)
     key = jax.random.PRNGKey(41)
@@ -363,7 +363,8 @@ def test_structured_sweep_matches_jax_on_its_permutation():
     assert int(counts.max()) == int(np.asarray(jcounts).max())
     # Chunking over hypotheses changes nothing.
     planes, feats = us_fast.build_sampling_planes("plane_phantom", _torch(data), None, 8, perm=perm)
-    c2, p2 = us_fast._fit_and_vote_planes("plane_phantom", test.delta_squared, 128, planes, feats)
+    monkeypatch.setattr(us_fast, "_chunk_size", lambda bsz, n, k=4: 128)
+    c2, p2 = us_fast.fit_and_vote_planes("plane_phantom", test.delta_squared, planes, feats)
     assert torch.equal(c2, counts) and torch.equal(p2, params)
 
 

@@ -305,6 +305,24 @@ def test_lsq_fit_batched_analytic_mode_is_the_batched_start():
     close(pb.numpy(), np.asarray(jb), 1e-9, 1e-9)
 
 
+@pytest.mark.parametrize("kind", ["pointer", "plane_phantom"])
+def test_lsq_fit_batched_analytic_mode_equals_per_problem(kind):
+    """ANALYTIC ``lsq_fit_batched``, the batched analytic start: B = 3
+    datasets with distinct masks, each equal to its own ``lsq_fit`` (the
+    crosswire's case is in ``test_torch_us_calibration.py``)."""
+    _, test = ests(kind, tus.ANALYTIC)
+    n = 32 if kind != "plane_phantom" else 48
+    datasets = [make(kind, seed=60 + i, n=n) for i in range(3)]
+    stacked = (kind, *(np.stack([d[j] for d in datasets]) for j in range(1, len(datasets[0]))))
+    masks = np.stack([np.arange(n) % (i + 3) != 0 for i in range(3)])
+    pb, vb = test.lsq_fit_batched(to_torch(stacked), torch.as_tensor(masks))
+    assert pb.shape == (3, test.nparams_lsq) and bool(vb.all())
+    for i in range(3):
+        p1, v1 = test.lsq_fit(to_torch(datasets[i]), torch.as_tensor(masks[i]))
+        assert bool(v1)
+        close(pb[i].numpy(), p1.numpy(), 1e-10, 1e-10)
+
+
 def test_lsq_fit_batched_default_loops_over_problems():
     """Estimators without a batched refit loop ``lsq_fit`` over the leading
     axis: a 3D line on B = 3 clouds, against the JAX package's vmap."""

@@ -7,15 +7,13 @@ its parent and the four leaves of each LM step inside the step; the fit's
 results and the aten operations it dispatches are those of a fit with
 tracing off; the LM's completion checks are ``wait.lm_done`` leaves, one
 per check, and its ``lm.steps`` counter keeps the iteration tensor from
-which the steps with a live problem are read; the crosswire counts each
-residual and Jacobian evaluation (``us.crosswire_evals``).  Under a profiler, leaves are
+which the steps with a live problem are read.  Under a profiler, leaves are
 ``lsqr.<name>`` ranges and layer spans are not; inside the operator's
 ``trace()`` window both are.  A plane-phantom fit, which ``ransac_fused_sweep``
 hands to the structured sweep, records that sweep as the span ``sweep``
 (``sweep.prep``, then ``sweep.fit`` and ``sweep.vote`` once a chunk, the
-``sweep.chunks`` counter), the winner's ``agree`` as ``engine.agree``, and
-one ``us.phantom_evals`` per residual or Jacobian evaluation.  All on the
-CPU, through the plain sweep.
+``sweep.chunks`` counter) and the winner's ``agree`` as ``engine.agree``.
+All on the CPU, through the plain sweep.
 """
 
 import contextlib
@@ -26,9 +24,7 @@ import pytest
 import torch
 
 from lsqrrecipes_tpu_torch.estimators.sphere import SphereEstimator
-from lsqrrecipes_tpu_torch.estimators import us_calibration
-from lsqrrecipes_tpu_torch.estimators.us_calibration import (ANALYTIC,
-                                                             CrosswireUSCalibrationEstimator,
+from lsqrrecipes_tpu_torch.estimators.us_calibration import (CrosswireUSCalibrationEstimator,
                                                              PlanePhantomUSCalibrationEstimator)
 from lsqrrecipes_tpu_torch.linalg.lm import _CHECK_EVERY, LMConfig, lm_core
 from lsqrrecipes_tpu_torch.ops import us_fast
@@ -43,7 +39,7 @@ LEAVES = {"sweep.prep", "sweep.launch", "sweep.post", "sweep.fit", "sweep.vote",
           "wait.count", "refit.start", "wait.svd", "lm.normal", "lm.solve", "lm.trial",
           "lm.update", "wait.lm_done"}
 LAYERS = {"engine.fit", "sweep", "refit", "lm", "lm.step"}
-COUNTERS = {"lm.steps", "us.crosswire_evals", "sweep.chunks", "us.phantom_evals"}
+COUNTERS = {"lm.steps", "sweep.chunks"}
 STEP_LEAVES = ["lm.normal", "lm.solve", "lm.trial", "lm.update"]
 
 
@@ -119,7 +115,7 @@ def test_a_fit_records_its_tree(tracing, which):
     want = {"engine.fit", "sweep", "sweep.prep", "sweep.launch", "engine.agree", "wait.count",
             "refit", "refit.start", "lm", "lm.step", "lm.steps", "wait.lm_done", *STEP_LEAVES}
     if which == "crosswire_iterative":
-        want |= {"sweep.post", "us.crosswire_evals"}
+        want.add("sweep.post")
     assert want <= set(names) <= want | {"wait.svd"}
     parent_of = {"sweep": "engine.fit", "sweep.prep": "sweep", "sweep.launch": "sweep",
                  "sweep.post": "sweep", "engine.agree": "engine.fit",
@@ -133,9 +129,7 @@ def test_a_fit_records_its_tree(tracing, which):
             continue
         p = recs[r.parent]
         assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
-        if r.name == "us.crosswire_evals":     # the first cost, then the normal system, the trial
-            assert p.name in ("lm", "lm.normal", "lm.trial"), p.name
-        elif r.name != "wait.svd":
+        if r.name != "wait.svd":
             assert p.name == parent_of[r.name], (r.name, p.name)
     # The four leaves tile each step, in order.
     steps = [i for i, r in enumerate(recs) if r.name == "lm.step"]
@@ -147,29 +141,6 @@ def test_a_fit_records_its_tree(tracing, which):
     assert counted.value == len(steps) == names["lm.step"]
     assert names["wait.lm_done"] == len(steps) // _CHECK_EVERY
     assert 1 <= counted.reading <= counted.value
-
-
-@pytest.mark.parametrize("which", [*FITS, "crosswire_analytic"])
-def test_the_crosswire_counts_its_residual_and_jacobian_evaluations(tracing, which):
-    """One ``us.crosswire_evals`` per residual or Jacobian evaluation: the
-    LM's first cost, then three a step (the residual and the Jacobian of
-    the normal system, the residual at the trial point), frozen steps
-    included; none where no crosswire LM runs."""
-    if which == "crosswire_analytic":
-        _, data = _make("crosswire_iterative")
-        est = CrosswireUSCalibrationEstimator(3.0, ls_type=ANALYTIC)
-        ransac_fused_sweep(est, data, torch.Generator().manual_seed(7), num_hypotheses=512)
-    else:
-        _fit(which)
-    recs = tracing.records()
-    evals = [r for r in recs if r.name == "us.crosswire_evals"]
-    if which != "crosswire_iterative":
-        assert evals == []
-        return
-    (steps,) = [r for r in recs if r.name == "lm.steps"]
-    assert all(r.kind == "count" and r.value == 1 for r in evals)
-    assert len(evals) == 1 + 3 * steps.value and steps.value >= _CHECK_EVERY
-    assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
 
 
 @pytest.mark.parametrize("chunk_cap", [None, 192])
@@ -193,9 +164,8 @@ def test_a_structured_phantom_fit_records_its_tree(tracing, monkeypatch, chunk_c
     names = Counter(r.name for r in recs)
     assert names["sweep"] == names["sweep.prep"] == names["sweep.chunks"] == 1
     assert names["sweep.fit"] == names["sweep.vote"] == chunks
-    assert {"engine.agree", "wait.count", "refit", "refit.start", "lm", "lm.steps",
-            "us.phantom_evals"} <= set(names)
-    assert not {"sweep.launch", "sweep.post", "us.crosswire_evals"} & set(names)
+    assert {"engine.agree", "wait.count", "refit", "refit.start", "lm", "lm.steps"} <= set(names)
+    assert not {"sweep.launch", "sweep.post"} & set(names)
     (sweep,) = [i for i, r in enumerate(recs) if r.name == "sweep"]
     assert recs[recs[sweep].parent].name == "engine.fit"
     kids = [r for r in recs if r.parent == sweep]
@@ -211,31 +181,6 @@ def test_a_structured_phantom_fit_records_its_tree(tracing, monkeypatch, chunk_c
             assert p.start_ns <= r.start_ns <= r.end_ns <= p.end_ns
     (agree,) = [r for r in recs if r.name == "engine.agree"]
     assert recs[agree.parent].name == "engine.fit" and agree.start_ns >= recs[sweep].end_ns
-
-
-@pytest.mark.parametrize("batched", [False, True])
-def test_the_phantom_counts_its_residual_and_jacobian_evaluations(tracing, batched):
-    """One ``us.phantom_evals`` per residual or Jacobian evaluation, the
-    crosswire's relation: the LM's first cost, then three a step (the
-    normal system's residual and ``jacfwd`` Jacobian, whose own residual
-    calls count none, and the trial's residual); a batched LM counts once a
-    call for all its problems."""
-    est, (frames, q) = _make("phantom_iterative")
-    if batched:
-        data = (type(frames)(torch.stack([frames.r] * 2), torch.stack([frames.t] * 2)),
-                torch.stack([q] * 2))
-        est.lsq_fit_batched(data, torch.ones((2, 64), dtype=torch.bool))
-    else:
-        est.lsq_fit((frames, q))
-    recs = tracing.records()
-    (steps,) = [r for r in recs if r.name == "lm.steps"]
-    evals = [r for r in recs if r.name == "us.phantom_evals"]
-    assert all(r.kind == "count" and r.value == 1 for r in evals)
-    assert len(evals) == 1 + 3 * steps.value and steps.value >= _CHECK_EVERY
-    assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
-    tracing.reset()
-    us_calibration._plane_phantom_jacobian(torch.zeros(11, dtype=torch.float64), (frames, q))
-    assert [r.name for r in tracing.records()] == ["us.phantom_evals"]
 
 
 @pytest.mark.parametrize("which", [*FITS, "phantom_iterative"])

@@ -11,11 +11,16 @@ to 1e-9, least-squares fits in both modes to 1e-6 relative with the same
 ``valid``, ``agree`` masks and vote counts exactly, the Jacobians to 1e-12.
 The crosswire's closed-form residual and Jacobian equal
 ``torch.func.jacfwd`` of the residual written out, near the Euler
-gimbal too, with a leading problem axis and in float32.  The drivers
+gimbal too, with a leading problem axis and in float32.  Each of the three
+calibrations' refits (crosswire, pointer, plane phantom; one problem and
+batched) evaluates its residual or Jacobian once for the LM's first cost
+and three times a step, counted on the test's side.  The drivers
 recover the planted calibration at the JAX tests' limits
 (``tests/test_us_calibration.py:33-36``: translations within 1.0, rotation
 within 1 degree, scales within 1.0).
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -32,8 +37,11 @@ from lsqrrecipes_tpu_torch import interop
 from lsqrrecipes_tpu_torch.estimators import us_calibration as tus
 from lsqrrecipes_tpu_torch.geometry import Frame
 from lsqrrecipes_tpu_torch.linalg import LMConfig
+from lsqrrecipes_tpu_torch.linalg.lm import _CHECK_EVERY
 from lsqrrecipes_tpu_torch.ransac import engine
+from lsqrrecipes_tpu_torch.synthetic import make_plane_phantom_data
 from lsqrrecipes_tpu_torch.tree import tree_leaves
+from lsqrrecipes_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -282,6 +290,62 @@ def test_crosswire_lsq_fit_batched_equals_per_problem(ls_type):
         p1, v1 = test.lsq_fit(to_torch(datasets[i]), torch.as_tensor(masks[i]))
         assert bool(v1)
         _close(pb[i].numpy(), p1.numpy(), 1e-10, 1e-10)
+
+
+def _counted(fn, x, data):
+    profiling.count("test.evals", 1)
+    return fn(x, data)
+
+
+def _stack_problems(datasets):
+    frames = [d[0] for d in datasets]
+    return (Frame(torch.stack([f.r for f in frames]), torch.stack([f.t for f in frames])),
+            *(torch.stack(parts) for parts in zip(*(d[1:] for d in datasets))))
+
+
+@pytest.mark.parametrize("kind,batched,ls_type", [
+    ("crosswire", False, tus.ITERATIVE), ("crosswire", True, tus.ITERATIVE),
+    ("crosswire", False, tus.ANALYTIC), ("pointer", False, tus.ITERATIVE),
+    ("pointer", True, tus.ITERATIVE), ("plane_phantom", False, tus.ITERATIVE),
+    ("plane_phantom", True, tus.ITERATIVE)])
+def test_the_lm_evaluates_once_then_three_times_a_step(kind, batched, ls_type, monkeypatch):
+    """The refit's residual and Jacobian evaluations, counted on the
+    test's side around the estimator's own (one problem and batched): the
+    LM's first cost, then three a step (the normal system's residual and
+    Jacobian, the residual at the trial point), frozen steps included; a
+    batched LM evaluates once a call for all its problems; an ANALYTIC
+    refit evaluates none."""
+    if kind == "plane_phantom":
+        est, n = tus.PlanePhantomUSCalibrationEstimator(1.0, ls_type), 64
+        datasets = [make_plane_phantom_data(torch.Generator().manual_seed(3 + i), n=n, sigma=0.5,
+                                            device="cpu")[0] for i in range(2)]
+    else:
+        (_, est), n = make_estimators(kind, ls_type), 60
+        datasets = [to_torch(make_us_data(kind, 60 + i, n)[0]) for i in range(2)]
+    masks = torch.stack([torch.arange(n) % (i + 5) != 0 for i in range(2)])
+    cls = type(est)
+    for name in ("_residual", "_jacobian", "_residual_batched", "_jacobian_batched"):
+        counted = functools.partial(_counted, getattr(cls, name))
+        monkeypatch.setattr(cls, name, staticmethod(counted))
+    profiling.reset()
+    was = profiling.set_tracing(True)
+    try:
+        if batched:
+            est.lsq_fit_batched(_stack_problems(datasets), masks)
+        else:
+            est.lsq_fit(datasets[0], masks[0])
+        recs = profiling.records()
+    finally:
+        profiling.set_tracing(was)
+        profiling.reset()
+    evals = [r for r in recs if r.name == "test.evals"]
+    steps = [r for r in recs if r.name == "lm.steps"]
+    if ls_type == tus.ANALYTIC:
+        assert evals == steps == []
+        return
+    (steps,) = steps
+    assert len(evals) == 1 + 3 * steps.value and steps.value >= _CHECK_EVERY
+    assert [recs[r.parent].name for r in evals[:4]] == ["lm", "lm.normal", "lm.normal", "lm.trial"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
